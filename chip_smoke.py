@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the checkout, holds each against its
-plain PyTorch version on the card, drives the main path (SIS on a random
-3-regular graph, N=4096, T=15, f32, ``bp_sweep(method="sketch")`` at D=10
-and D=20, plus the karate-club graph), checks the results, and times each
-kernel beside its bound.  One JSON line per phase; any failed phase raises.
+Builds the port's CUDA kernels from the checkout (one ``nvcc`` per source,
+all at once), holds each against its plain PyTorch version on the card,
+drives the main paths (SIS on a random 3-regular graph, N=4096, T=15, f32:
+``bp_sweep(method="sketch")`` and ``bp_sweep(method="randomized")`` at D=10
+and D=20; a 4-node tree against enumeration, with ``iterate(polish=2)``;
+the karate-club graph with two ``qr`` polish sweeps), checks the results,
+and times each kernel beside its bound.  Each path runs with the launch
+counts set to 0 just before it and read just after.  One JSON line per
+phase; any failed phase raises.
 The second-to-last line is the ``kernels`` record, the line before it the
 card's name and power limit from ``nvidia-smi``, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -23,14 +27,22 @@ import time
 
 import numpy as np
 
-# published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
-# fp32 FLOP/s outside the tensor cores
+# published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and
+# fp32 and fp64 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12
 
 BENCH_N, BENCH_DEG, BENCH_T = 4096, 3, 15
 TIMED_SWEEPS_D10, TIMED_SWEEPS_D20 = 3, 2
-KARATE_ITERS = 20
+TIMED_RANDOMIZED_D10, TIMED_RANDOMIZED_D20 = 2, 1
+KARATE_ITERS, POLISH_SWEEPS = 20, 2
+# one randomized sweep at the bench shape: 3 merge calls (one bucket, K=3,
+# the direct all-pairs cavity), each with one CholQR per time step 0..T-1
+# and one SVD per step of its truncating sweep; the message and belief
+# conversions take 2 x T SVDs each
+CHOLQR_PER_SWEEP = 3 * BENCH_T
+SVD_PER_SWEEP = 3 * BENCH_T + 2 * 2 * BENCH_T
 
 # tolerances: f64 kernels against f64 plain versions; f32 kernels against
 # f32 plain versions relative to the plain output's max-abs (both round at
@@ -40,6 +52,12 @@ TOL_F64 = 1e-10
 TOL_F32_REL = 1e-4
 TOL_SWEEP_BELIEFS = 1e-3
 TOL_ORACLE = 1e-3
+# CholQR and the Jacobi eigensolver compute in f64 on both sides: f32
+# outputs differ by the rounding of one store (1e-5 of max-abs leaves room
+# for the f64 sums' order amplified by the jitter's 1/sqrt(1e-6)); Q of a
+# Gaussian f32 A is orthonormal to f32 rounding
+TOL_F32_CHOLQR_REL = 1e-5
+TOL_F32_ORTH = 1e-4
 
 KARATE_EDGES = [
     (0, 1), (0, 2), (0, 3), (0, 4), (0, 5), (0, 6), (0, 7), (0, 8), (0, 10),
@@ -148,9 +166,24 @@ def work_mpem3_f(Bn, S, Db, qi, qj, sr, sl, esize):
     return flops, nbytes
 
 
-def bound_ms(flops, nbytes):
-    """Least time for fp32 work: FLOPs at peak or bytes at HBM rate."""
-    t_ops = flops / FP32_FLOP_PER_S
+def work_cholqr(Bn, m, n, esize):
+    """f64 FLOPs (lower-triangle Gram, Cholesky, forward substitution) and
+    bytes (A in, Q and R out) of the CholQR kernel."""
+    flops = Bn * (m * n * (n + 1) + n ** 3 // 3 + m * n * n)
+    return flops, esize * Bn * (2 * m * n + n * n)
+
+
+def work_eigh(Bn, k):
+    """f64 FLOPs a symmetric eigendecomposition with eigenvectors needs,
+    ~9 k^3 per matrix (tridiagonalisation and implicit QR, Golub & Van Loan
+    8.3; the Jacobi kernel itself does ~6x more), and bytes (G in, w and V
+    out)."""
+    return 9 * k ** 3 * Bn, 8 * Bn * (2 * k * k + k)
+
+
+def bound_ms(flops, nbytes, flop_rate=FP32_FLOP_PER_S):
+    """Least time: FLOPs at peak (fp32 unless given) or bytes at HBM rate."""
+    t_ops = flops / flop_rate
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -199,13 +232,15 @@ def phase_device():
 def phase_build():
     from matrixproductbp_tpu_torch.ops import build
     t0 = time.perf_counter()
-    build.library()
+    build.build_all()
     seconds = time.perf_counter() - t0
-    report = [ln.strip() for ln in build.build_log().splitlines()
+    report = [ln.strip() for name in build.SOURCES
+              for ln in build.build_log(name).splitlines()
               if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     for ln in report:
         print("ptxas:", ln, flush=True)
-    emit("build", seconds=seconds, lines=len(report))
+    emit("build", seconds=seconds, sources=list(build.SOURCES),
+         lines=len(report))
 
 
 def phase_kernels():
@@ -247,7 +282,87 @@ def phase_kernels():
                             "ref_max_abs": scale, "tol": tol})
             check(err <= tol, f"{kind} kernels disagree with their plain "
                               f"versions: {results[-1]}")
+    results += cholqr_vs_plain(dev) + eigh_vs_plain(dev)
     emit("kernels_vs_plain", cases=results)
+
+
+def cholqr_vs_plain(dev):
+    """CholQR kernel against its plain version: f64 at small shapes, f32 at
+    the D=10 and D=20 sketch shapes ([s*Y*q, s] = [80, 20], [160, 40]) and
+    the bench batch, on Gaussian A; Q^T Q against I and Q R against A."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import kernels
+    from matrixproductbp_tpu_torch.ops.smallalg import cholqr_unrolled
+    g = torch.Generator(device="cpu").manual_seed(5)
+    rows = []
+    for dtype, shape in ((torch.float64, (7, 24, 8)),
+                         (torch.float64, (5, 80, 20)),
+                         (torch.float32, (2 * BENCH_N, 80, 20)),
+                         (torch.float32, (2 * BENCH_N, 160, 40))):
+        A = torch.randn(shape, generator=g, dtype=torch.float64) \
+            .to(dev, dtype)
+        Q, R = kernels.cholqr(A)
+        Qp, Rp = cholqr_unrolled(A)
+        torch.cuda.synchronize()
+        err, scale = max_err((Q, R), (Qp, Rp))
+        n = shape[-1]
+        Qd = Q.double()
+        orth = float((Qd.transpose(1, 2) @ Qd - torch.eye(
+            n, dtype=torch.float64, device=dev)).abs().max())
+        recon = float((Qd @ R.double() - A.double()).abs().max()
+                      / A.abs().max())
+        f64 = dtype == torch.float64
+        tol = TOL_F64 * max(1.0, scale) if f64 else TOL_F32_CHOLQR_REL * scale
+        rows.append({"kind": "cholqr", "dtype": str(dtype)[6:],
+                     "shape": list(shape), "max_abs_err": err,
+                     "ref_max_abs": scale, "tol": tol, "orth_err": orth,
+                     "recon_rel_err": recon})
+        check(err <= tol, f"CholQR kernel vs plain: {rows[-1]}")
+        check(orth <= (1e-8 if f64 else TOL_F32_ORTH),
+              f"CholQR Q not orthonormal: {rows[-1]}")
+        check(recon <= (1e-12 if f64 else 1e-5),
+              f"CholQR Q R != A: {rows[-1]}")
+    return rows
+
+
+def gram_inputs(Bn, k, dev, seed):
+    """f64 Gram matrices of Gaussian [2k, k] matrices, half of them with
+    the last k/2 columns zero (rank-deficient, as at the sweeps' early time
+    steps)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    X = torch.randn((Bn, 2 * k, k), generator=g, dtype=torch.float64)
+    X[: Bn // 2, :, k // 2:] = 0.0
+    return (X.transpose(1, 2) @ X).to(dev)
+
+
+def eigh_vs_plain(dev):
+    """Jacobi eigen kernel against torch.linalg.eigh (f64): eigenvalues,
+    the reconstruction V diag(w) V^T and V's orthonormality.  k = 20 and
+    40 (D=10 and D=20) at the message conversion's batch; torch.linalg.eigh
+    runs one matrix per launch at k = 40 (~6 s for this batch)."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import smallsvd
+    rows = []
+    for k, Bn in ((5, 7), (20, BENCH_N * BENCH_DEG),
+                  (40, BENCH_N * BENCH_DEG), (64, 16)):
+        G = gram_inputs(Bn, k, dev, k)
+        w, V = smallsvd.eigh_desc(G)
+        wp, _ = smallsvd.eigh_desc_plain(G)
+        torch.cuda.synchronize()
+        scale = float(G.abs().max())
+        err = float((w - wp).abs().max())
+        recon = float(((V * w[..., None, :]) @ V.transpose(1, 2) - G)
+                      .abs().max())
+        orth = float((V.transpose(1, 2) @ V - torch.eye(
+            k, dtype=torch.float64, device=dev)).abs().max())
+        rows.append({"kind": "jacobi_eigh", "dtype": "float64", "k": k,
+                     "B": Bn, "max_abs_err": err, "ref_max_abs": scale,
+                     "recon_err": recon, "orth_err": orth,
+                     "tol": TOL_F64 * scale})
+        check(max(err, recon) <= TOL_F64 * scale and orth <= TOL_F64,
+              f"Jacobi eigen kernel vs plain: {rows[-1]}")
+    return rows
 
 
 @contextlib.contextmanager
@@ -265,18 +380,37 @@ def plain_scans():
             setattr(fs, n, f)
 
 
-def reset_counts():
+@contextlib.contextmanager
+def plain_linalg():
+    """Route CholQR and the Jacobi eigensolver through their plain versions
+    (on the card)."""
+    from matrixproductbp_tpu_torch.ops import kernels, smallsvd
+    from matrixproductbp_tpu_torch.ops.smallalg import cholqr_unrolled
+    saved = kernels.batched_cholqr, smallsvd.eigh_desc
+    try:
+        kernels.batched_cholqr = cholqr_unrolled
+        smallsvd.eigh_desc = smallsvd.eigh_desc_plain
+        yield
+    finally:
+        kernels.batched_cholqr, smallsvd.eigh_desc = saved
+
+
+def _wrappers():
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
-    for w in (fs.merge_wscan, fs.merge_fscan, fs.mpem3_wscan, fs.mpem3_fscan):
+    from matrixproductbp_tpu_torch.ops import kernels, smallsvd
+    return {"merge_w": fs.merge_wscan, "merge_f": fs.merge_fscan,
+            "mpem3_w": fs.mpem3_wscan, "mpem3_f": fs.mpem3_fscan,
+            "cholqr": kernels.batched_cholqr,
+            "jacobi_eigh": smallsvd.eigh_desc}
+
+
+def reset_counts():
+    for w in _wrappers().values():
         w.launches = 0
 
 
 def read_counts():
-    from matrixproductbp_tpu_torch.ops import fused_stta as fs
-    return {"merge_w": fs.merge_wscan.launches,
-            "merge_f": fs.merge_fscan.launches,
-            "mpem3_w": fs.mpem3_wscan.launches,
-            "mpem3_f": fs.mpem3_fscan.launches}
+    return {name: w.launches for name, w in _wrappers().items()}
 
 
 def phase_accuracy():
@@ -291,16 +425,27 @@ def phase_accuracy():
     sis = SIS(g, lam=0.2, rho=0.1, T=3, gamma=0.3)
     b_ex = exact.exact_marginals(mpbp_sis(sis, D=10, device="cpu"))
     errs = {}
-    for dev in ("cuda", "cpu"):
+    legs = (("cuda", "sketch", 0), ("cpu", "sketch", 0),
+            ("cuda", "sketch", POLISH_SWEEPS), ("cuda", "randomized", 0))
+    for dev, method, polish in legs:
         bp = mpbp_sis(sis, D=10, dtype=torch.float32, device=dev)
         bp, _, _ = tp.iterate(bp, maxiter=10, trunc=tp.TruncBond(10),
-                              tol=0.0, method="sketch")
-        errs[dev] = float(np.abs(tp.beliefs(bp).double().cpu().numpy()
-                                 - b_ex).max())
-    tol = TOL_ORACLE if errs["cpu"] <= TOL_ORACLE else 2 * errs["cpu"]
-    emit("accuracy", belief_err_card_f32=errs["cuda"],
-         belief_err_cpu_plain_f32=errs["cpu"], tol=tol)
-    check(errs["cuda"] <= tol, f"beliefs off the oracle: {errs}")
+                              tol=0.0, method=method, polish=polish)
+        errs[(dev, method, polish)] = float(np.abs(
+            tp.beliefs(bp).double().cpu().numpy() - b_ex).max())
+    plain = errs[("cpu", "sketch", 0)]
+    tol = TOL_ORACLE if plain <= TOL_ORACLE else 2 * plain
+    emit("accuracy", belief_err_card_f32=errs[("cuda", "sketch", 0)],
+         belief_err_cpu_plain_f32=plain,
+         belief_err_card_f32_sketch_polish2=errs[
+             ("cuda", "sketch", POLISH_SWEEPS)],
+         belief_err_card_f32_randomized=errs[("cuda", "randomized", 0)],
+         tol=tol, tol_polish_randomized=TOL_ORACLE)
+    check(errs[("cuda", "sketch", 0)] <= tol, f"beliefs off the oracle: "
+                                               f"{errs}")
+    check(errs[("cuda", "sketch", POLISH_SWEEPS)] <= TOL_ORACLE
+          and errs[("cuda", "randomized", 0)] <= TOL_ORACLE,
+          f"polished or randomized beliefs off the oracle: {errs}")
 
 
 def bench_state(D, dtype):
@@ -311,21 +456,21 @@ def bench_state(D, dtype):
     return mpbp_sis(sis, D=D, dtype=dtype, device="cuda")
 
 
-def timed_main_path(D, sweeps):
+def timed_main_path(D, sweeps, method="sketch"):
     """Warm-up sweep, then ``sweeps`` timed sweeps with the launch counts
     set to 0 just before and read just after."""
     import torch
     import matrixproductbp_tpu_torch as tp
     bp0 = bench_state(D, torch.float32)
     trunc = tp.TruncBond(D)
-    bp1 = tp.bp_sweep(bp0, trunc, method="sketch")
+    bp1 = tp.bp_sweep(bp0, trunc, method=method)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     cur = bp1
     for _ in range(sweeps):
-        cur = tp.bp_sweep(cur, trunc, method="sketch")
+        cur = tp.bp_sweep(cur, trunc, method=method)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / sweeps
     counts = read_counts()
@@ -334,8 +479,8 @@ def timed_main_path(D, sweeps):
     check(bool(torch.isfinite(b).all()), f"D={D}: beliefs not finite")
     check(bool(torch.isfinite(cur.f).all()), f"D={D}: f not finite")
     E = bp0.graph.E
-    return bp0, bp1, {"D": D, "N": bp0.N, "E": E, "T": BENCH_T,
-                      "sweeps": sweeps, "s_per_sweep": dt,
+    return bp0, bp1, {"method": method, "D": D, "N": bp0.N, "E": E,
+                      "T": BENCH_T, "sweeps": sweeps, "s_per_sweep": dt,
                       "edge_updates_per_s": E / dt, "peak_bytes": peak,
                       "launches": counts}
 
@@ -344,7 +489,8 @@ def phase_main_d10():
     import torch
     import matrixproductbp_tpu_torch as tp
     bp0, bp1, res = timed_main_path(10, TIMED_SWEEPS_D10)
-    want = {"merge_w": 3, "merge_f": 3, "mpem3_w": 2, "mpem3_f": 2}
+    want = {"merge_w": 3, "merge_f": 3, "mpem3_w": 2, "mpem3_f": 2,
+            "cholqr": 0, "jacobi_eigh": 0}
     per_sweep = {k: v / TIMED_SWEEPS_D10 for k, v in res["launches"].items()}
     check(per_sweep == want, f"launches per sweep {per_sweep}, want {want}")
     with plain_scans():
@@ -358,7 +504,7 @@ def phase_main_d10():
     return res["launches"], bp1
 
 
-def phase_profile(bp):
+def phase_profile(bp, method="sketch"):
     """One D=10 sweep under torch.profiler: device time by kernel name and
     the device's busy share of the (profiled) wall time."""
     import torch
@@ -368,7 +514,7 @@ def phase_profile(bp):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tp.bp_sweep(bp, tp.TruncBond(bp.D), method="sketch")
+        tp.bp_sweep(bp, tp.TruncBond(bp.D), method=method)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side kernel entries only: the CPU-side operator entries carry
@@ -378,12 +524,21 @@ def phase_profile(bp):
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    scans = ("merge_w_kernel<", "merge_f_kernel<", "mpem3_w_kernel<",
-             "mpem3_f_kernel<")
-    ours = sum(us for us, _, k in rows if any(n in k for n in scans)) / 1e6
-    emit("profile_d10", wall_s=wall, device_busy_s=busy,
-         busy_share=busy / wall, scan_kernels_s=ours,
-         kernels_named=len(rows),
+
+    def named(*parts):
+        hit = [(us, c) for us, c, k in rows if any(p in k for p in parts)]
+        return sum(us for us, _ in hit) / 1e6, sum(c for _, c in hit)
+
+    ours_s, _ = named("merge_w_kernel<", "merge_f_kernel<",
+                      "mpem3_w_kernel<", "mpem3_f_kernel<", "cholqr_kernel<",
+                      "jacobi_eigh_kernel")
+    svd_s, svd_n = named("jacobi_eigh_kernel", "gesvd", "syevj", "syevd")
+    qr_s, qr_n = named("cholqr_kernel<", "geqrf", "orgqr", "ormqr",
+                       "householder")
+    emit(f"profile_{method}_d10", wall_s=wall, device_busy_s=busy,
+         busy_share=busy / wall, hand_kernels_s=ours_s,
+         svd_launches=svd_n, svd_device_s=svd_s, qr_launches=qr_n,
+         qr_device_s=qr_s, kernels_named=len(rows),
          top=[{"name": k, "device_ms": us / 1e3, "count": c}
               for us, c, k in rows[:16]])
 
@@ -391,8 +546,36 @@ def phase_profile(bp):
 def phase_main_d20():
     res = timed_main_path(20, TIMED_SWEEPS_D20)[2]
     emit("main_d20", **res)
-    check(all(v > 0 for v in res["launches"].values()),
-          f"D=20: a kernel was not launched: {res['launches']}")
+    scans = ("merge_w", "merge_f", "mpem3_w", "mpem3_f")
+    check(all(res["launches"][k] > 0 for k in scans),
+          f"D=20: a scan kernel was not launched: {res['launches']}")
+
+
+def phase_main_randomized(D, sweeps):
+    """The randomized path at the bench shape: exact CholQR and SVD launch
+    counts per sweep, finite beliefs; at D=10 also one sweep through the
+    kernels against the same sweep through their plain versions."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    bp0, bp1, res = timed_main_path(D, sweeps, method="randomized")
+    per_sweep = {k: v / sweeps for k, v in res["launches"].items()}
+    want = {"merge_w": 0, "merge_f": 0, "mpem3_w": 0, "mpem3_f": 0,
+            "cholqr": CHOLQR_PER_SWEEP, "jacobi_eigh": SVD_PER_SWEEP}
+    res.update(launches_per_sweep=per_sweep)
+    if D == 10:
+        with plain_linalg():
+            bp1p = tp.bp_sweep(bp0, tp.TruncBond(D), method="randomized")
+        torch.cuda.synchronize()
+        res.update(one_sweep_belief_diff_vs_plain=float(
+            (tp.beliefs(bp1) - tp.beliefs(bp1p)).abs().max()),
+            tol=TOL_SWEEP_BELIEFS)
+    emit(f"main_randomized_d{D}", **res)
+    check(per_sweep == want, f"randomized D={D}: launches per sweep "
+                             f"{per_sweep}, want {want}")
+    if D == 10:
+        check(res["one_sweep_belief_diff_vs_plain"] <= TOL_SWEEP_BELIEFS,
+              f"randomized kernel sweep vs plain sweep: {res}")
+    return res["launches"], bp1
 
 
 def phase_karate():
@@ -411,9 +594,19 @@ def phase_karate():
     dt = time.perf_counter() - t0
     b = tp.beliefs(bp)
     check(bool(torch.isfinite(b).all()), "karate: beliefs not finite")
+    t0 = time.perf_counter()
+    bpp, _, _ = tp.iterate(bp, maxiter=0, trunc=tp.TruncBond(10),
+                           method="sketch", polish=POLISH_SWEEPS)
+    torch.cuda.synchronize()
+    dt_polish = time.perf_counter() - t0
+    bp_ = tp.beliefs(bpp)
+    check(bool(torch.isfinite(bp_).all()), "karate polish: beliefs not "
+                                           "finite")
     emit("karate", N=34, T=50, D=10, iters=n, seconds=dt,
-         last_delta=deltas[-1], buckets=[int(k) for _, k in
-                                         tp.bp._degree_buckets(g)])
+         last_delta=deltas[-1], polish_sweeps=POLISH_SWEEPS,
+         polish_seconds=dt_polish,
+         polish_belief_change=float((bp_ - b).abs().max()),
+         buckets=[int(k) for _, k in tp.bp._degree_buckets(g)])
 
 
 def time_cuda(fn, n):
@@ -481,6 +674,57 @@ def phase_kernel_times(launches, D=10, reps=10):
     return rows
 
 
+def phase_linalg_kernel_times(launches, D=10, reps=10):
+    """CholQR at the randomized merge's bench shape ([8192, s*Y*q, s], s =
+    2D) and the Jacobi eigensolver at the message conversion's ([12288, k,
+    k], k = 2D, the Gram of a Gaussian [2k, k] half of them rank-deficient),
+    CUDA events over ``reps`` launches, beside the bound, the plain
+    version's time and one PyTorch call's (torch.linalg.qr: the same thin QR
+    up to column signs; torch.linalg.eigh: the same eigendecomposition)."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import kernels, smallsvd
+    from matrixproductbp_tpu_torch.ops.smallalg import cholqr_unrolled
+    dev = torch.device("cuda")
+    s = 2 * D
+    g = torch.Generator(device="cpu").manual_seed(13)
+    A = torch.randn((2 * BENCH_N, 4 * s, s), generator=g).to(dev)
+    Bm = BENCH_N * BENCH_DEG
+    G = gram_inputs(Bm, s, dev, 14)
+    rows = []
+    cases = [
+        ("cholqr", lambda: kernels.cholqr(A), lambda: cholqr_unrolled(A),
+         lambda: torch.linalg.qr(A),
+         bound_ms(*work_cholqr(2 * BENCH_N, 4 * s, s, 4), FP64_FLOP_PER_S),
+         "matrixproductbp_tpu_torch/csrc/cholqr.cu",
+         "matrixproductbp_tpu/ops/kernels.py:61",
+         {"shape": list(A.shape), "dtype": "float32"}),
+        ("jacobi_eigh", lambda: smallsvd.eigh_desc(G),
+         lambda: smallsvd.eigh_desc_plain(G), lambda: torch.linalg.eigh(G),
+         bound_ms(*work_eigh(Bm, s), FP64_FLOP_PER_S),
+         "matrixproductbp_tpu_torch/csrc/jacobi_eigh.cu",
+         "matrixproductbp_tpu/ops/tensortrain.py:420",
+         {"shape": list(G.shape), "dtype": "float64"}),
+    ]
+    for name, kern, plain, lib, (bms, by), src, line, extra in cases:
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        if name == "cholqr":
+            err, _ = max_err(tuple(out), tuple(ref))
+        else:   # eigenvectors are fixed up to sign: compare eigenvalues
+            err, _ = max_err(out[0], ref[0])
+        slow = D > 10 and name == "jacobi_eigh"   # k > 32: one per launch
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": line,
+            "launches": launches[name], "max_abs_err": err,
+            "ms": time_cuda(kern, reps),
+            "plain_ms": time_cuda(plain, 1 if slow else 2),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": time_cuda(lib, 1 if slow else 2), **extra})
+        emit(f"kernel_time_d{D}", **rows[-1])
+        del out, ref
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -497,9 +741,15 @@ def main():
     phase_profile(bp_d10)
     del bp_d10
     phase_main_d20()
+    rlaunches, bp_r10 = phase_main_randomized(10, TIMED_RANDOMIZED_D10)
+    phase_profile(bp_r10, method="randomized")
+    del bp_r10
+    phase_main_randomized(20, TIMED_RANDOMIZED_D20)
     phase_karate()
     rows = phase_kernel_times(launches)
+    rows += phase_linalg_kernel_times(rlaunches)
     phase_kernel_times(launches, D=20, reps=3)
+    phase_linalg_kernel_times(rlaunches, D=20, reps=3)
     emit("done", seconds=time.perf_counter() - t0)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -5,16 +5,21 @@ The JAX package stays the reference; this package keeps its module names,
 argument orders and array layouts.  It imports torch and numpy only.  Entry
 points that make state (``mpbp``, ``mpbp_sis``, ``from_numpy_state``) place
 it on the CUDA card unless the caller passes ``device="cpu"``; every later
-call runs on the state's device.  The sketch sweep's four time scans are
-hand-written CUDA kernels (``csrc/stta_scans.cu``) built with ``nvcc`` at
-first use; on CPU tensors their plain PyTorch versions run instead.
+call runs on the state's device.  ``bp_sweep`` and ``iterate`` run
+``method="sketch"``, ``"qr"`` and ``"randomized"``, damping and
+``iterate(polish=n)``.  The hand-written CUDA kernels (``csrc/*.cu``: the
+sketch sweep's four time scans, the randomized merge's CholQR, and the
+batched Jacobi eigensolver behind the card's small SVDs) are built with
+``nvcc`` at first use; on CPU tensors their plain PyTorch versions run
+instead.
 """
 
 from .graph import (Graph, graph_from_edges, random_regular_graph,
                     random_tree, path_graph)
 from .factors import RecursiveFactorTables, transition_probs
-from .ops.truncation import SVDTrunc, TruncThresh, TruncBond, default_truncator
-from .ops.tensortrain import TensorTrain
+from .ops.truncation import (SVDTrunc, TruncThresh, TruncBond, TruncBondMax,
+                             TruncBondThresh, default_truncator)
+from .ops.tensortrain import TensorTrain, compress
 from .ops.stta import SeededSketches
 from .bp import (MPBP, mpbp, bp_sweep, iterate, beliefs, means,
                  bethe_free_energy, resolve_device)
@@ -23,7 +28,8 @@ from .convert import from_numpy_state, to_numpy_state
 __all__ = [
     "Graph", "graph_from_edges", "random_regular_graph", "random_tree",
     "path_graph", "RecursiveFactorTables", "transition_probs",
-    "SVDTrunc", "TruncThresh", "TruncBond", "default_truncator",
-    "TensorTrain", "SeededSketches", "MPBP", "mpbp", "bp_sweep", "iterate", "beliefs", "means", "bethe_free_energy",
+    "SVDTrunc", "TruncThresh", "TruncBond", "TruncBondMax", "TruncBondThresh",
+    "default_truncator", "TensorTrain", "compress", "SeededSketches", "MPBP",
+    "mpbp", "bp_sweep", "iterate", "beliefs", "means", "bethe_free_energy",
     "resolve_device", "from_numpy_state", "to_numpy_state",
 ]

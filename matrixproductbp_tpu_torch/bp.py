@@ -1,18 +1,27 @@
-"""MPBP state and the node-batched sketch sweep.
+"""MPBP state and the node-batched sweep.
 
 Counterpart of ``matrixproductbp_tpu/bp.py``.  All edge messages live in one
 padded tensor ``msg_cores[E, T1, D, D, q*q]`` (plus ``msg_logz[E]``), beliefs
 likewise.  One sweep updates every node at once (Jacobi): per degree bucket
-it lifts the in-messages to y-space, forms the all-but-one cavity folds with
-the sketch merge, contracts each cavity with the transition table into an
-MPEM3 and converts it to a bond-D message with the sketch conversion; the
-belief comes from the full fold.  The merges and conversions run through the
-Hopper scan kernels (``ops/fused_stta.py``) on the card and through their
-plain versions on the CPU.
+it lifts the in-messages to y-space, forms the all-but-one cavity folds,
+contracts each cavity with the transition table into an MPEM3 and converts
+it to a bond-D message; the belief comes from the full fold.  Every step
+runs over the whole bucket at once, in place of the JAX package's ``vmap``.
 
-The port covers ``method="sketch"`` on open trains with time-constant,
-dense-``prob_yy`` tables.  Options not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+Three compression methods share the lift and the folds:
+
+* ``method="sketch"``: sketch merges and sketch conversions through the
+  Hopper scan kernels (``ops/fused_stta.py``);
+* ``method="qr"``: Kronecker merges compressed by QR and truncating SVD
+  sweeps, conversions by the SVD regrouping sweep (``ops/mpem.py``) and a
+  truncating sweep;
+* ``method="randomized"``: the ``qr`` conversions with the randomized
+  merge (``ops/randomized.py``), whose thin QR is the CholQR kernel.
+
+``damp > 0`` mixes every new message with the old one on each method, and
+``iterate(polish=n)`` ends with ``n`` undamped ``qr`` sweeps.  The port
+covers open trains with time-constant, dense-``prob_yy`` tables; options not
+ported yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,8 +34,11 @@ import torch
 from .factors import RecursiveFactorTables
 from .graph import Graph
 from .ops import fused_stta
-from .ops.tensortrain import (TensorTrain, _fit_axis, _safe_scale, flat_tt,
-                              marginals, normalize)
+from .ops.mpem import mpem3_to_mpem2
+from .ops.randomized import merge_rounded
+from .ops.tensortrain import (TensorTrain, _fit_axis, _safe_scale, compress,
+                              flat_tt, marginals, normalize,
+                              normalize_eachmatrix, tt_sum)
 from .ops.truncation import SVDTrunc, default_truncator
 
 __all__ = ["GraphArrays", "MPBP", "mpbp", "bp_sweep", "iterate", "beliefs",
@@ -143,114 +155,186 @@ def mpbp(graph: Graph, tables: RecursiveFactorTables, T: int, D: int,
 # the sweep
 # ---------------------------------------------------------------------------
 
-def _bucket_update_batched(msgs_in_c, msgs_in_lz, psi_out, mask, Py_b, Pyp_b,
-                           Pxy_b, Py0_b, phi_b, deg_b, pyy_b, Dm: int, Dc: int,
-                           sketches=None):
-    """Whole-bucket sketch update (``bp.py:469-696`` without damping).
+def _merge(Lc, Llz, Rc, Rlz, pyy, trunc: SVDTrunc, Dout: int, Y: int, q: int,
+           method: str = "qr", sketches=None):
+    """op for the SVD methods, batched (``bp.py:178-211``): Hadamard on x_i,
+    ``prob_yy`` contraction on y, Kronecker on bonds, then truncate.
 
-    msgs_in_c: [Nb, K, T1, Dm, Dm, q*q]; tables bucket-cropped with node axis
-    1 (broadcast) or Nb; ``pyy_b[0]`` is shared across nodes.  Returns
-    (out_cores [Nb, K, ...], out_logz [Nb, K], bel_cores, bel_logz, f)."""
-    Nb, K, T1 = msgs_in_c.shape[:3]
-    q = phi_b.shape[-1]
+    Lc [B, T1, DL, DL, Y*q], Rc [B, T1, DR, DR, Y*q], pyy [Y, Y, Y, q] shared
+    -> (cores [B, T1, Dout, Dout, Y*q], logz [B])."""
+    if method == "randomized":
+        return merge_rounded(Lc, Llz, Rc, Rlz, pyy, trunc, Dout, Y, q,
+                             sketches)
+    Bn, T1, DL = Lc.shape[:3]
+    DR = Rc.shape[2]
+    L = Lc.reshape(Bn, T1, DL, DL, Y, q)
+    R = Rc.reshape(Bn, T1, DR, DR, Y, q)
+    tmp = torch.einsum("yabx,ztmnax->ztmnybx", pyy, L)
+    M = torch.einsum("ztmnybx,ztuvbx->ztmunvyx", tmp, R)
+    tt = TensorTrain(M.reshape(Bn, T1, DL * DR, DL * DR, Y * q), Llz + Rlz,
+                     (Y, q))
+    tt = normalize_eachmatrix(compress(tt, trunc, Dout=Dout))
+    return tt.cores, tt.logz
+
+
+class _Lifted(NamedTuple):
+    """A bucket's in-messages lifted to y-space, with the fold's pieces."""
+    B: torch.Tensor          # [Nb, K, T1, Dm, Dm, Y*q]; padded slots = ident
+    Blz: torch.Tensor        # [Nb, K]
+    ident: torch.Tensor      # [Nb, T1, Dm, Dm, Y*q], the prob_y0 one-hot
+    pyy_at: object           # d1 -> prob_yy [Y, Y, Y, q]
+    embed_first: object      # op(init, B): a y-relabelling
+    embed_second: object     # op(B, init)
+    pad_dc: object           # embed a Dm-bond train into capacity Dc
+
+
+def _lift(msgs_in_c, msgs_in_lz, psi_out, mask, Pxy_b, Py0_b, pyy_b,
+          Dc: int) -> _Lifted:
+    """Lift a bucket's incoming messages to y-space
+    (``recursive_bp_factor.jl:108-115``); padded slots become the identity
+    element of op.  ``Pxy_b``, ``Py0_b`` carry a node axis of Nb (expanded
+    by :func:`_expand`); ``pyy_b[0]`` is shared across nodes."""
+    Nb, K, T1, Dm = msgs_in_c.shape[:4]
+    q = psi_out.shape[-1]
     Y = Py0_b.shape[-2]
-    dtype, dev = msgs_in_c.dtype, msgs_in_c.device
-    YP = Y * q
-
-    def bc(t):
-        return t.expand((Nb,) + t.shape[1:])
-
-    Py_b, Pyp_b, Pxy_b, Py0_b = map(bc, (Py_b, Pyp_b, Pxy_b, Py0_b))
-    pyy0 = pyy_b[0]                          # [K', Y, Y, Y, q] shared
-    nYY = pyy0.shape[0]
-
-    def pyy_at(d1):
-        return pyy0[min(d1, nYY - 1)]
-
-    # ---- lift incoming messages to y-space; padded slots -> identity -------
     A = msgs_in_c.reshape(Nb, K, T1, Dm, Dm, q, q)
     B = torch.einsum("zkyci,zktic,zktmnci->zktmnyi", Pxy_b, psi_out, A)
-    ident = torch.zeros((Nb, T1, Dm, Dm, Y, q), dtype=dtype, device=dev)
+    ident = B.new_zeros((Nb, T1, Dm, Dm, Y, q))
     ident[:, :, 0, 0] = Py0_b[:, None]
     B = torch.where(mask[:, :, None, None, None, None, None], B,
                     ident[:, None])
-    B = B.reshape(Nb, K, T1, Dm, Dm, YP)
     Blz = torch.where(mask, msgs_in_lz, torch.zeros_like(msgs_in_lz))
+    pyy0 = pyy_b[0]                          # [K', Y, Y, Y, q] shared
 
-    def mrg(lc, llz, rc, rlz, pk):
-        return fused_stta.merge_stta_fused(lc, llz, rc, rlz, pk, Dc, Y, q,
-                                           sketches)
+    def pyy_at(d1):
+        return pyy0[min(d1, pyy0.shape[0] - 1)]
+
+    def embed_first(Bc, Blz_):
+        W = torch.einsum("yabx,zax->zybx", pyy_at(0), Py0_b)
+        out = torch.einsum("zybx,ztmnbx->ztmnyx", W,
+                           Bc.reshape(Nb, T1, Dm, Dm, Y, q))
+        return out.reshape(Nb, T1, Dm, Dm, Y * q), Blz_
+
+    def embed_second(Bc, Blz_):
+        W = torch.einsum("yabx,zbx->zyax", pyy_at(1), Py0_b)
+        out = torch.einsum("zyax,ztmnax->ztmnyx", W,
+                           Bc.reshape(Nb, T1, Dm, Dm, Y, q))
+        return out.reshape(Nb, T1, Dm, Dm, Y * q), Blz_
 
     def pad_dc(c):
         return _fit_axis(_fit_axis(c, 2, Dc), 3, Dc)
 
-    def embed_first_b(Bc_z, Blz_z):
-        """op(init, B): a y-relabelling, no bond growth."""
-        Bf = Bc_z.reshape(Nb, T1, Dm, Dm, Y, q)
-        W = torch.einsum("yabx,zax->zybx", pyy_at(0), Py0_b)
-        out = torch.einsum("zybx,ztmnbx->ztmnyx", W, Bf)
-        return out.reshape(Nb, T1, Dm, Dm, YP), Blz_z
+    return _Lifted(B.reshape(Nb, K, T1, Dm, Dm, Y * q), Blz,
+                   ident.reshape(Nb, T1, Dm, Dm, Y * q), pyy_at, embed_first,
+                   embed_second, pad_dc)
 
-    def embed_second_b(Bc_z, Blz_z):
-        """op(B, init)."""
-        Bf = Bc_z.reshape(Nb, T1, Dm, Dm, Y, q)
-        W = torch.einsum("yabx,zbx->zyax", pyy_at(1), Py0_b)
-        out = torch.einsum("zyax,ztmnax->ztmnyx", W, Bf)
-        return out.reshape(Nb, T1, Dm, Dm, YP), Blz_z
 
-    # ---- cavity folds -------------------------------------------------------
+def _expand(Nb: int, *tables):
+    """Broadcast bucket-cropped tables with a node axis of 1 to Nb."""
+    return [t.expand((Nb,) + t.shape[1:]) for t in tables]
+
+
+def _cavity_folds(lf: _Lifted, mrg, direct_k3: bool, pad_pairs: bool):
+    """All-but-one folds of op over each node's slots, every fold step
+    batched over the bucket (``bp.py:330-421``, ``:552-603``).
+
+    ``mrg(lc, llz, rc, rlz, d1)`` merges with ``prob_yy[d1]``.  K = 3 takes
+    the direct all-pairs scheme when ``direct_k3`` (two merge levels; with
+    ``pad_pairs`` the second level's bare slots are padded to Dc first, as
+    in the JAX package's ``_node_update``); otherwise prefix/suffix folds
+    with C_k = op(L_k, R_{k+1}).  Returns (Cs_c [Nb, K, ...], Cs_lz [Nb, K],
+    full_c, full_lz)."""
+    B, Blz, pad_dc = lf.B, lf.Blz, lf.pad_dc
+    Nb, K = B.shape[:2]
     if K == 1:
-        full_c, full_lz = embed_first_b(B[:, 0], Blz[:, 0])
-        full_c = pad_dc(full_c)
-        Cs_c = pad_dc(ident.reshape(Nb, T1, Dm, Dm, YP))[:, None]
-        Cs_lz = torch.zeros((Nb, 1), dtype=dtype, device=dev)
-    elif K == 2:
-        L1c, L1lz = embed_first_b(B[:, 0], Blz[:, 0])
-        R1c, R1lz = embed_second_b(B[:, 1], Blz[:, 1])
+        full_c, full_lz = lf.embed_first(B[:, 0], Blz[:, 0])
+        Cs_c = pad_dc(lf.ident)[:, None]
+        return Cs_c, Blz.new_zeros((Nb, 1)), pad_dc(full_c), full_lz
+    if K == 2:
+        L1c, L1lz = lf.embed_first(B[:, 0], Blz[:, 0])
+        R1c, R1lz = lf.embed_second(B[:, 1], Blz[:, 1])
         L1c, R1c = pad_dc(L1c), pad_dc(R1c)
-        full_c, full_lz = mrg(L1c, L1lz, B[:, 1], Blz[:, 1], pyy_at(1))
-        Cs_c = torch.stack([R1c, L1c], dim=1)
-        Cs_lz = torch.stack([R1lz, L1lz], dim=1)
-    elif K == 3:
-        # direct all-pairs scheme: C0 = op(B1, B2) and C2 = op(B0, B1) in one
-        # merge, then C1 = op(B0, B2) and the full fold op(C2, B2)
-        P1c, P1lz = mrg(
-            torch.cat([B[:, 1], B[:, 0]]), torch.cat([Blz[:, 1], Blz[:, 0]]),
-            torch.cat([B[:, 2], B[:, 1]]), torch.cat([Blz[:, 2], Blz[:, 1]]),
-            pyy_at(1))
+        full_c, full_lz = mrg(L1c, L1lz, B[:, 1], Blz[:, 1], 1)
+        return (torch.stack([R1c, L1c], dim=1),
+                torch.stack([R1lz, L1lz], dim=1), full_c, full_lz)
+    if K == 3 and direct_k3:
+        # C0 = op(B1, B2) and C2 = op(B0, B1) in one merge, then
+        # C1 = op(B0, B2) and the full fold op(C2, B2)
+        P1c, P1lz = mrg(torch.cat([B[:, 1], B[:, 0]]),
+                        torch.cat([Blz[:, 1], Blz[:, 0]]),
+                        torch.cat([B[:, 2], B[:, 1]]),
+                        torch.cat([Blz[:, 2], Blz[:, 1]]), 1)
         C0c, C2c = P1c[:Nb], P1c[Nb:]
         C0lz, C2lz = P1lz[:Nb], P1lz[Nb:]
-        C1c, C1lz = mrg(B[:, 0], Blz[:, 0], B[:, 2], Blz[:, 2], pyy_at(1))
-        full_c, full_lz = mrg(C2c, C2lz, B[:, 2], Blz[:, 2], pyy_at(2))
-        Cs_c = torch.stack([C0c, C1c, C2c], dim=1)
-        Cs_lz = torch.stack([C0lz, C1lz, C2lz], dim=1)
-    else:
-        # prefix/suffix folds, each fold step batched over the bucket
-        Lc, Llz = embed_first_b(B[:, 0], Blz[:, 0])
-        Lc = pad_dc(Lc)
-        Ls = [(Lc, Llz)]                        # Ls[j] = L_{j+1}
-        for k in range(1, K):
-            Lc, Llz = mrg(Lc, Llz, B[:, k], Blz[:, k], pyy_at(k))
-            Ls.append((Lc, Llz))
-        full_c, full_lz = Ls.pop()              # L_K, the full fold
-        Rc, Rlz = embed_second_b(B[:, K - 1], Blz[:, K - 1])
-        Rc = pad_dc(Rc)
-        Rs = [(Rc, Rlz)]                        # R_{K-1}, ..., R_1
-        for k in range(K - 2, 0, -1):
-            Rc, Rlz = mrg(B[:, k], Blz[:, k], Rc, Rlz, pyy_at(1))
-            Rs.append((Rc, Rlz))
-        Rs = Rs[::-1]                           # Rs[j] = R_{j+1}
-        # C_0 = R_1; C_{K-1} = L_{K-1}; interior C_k = op(L_k, R_{k+1}).
-        # The JAX package's batched branch (bp.py:583-601) pairs R_{k+1}
-        # with L_{k+1}, one prefix too far; its vmapped _node_update and
-        # the enumeration oracle agree with the pairing here.
-        Cs = [Rs[0]]
-        for k in range(1, K - 1):
-            Cs.append(mrg(Ls[k - 1][0], Ls[k - 1][1], Rs[k][0], Rs[k][1],
-                          pyy_at(k)))
-        Cs.append(Ls[K - 2])
-        Cs_c = torch.stack([c for c, _ in Cs], dim=1)
-        Cs_lz = torch.stack([z for _, z in Cs], dim=1)
+        B0, B2 = (pad_dc(B[:, 0]), pad_dc(B[:, 2])) if pad_pairs else \
+            (B[:, 0], B[:, 2])
+        C1c, C1lz = mrg(B0, Blz[:, 0], B2, Blz[:, 2], 1)
+        full_c, full_lz = mrg(C2c, C2lz, B2, Blz[:, 2], 2)
+        return (torch.stack([C0c, C1c, C2c], dim=1),
+                torch.stack([C0lz, C1lz, C2lz], dim=1), full_c, full_lz)
+    Lc, Llz = lf.embed_first(B[:, 0], Blz[:, 0])
+    Ls = [(pad_dc(Lc), Llz)]                  # Ls[j] = L_{j+1}
+    for k in range(1, K):
+        Ls.append(mrg(*Ls[-1], B[:, k], Blz[:, k], k))
+    full_c, full_lz = Ls.pop()                # L_K, the full fold
+    Rc, Rlz = lf.embed_second(B[:, K - 1], Blz[:, K - 1])
+    Rs = [(pad_dc(Rc), Rlz)]                  # R_{K-1}, ..., R_1
+    for k in range(K - 2, 0, -1):
+        Rs.append(mrg(B[:, k], Blz[:, k], *Rs[-1], 1))
+    Rs = Rs[::-1]                             # Rs[j] = R_{j+1}
+    # C_0 = R_1; C_{K-1} = L_{K-1}; interior C_k = op(L_k, R_{k+1}).  The
+    # JAX package's batched branch (bp.py:583-601) pairs R_{k+1} with
+    # L_{k+1}, one prefix too far; its vmapped _node_update and the
+    # enumeration oracle agree with the pairing here.
+    Cs = [Rs[0]]
+    for k in range(1, K - 1):
+        Cs.append(mrg(*Ls[k - 1], *Rs[k], k))
+    Cs.append(Ls[K - 2])
+    return (torch.stack([c for c, _ in Cs], dim=1),
+            torch.stack([z for _, z in Cs], dim=1), full_c, full_lz)
+
+
+def _finish_messages(mu: TensorTrain, logz_ks, old_c, old_lz, mask,
+                     damp: float, trunc: SVDTrunc):
+    """Damp a bucket's normalised new messages ``mu [Nb*K, ...]`` against the
+    old ones ``old_c [Nb, K, ...]``: ``tt_sum`` with weight ``damp / (1 -
+    damp)``, recompressed to Dm and normalised (``recursive_bp_factor.jl:
+    168-179``, ``bp.py:436-441, 662-668``).  Returns (out_cores [Nb, K,
+    ...], out_logz [Nb, K], the sum of the slots' log-norms [Nb])."""
+    Nb, K = mask.shape
+    out_cores, out_lz = mu.cores, mu.logz
+    if damp > 0.0:
+        old = TensorTrain(old_c.reshape((Nb * K,) + old_c.shape[2:]),
+                          old_lz.reshape(Nb * K), mu.phys)
+        mixed = tt_sum(mu, old, damp / (1.0 - damp))
+        mixed, _ = normalize(compress(mixed, trunc, Dout=mu.cores.shape[-3]))
+        out_cores, out_lz = mixed.cores, mixed.logz
+    logz_ks = logz_ks.reshape(Nb, K)
+    return (out_cores.reshape((Nb, K) + out_cores.shape[1:]),
+            out_lz.reshape(Nb, K),
+            torch.where(mask, logz_ks, torch.zeros_like(logz_ks)).sum(1))
+
+
+def _bucket_update_batched(msgs_in_c, msgs_in_lz, msgs_out_old_c,
+                           msgs_out_old_lz, psi_out, mask, Py_b, Pyp_b,
+                           Pxy_b, Py0_b, phi_b, deg_b, pyy_b, trunc: SVDTrunc,
+                           Dm: int, Dc: int, damp: float, sketches=None):
+    """Whole-bucket sketch update (``bp.py:469-696``).
+
+    msgs_in_c: [Nb, K, T1, Dm, Dm, q*q]; tables bucket-cropped with node
+    axis 1 (broadcast) or Nb; ``pyy_b[0]`` is shared across nodes.  Returns
+    (out_cores [Nb, K, ...], out_logz [Nb, K], bel_cores, bel_logz, f)."""
+    Nb, K, T1 = msgs_in_c.shape[:3]
+    q = phi_b.shape[-1]
+    Y = Py0_b.shape[-2]
+    Py_b, Pyp_b, Pxy_b, Py0_b = _expand(Nb, Py_b, Pyp_b, Pxy_b, Py0_b)
+    lf = _lift(msgs_in_c, msgs_in_lz, psi_out, mask, Pxy_b, Py0_b, pyy_b, Dc)
+
+    def mrg(lc, llz, rc, rlz, d1):
+        return fused_stta.merge_stta_fused(lc, llz, rc, rlz, lf.pyy_at(d1),
+                                           Dc, Y, q, sketches)
+
+    Cs_c, Cs_lz, full_c, full_lz = _cavity_folds(lf, mrg, True, False)
 
     # ---- outgoing messages: f_bp_partial -> MPEM3 sketch -> normalize ------
     # B3_tm[t, (z,k), (i,j,p,m,n)] = sum_y Pyp[z,k,p,i,j,y] C[z,k,t,m,n,y,i]
@@ -270,10 +354,8 @@ def _bucket_update_batched(msgs_in_c, msgs_in_lz, psi_out, mask, Py_b, Pyp_b,
     out_c = out_c / m[:, :, None, None, None]
     out_lz0 = out_lz0 - torch.log(m).sum(dim=1)
     mu, logz_ks = normalize(TensorTrain(out_c, out_lz0, (q, q)))
-    out_cores = mu.cores.reshape((Nb, K) + mu.cores.shape[1:])
-    out_lz = mu.logz.reshape(Nb, K)
-    logz_ks = logz_ks.reshape(Nb, K)
-    sum_logz = torch.where(mask, logz_ks, torch.zeros_like(logz_ks)).sum(1)
+    out_cores, out_lz, sum_logz = _finish_messages(
+        mu, logz_ks, msgs_out_old_c, msgs_out_old_lz, mask, damp, trunc)
 
     # ---- belief from the full fold ------------------------------------------
     Dcf = full_c.shape[-3]
@@ -287,7 +369,69 @@ def _bucket_update_batched(msgs_in_c, msgs_in_lz, psi_out, mask, Py_b, Pyp_b,
     bel1, logz_i = normalize(
         TensorTrain(bel_c.reshape(Nb, T1, Dm, Dm, q), bel_lz0, (q,)))
 
-    d_i = deg_b.to(dtype)
+    d_i = deg_b.to(bel_lz0.dtype)
+    f_i = (d_i / 2.0 - 1.0) * logz_i - 0.5 * sum_logz
+    return out_cores, out_lz, bel1.cores, bel1.logz, f_i
+
+
+def _f_bp_partial(C, phi_b, W):
+    """MPEM3 stacks of a batch of cavity trains (``bp.py:253-283``, open
+    trains): C [Z, T1, Dc, Dc, Y, q], phi_b [Z, T1, q], W [Z, q(p), q(i), qj,
+    Y] -> B3 [Z, T1, Dc, Dc, q, qj, q(p)].  The last step has no transition
+    factor (uniform in xj and p)."""
+    Z, T1, Dc = C.shape[:3]
+    q, qj = W.shape[-3], W.shape[-2]
+    main = torch.einsum("zpijy,ztmnyi,zti->ztmnijp", W, C[:, :-1],
+                        phi_b[:, :-1])
+    lastC = torch.einsum("zmnyi,zi->zmni", C[:, -1], phi_b[:, -1])
+    last = lastC[..., None, None].expand(Z, Dc, Dc, q, qj, q)
+    return torch.cat([main, last[:, None]], dim=1)
+
+
+def _node_update(msgs_in_c, msgs_in_lz, msgs_out_old_c, msgs_out_old_lz,
+                 psi_out, mask, Py_b, Pyp_b, Pxy_b, Py0_b, phi_b, deg_b,
+                 pyy_b, trunc: SVDTrunc, trunc_cav: SVDTrunc, Dm: int, Dc: int,
+                 damp: float, method: str, sketches=None,
+                 direct_k3: bool = True):
+    """Whole-bucket update for the SVD methods, ``method="qr"`` or
+    ``"randomized"`` (the JAX package's vmapped ``_node_update``,
+    ``bp.py:286-466``, with the node axis threaded through every step).
+    Arguments and results as :func:`_bucket_update_batched`."""
+    Nb, K, T1 = msgs_in_c.shape[:3]
+    q = phi_b.shape[-1]
+    Y = Py0_b.shape[-2]
+    Py_b, Pyp_b, Pxy_b, Py0_b = _expand(Nb, Py_b, Pyp_b, Pxy_b, Py0_b)
+    lf = _lift(msgs_in_c, msgs_in_lz, psi_out, mask, Pxy_b, Py0_b, pyy_b, Dc)
+
+    def mrg(lc, llz, rc, rlz, d1):
+        return _merge(lc, llz, rc, rlz, lf.pyy_at(d1), trunc_cav, Dc, Y, q,
+                      method, sketches)
+
+    Cs_c, Cs_lz, full_c, full_lz = _cavity_folds(lf, mrg, direct_k3, True)
+
+    # ---- outgoing messages: f_bp_partial -> mpem2 -> compress -> normalize
+    #      -> damping (recursive_bp_factor.jl:154-158, 168-179) -------------
+    Dcc = Cs_c.shape[-3]
+    C = Cs_c.reshape(Nb * K, T1, Dcc, Dcc, Y, q)
+    W = Pyp_b.reshape((Nb * K,) + Pyp_b.shape[2:])
+    phi_k = phi_b[:, None].expand((Nb, K) + phi_b.shape[1:]) \
+        .reshape((Nb * K,) + phi_b.shape[1:])
+    mu = mpem3_to_mpem2(_f_bp_partial(C, phi_k, W), Cs_lz.reshape(Nb * K))
+    mu = normalize_eachmatrix(compress(mu, trunc, Dout=Dm, assume="left"))
+    mu, logz_ks = normalize(mu)
+    out_cores, out_lz, sum_logz = _finish_messages(
+        mu, logz_ks, msgs_out_old_c, msgs_out_old_lz, mask, damp, trunc)
+
+    # ---- belief: f_bp_partial on the full fold, then sum the dummy leg ----
+    Dcf = full_c.shape[-3]
+    B3b = _f_bp_partial(full_c.reshape(Nb, T1, Dcf, Dcf, Y, q), phi_b,
+                        Py_b[..., None, :])
+    bel2 = compress(mpem3_to_mpem2(B3b, full_lz), trunc, Dout=Dm,
+                    assume="left")
+    bel1, logz_i = normalize(TensorTrain(
+        bel2.cores.reshape(Nb, T1, Dm, Dm, q, 1).sum(-1), bel2.logz, (q,)))
+
+    d_i = deg_b.to(logz_i.dtype)
     f_i = (d_i / 2.0 - 1.0) * logz_i - 0.5 * sum_logz
     return out_cores, out_lz, bel1.cores, bel1.logz, f_i
 
@@ -316,12 +460,10 @@ def _degree_buckets(graph: Graph):
 
 
 def _check_sweep_options(bp: MPBP, method: str, damp: float):
-    if method in ("qr", "randomized"):
-        raise _not_ported(f"method={method!r}", 3 if method == "qr" else 14)
-    if method != "sketch":
+    if method not in ("sketch", "qr", "randomized"):
         raise ValueError(f"unknown method {method!r}")
-    if damp > 0.0:
-        raise _not_ported("damp > 0", 9)
+    if not 0.0 <= damp < 1.0:
+        raise ValueError(f"damp must lie in [0, 1): {damp}")
     if bp.periodic:
         raise _not_ported("periodic trains", 10)
     tb = bp.tables
@@ -338,10 +480,13 @@ def bp_sweep(bp: MPBP, trunc: SVDTrunc, trunc_cav: SVDTrunc | None = None,
              sketches=None) -> MPBP:
     """One synchronous (Jacobi) sweep over all nodes, on the state's device.
 
-    Only ``method="sketch"`` is ported; ``trunc`` and ``trunc_cav`` matter
-    only to the SVD paths.  ``sketches``: source of the Gaussian sketches
+    ``trunc`` truncates the messages and beliefs of the SVD methods and the
+    damping recompression, ``trunc_cav`` (default ``trunc``) their cavity
+    merges; the sketch method reads only the bond caps.  ``sketches``:
+    source of the Gaussian sketches of ``"sketch"`` and ``"randomized"``
     (``ops/stta.py``); default re-seeds a generator with 17 every draw."""
     _check_sweep_options(bp, method, damp)
+    trunc_cav = trunc if trunc_cav is None else trunc_cav
     Dm = bp.D
     Dcav = Dm if Dcav is None else Dcav
     ga = bp.garrays
@@ -364,22 +509,28 @@ def bp_sweep(bp: MPBP, trunc: SVDTrunc, trunc_cav: SVDTrunc | None = None,
         in_m = ga.in_mask[nb][:, :Kb]
         out_e = ga.out_edges[nb][:, :Kb]
         in_idx = in_e.clamp(max=E - 1)        # padded slots are masked below
-        msgs_in_c = bp.msg_cores[in_idx]
-        msgs_in_lz = bp.msg_logz[in_idx]
-        psi_out = bp.psi[out_e.clamp(max=E - 1)]
+        out_idx = out_e.clamp(max=E - 1)      # ... and dropped at the scatter
 
         def nsel(t):
             return t if t.shape[0] == 1 else t[nb]
 
-        Py_b = nsel(tb.Py)[..., :Yb]
-        Pyp_b = nsel(tb.Pyp)[:, :Kb][..., :Yb]
-        Pxy_b = nsel(tb.Pxy)[:, :Kb][..., :Yb, :, :]
-        Py0_b = nsel(tb.Py0)[..., :Yb, :]
         Pyy_b = nsel(tb.Pyy)[:, :min(Kb, tb.Pyy.shape[1])]
-        Pyy_b = Pyy_b[..., :Yb, :Yb, :Yb, :]
-        out_c, out_lz, bel_c, bel_lz, f = _bucket_update_batched(
-            msgs_in_c, msgs_in_lz, psi_out, in_m, Py_b, Pyp_b, Pxy_b, Py0_b,
-            bp.phi[nb], ga.degree[nb], Pyy_b, Dm, Dcav, sketches)
+        args = (bp.msg_cores[in_idx], bp.msg_logz[in_idx],
+                bp.msg_cores[out_idx], bp.msg_logz[out_idx], bp.psi[out_idx],
+                in_m, nsel(tb.Py)[..., :Yb], nsel(tb.Pyp)[:, :Kb][..., :Yb],
+                nsel(tb.Pxy)[:, :Kb][..., :Yb, :, :],
+                nsel(tb.Py0)[..., :Yb, :], bp.phi[nb], ga.degree[nb],
+                Pyy_b[..., :Yb, :Yb, :Yb, :])
+        if method == "sketch":
+            out_c, out_lz, bel_c, bel_lz, f = _bucket_update_batched(
+                *args, trunc, Dm, Dcav, damp, sketches)
+        else:
+            # the direct K = 3 cavity triples the merge batch; the JAX
+            # package takes it up to 4096 nodes per bucket (bp.py:812), and
+            # the merge order decides what is truncated
+            out_c, out_lz, bel_c, bel_lz, f = _node_update(
+                *args, trunc, trunc_cav, Dm, Dcav, damp, method, sketches,
+                direct_k3=Nb <= 4096)
 
         # scatter: padded slots carry out-edge id E and are masked out
         flat = out_e.reshape(-1)
@@ -407,15 +558,22 @@ def iterate(bp: MPBP, maxiter: int = 5, trunc: SVDTrunc | None = None,
             polish: int = 0, schedule: str = "jacobi", shuffle: bool = False,
             seed: int = 0, sketches=None):
     """Run sweeps until the beliefs and the free-energy ledger stop moving
-    (reference ``iterate!``).  Returns (bp, n_iters, deltas)."""
+    (reference ``iterate!``), then ``polish`` undamped ``method="qr"``
+    sweeps.  Returns (bp, n_iters, deltas).
+
+    The JAX package runs its polish sweeps under full-float32 matmul
+    precision, a TPU setting; on the card float32 matmuls are full float32
+    unless TF32 is switched on, which polish refuses."""
     trunc = default_truncator() if trunc is None else trunc
     if schedule not in ("jacobi", "seidel"):
         raise ValueError(f"unknown schedule {schedule!r}")
     if chunk is not None or schedule == "seidel" or shuffle:
         raise _not_ported("chunked and Gauss-Seidel sweeps", 7)
-    if polish > 0:
-        raise _not_ported("polish (method='qr' sweeps)", 3)
     _check_sweep_options(bp, method, damp)
+    if (polish > 0 and bp.device.type == "cuda"
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError("polish sweeps need full float32 matmuls: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
     m_old = beliefs(bp)
     f_old = bp.f
     deltas = []
@@ -432,6 +590,8 @@ def iterate(bp: MPBP, maxiter: int = 5, trunc: SVDTrunc | None = None,
             n_done = it + 1
             break
         m_old, f_old = m_new, bp.f
+    for _ in range(polish):
+        bp = bp_sweep(bp, trunc, trunc_cav, Dcav, 0.0, "qr", sketches)
     return bp, n_done, deltas
 
 

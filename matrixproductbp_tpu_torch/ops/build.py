@@ -1,11 +1,12 @@
-"""Build and load the hand-written CUDA kernels (``csrc/stta_scans.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The source compiles at first use with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``.  The library is
-cached under ``matrixproductbp_tpu_torch/_build/`` by the hash of its source,
-so a checkout builds exactly once; the ``-Xptxas -v`` report (registers,
-shared memory, spills per kernel) is kept beside it.  Nothing here runs at
-import time.
+Each source compiles at first use with ``nvcc`` for ``sm_90a`` into a shared
+library of its own with a plain C interface, loaded with ``ctypes``.  A
+library is cached under ``matrixproductbp_tpu_torch/_build/`` by the hash of
+its source and the flags, so a checkout builds each source exactly once; the
+``-Xptxas -v`` report (registers, shared memory, spills per kernel) is kept
+beside it.  :func:`build_all` starts one ``nvcc`` per missing library, all at
+once.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -17,13 +18,42 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["library", "build_log"]
+__all__ = ["SOURCES", "library", "build_all", "build_log"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: dynamic shared memory one H100 block may use (232,448 bytes); the
+#: wrappers refuse shapes that need more
+SMEM_PER_BLOCK = 232448
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
+_LP = ctypes.POINTER(ctypes.c_longlong)
+
+#: every source under ``csrc/`` and the launchers it exports, with their
+#: ``argtypes`` (each launcher returns a CUDA error code as ``int``)
+_SIGNATURES = {
+    "stta_scans": {
+        "stta_merge_w": [_I, _P, _LP, _P, _LP, _P, _P] + [_I] * 8 + [_L, _P],
+        "stta_merge_f": ([_I, _P, _LP, _P, _LP, _P, _P, _P, _P, _P, _P]
+                         + [_I] * 9 + [_L, _P]),
+        "stta_mpem3_w": [_I, _P, _LP, _P, _P] + [_I] * 7 + [_L, _P],
+        "stta_mpem3_f": ([_I, _P, _LP, _P, _P, _P, _P, _P] + [_I] * 8
+                         + [_L, _P]),
+    },
+    "cholqr": {
+        "cholqr": [_I, _P, _P, _P, _I, _I, _I, _D, _I, _L, _P],
+    },
+    "jacobi_eigh": {
+        "jacobi_eigh": [_P, _P, _P, _I, _I, _I, _L, _P],
+    },
+}
+SOURCES = tuple(_SIGNATURES)
 
 
 def _nvcc() -> str:
@@ -37,69 +67,64 @@ def _nvcc() -> str:
     return path
 
 
-_NAME = "stta_scans"
-
-
-def _paths():
-    src = os.path.join(_CSRC, _NAME + ".cu")
+def _paths(name: str):
+    src = os.path.join(_CSRC, name + ".cu")
     with open(src, "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    stem = os.path.join(BUILD_DIR, f"lib{_NAME}_{digest.hexdigest()[:16]}")
+    stem = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}")
     return src, stem + ".so", stem + ".log"
 
 
-def _build() -> str:
-    """Compile the source unless its library exists; return the library's
-    path.  Writes go to a temporary name first, so concurrent builds never
-    load a half-written file."""
-    src, lib, log = _paths()
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-        with open(log + ".tmp", "w") as fh:
-            fh.write(proc.stdout + proc.stderr)
-        os.replace(log + ".tmp", log)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
+def build_all(names=SOURCES) -> dict:
+    """Compile every named source whose library is missing, one ``nvcc``
+    each, all started together; return {name: library path}.  Writes go to
+    temporary names first, so concurrent builds never load a half-written
+    file."""
+    libs, running = {}, []
+    for name in names:
+        src, lib, log = _paths(name)
+        libs[name] = lib
+        if os.path.exists(lib):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((proc, src, tmp, lib, log))
+    errors = []
+    for proc, src, tmp, lib, log in running:
+        try:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on {src}:\n{err}")
+                continue
+            with open(log + ".tmp", "w") as fh:
+                fh.write(out + err)
+            os.replace(log + ".tmp", log)
+            os.replace(tmp, lib)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return libs
 
 
-def build_log() -> str:
-    """The ``-Xptxas -v`` report of the library's build."""
-    _, _, log = _paths()
+def build_log(name: str) -> str:
+    """The ``-Xptxas -v`` report of one source's build."""
+    _, _, log = _paths(name)
     with open(log) as fh:
         return fh.read()
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-_LP = ctypes.POINTER(ctypes.c_longlong)
-
-_SIGNATURES = {
-    "stta_merge_w": [_I, _P, _LP, _P, _LP, _P, _P] + [_I] * 8 + [_L, _P],
-    "stta_merge_f": ([_I, _P, _LP, _P, _LP, _P, _P, _P, _P, _P, _P]
-                     + [_I] * 9 + [_L, _P]),
-    "stta_mpem3_w": [_I, _P, _LP, _P, _P] + [_I] * 7 + [_L, _P],
-    "stta_mpem3_f": [_I, _P, _LP, _P, _P, _P, _P, _P] + [_I] * 8 + [_L, _P],
-}
-
-
-@functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernels, with ``argtypes`` and
-    ``restype`` declared for every launcher."""
-    lib = ctypes.CDLL(_build())
-    for fn, argtypes in _SIGNATURES.items():
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """Build (at first use) and load one source's library, with ``argtypes``
+    and ``restype`` declared for every launcher."""
+    lib = ctypes.CDLL(build_all((name,))[name])
+    for fn, argtypes in _SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int

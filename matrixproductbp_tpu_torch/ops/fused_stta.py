@@ -32,9 +32,9 @@ __all__ = ["merge_stta_fused", "mpem3_stta_fused", "mpem3_stta_fused_tm",
            "merge_wscan_plain", "merge_fscan_plain", "mpem3_wscan_plain",
            "mpem3_fscan_plain", "SMEM_LIMIT"]
 
-#: dynamic shared memory one H100 block may use (232,448 bytes), less the
-#: kernels' static reduction scratch
-SMEM_LIMIT = 232448 - 1024
+#: dynamic shared memory a scan kernel's block may use: the card's limit
+#: less the kernels' static reduction scratch
+SMEM_LIMIT = build.SMEM_PER_BLOCK - 1024
 _MPEM3_THREADS = 128
 
 
@@ -134,7 +134,7 @@ def merge_wscan(L1, B1, Th):
     Ws = L1.new_empty((Bn, S, DL, DB, sr))
     if Bn == 0 or S == 0:
         return Ws
-    rc = build.library().stta_merge_w(
+    rc = build.library("stta_scans").stta_merge_w(
         code, L1.data_ptr(), _strides(L1), B1.data_ptr(), _strides(B1),
         Th.data_ptr(), Ws.data_ptr(), Bn, S, DL, DB, Y, q, sr,
         _merge_threads(smem), smem, _stream(L1))
@@ -163,7 +163,7 @@ def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init):
     Ms = L1.new_empty((Bn, S, sl, sr))
     if Bn == 0 or S == 0:
         return Ns, Ms
-    rc = build.library().stta_merge_f(
+    rc = build.library("stta_scans").stta_merge_f(
         code, L1.data_ptr(), _strides(L1), B1.data_ptr(), _strides(B1),
         Pyy.data_ptr(), Phi.data_ptr(), Ws.data_ptr(), S_init.data_ptr(),
         Ns.data_ptr(), Ms.data_ptr(), Bn, S, DL, DB, Y, q, sr, sl,
@@ -189,7 +189,7 @@ def mpem3_wscan(B1, Psi):
     Ws = B1.new_empty((Bn, S, Db, qi, sr))
     if Bn == 0 or S == 0:
         return Ws
-    rc = build.library().stta_mpem3_w(
+    rc = build.library("stta_scans").stta_mpem3_w(
         code, B1.data_ptr(), _strides(B1), Psi.data_ptr(), Ws.data_ptr(),
         Bn, S, Db, qi, qj, sr, _MPEM3_THREADS, smem, _stream(B1))
     _raise_on(rc, "MPEM3 W scan")
@@ -216,7 +216,7 @@ def mpem3_fscan(B1, Phi, Ws, S_init):
     Ms = B1.new_empty((Bn, S, sl, sr))
     if Bn == 0 or S == 0:
         return Ns, Ms
-    rc = build.library().stta_mpem3_f(
+    rc = build.library("stta_scans").stta_mpem3_f(
         code, B1.data_ptr(), _strides(B1), Phi.data_ptr(), Ws.data_ptr(),
         S_init.data_ptr(), Ns.data_ptr(), Ms.data_ptr(), Bn, S, Db, qi, qj,
         sr, sl, _MPEM3_THREADS, smem, _stream(B1))

@@ -13,9 +13,10 @@ port has no such stagger.
 
 Sketch randomness: JAX draws every sketch from ``PRNGKey(17)``, so a draw
 depends only on its shape and dtype.  The port takes a ``sketches`` source
-with ``draw(phi_shape, psi_shape, dtype, device) -> (phi, psi)``; the default
-re-seeds a ``torch.Generator`` with 17 on every draw, which keeps the same
-property (but not JAX's bits).
+with ``draw(phi_shape, psi_shape, dtype, device) -> (phi, psi)`` (the sketch
+path) and ``normal(shape, dtype, device)`` (the randomized merge,
+``ops/randomized.py``); the default re-seeds a ``torch.Generator`` with 17 on
+every draw, which keeps the same property (but not JAX's bits).
 """
 from __future__ import annotations
 
@@ -37,12 +38,20 @@ class SeededSketches:
     def __init__(self, seed: int = 17):
         self.seed = seed
 
-    def draw(self, phi_shape, psi_shape, dtype, device):
+    def _generator(self, device):
         g = torch.Generator(device=device)
         g.manual_seed(self.seed)
+        return g
+
+    def draw(self, phi_shape, psi_shape, dtype, device):
+        g = self._generator(device)
         phi = torch.randn(phi_shape, generator=g, dtype=dtype, device=device)
         psi = torch.randn(psi_shape, generator=g, dtype=dtype, device=device)
         return phi, psi
+
+    def normal(self, shape, dtype, device):
+        return torch.randn(shape, generator=self._generator(device),
+                           dtype=dtype, device=device)
 
 
 DEFAULT_SKETCHES = SeededSketches(17)

@@ -1,13 +1,14 @@
 """Batched, padded tensor trains — the L0 engine of the port.
 
-Counterpart of ``matrixproductbp_tpu/ops/tensortrain.py:60-285, 342-353``.
+Counterpart of ``matrixproductbp_tpu/ops/tensortrain.py`` for open trains.
 A train is a dense stack ``cores[..., T1, D, D, P]`` with a static bond
 capacity ``D`` and flattened physical dimension ``P``; any leading axes are a
 batch (edges, nodes) that every function here runs over at once, in place of
 the JAX package's ``vmap``.  The represented tensor is
 ``p(x) = (prod_t cores[t][:, :, x_t])[0, 0] * exp(-logz)`` with ``logz[...]``.
 Zero padding of the bond is exact; open boundaries populate row 0 of the
-first core and column 0 of the last.
+first core and column 0 of the last.  The canonical sweeps run each time
+step as one batched QR or SVD over the whole batch (:func:`batched_svd`).
 """
 from __future__ import annotations
 
@@ -17,8 +18,13 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["TensorTrain", "flat_tt", "lognorm", "normalize",
-           "normalize_eachmatrix", "marginals"]
+from . import smallsvd
+from .truncation import SVDTrunc, TruncThresh
+
+__all__ = ["TensorTrain", "flat_tt", "evaluate", "lognorm", "normalize",
+           "normalize_eachmatrix", "marginals", "orthogonalize_left",
+           "orthogonalize_right", "compress", "tt_sum", "tt_dot",
+           "batched_svd"]
 
 
 @dataclasses.dataclass
@@ -128,3 +134,198 @@ def marginals(tt: TensorTrain) -> torch.Tensor:
     p = torch.einsum("...tm,...tmnp,...tn->...tp", L[..., :-1, :], tt.cores,
                      R[..., 1:, :])
     return p / p.sum(dim=-1, keepdim=True)
+
+
+def evaluate(tt: TensorTrain, x: torch.Tensor) -> torch.Tensor:
+    """Value at configurations ``x [..., T1]`` (ints indexing the flattened
+    phys axis), one per train of the batch."""
+    idx = x.to(torch.int64)[..., None, None, None].expand(
+        tt.cores.shape[:-1] + (1,))
+    sel = torch.gather(tt.cores, -1, idx)[..., 0]           # [..., T1, D, D]
+    v = torch.zeros(sel.shape[:-3] + (sel.shape[-1],), dtype=sel.dtype,
+                    device=sel.device)
+    v[..., 0] = 1.0
+    for t in range(sel.shape[-3]):
+        v = (v[..., None, :] @ sel[..., t, :, :])[..., 0, :]
+    return v[..., 0] * torch.exp(-tt.logz)
+
+
+# ---------------------------------------------------------------------------
+# canonical forms and compression
+# ---------------------------------------------------------------------------
+
+def batched_svd(M: torch.Tensor):
+    """Thin SVD ``M = U diag(S) Vh`` of a batch of small matrices
+    ``M [..., m, n]``, singular values descending.
+
+    float32 matrices on a CUDA device with min(m, n) <= 64 go through the
+    float64 Gram matrix and the batched Jacobi eigen kernel
+    (``ops/smallsvd.py``), which stays one launch for the whole batch;
+    everything else goes to ``torch.linalg.svd``."""
+    if (M.device.type == "cuda" and M.dtype == torch.float32
+            and min(M.shape[-2:]) <= smallsvd.MAX_K):
+        return smallsvd.svd_by_gram(M)
+    return torch.linalg.svd(M, full_matrices=False)
+
+
+def _maxabs(a: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Guarded max-abs over the last ``ndim`` axes."""
+    return _safe_scale(a.abs().amax(dim=tuple(range(-ndim, 0))))
+
+
+def orthogonalize_left(tt: TensorTrain) -> TensorTrain:
+    """Left-canonical gauge by a left-to-right QR sweep (value-preserving).
+    Each core is pre-scaled to max-abs 1 before its QR and the carried R is
+    rescaled to max-abs 1, both scales folded into ``logz``."""
+    cores = tt.cores
+    batch, (T1, D, _, P) = cores.shape[:-4], cores.shape[-4:]
+    C = torch.eye(D, dtype=cores.dtype, device=cores.device).expand(
+        batch + (D, D))
+    lg = tt.logz
+    out = []
+    for t in range(T1 - 1):
+        core = torch.einsum("...km,...mnp->...knp", C, cores[..., t, :, :, :])
+        m0 = _maxabs(core, 3)
+        M = (core / m0[..., None, None, None]).transpose(-1, -2) \
+            .reshape(batch + (D * P, D))
+        Q, Rm = torch.linalg.qr(M)
+        m = _maxabs(Rm, 2)
+        out.append(Q.reshape(batch + (D, P, D)).transpose(-1, -2))
+        C = Rm / m[..., None, None]
+        lg = lg - torch.log(m) - torch.log(m0)
+    out.append(torch.einsum("...km,...mnp->...knp", C,
+                            cores[..., -1, :, :, :]))
+    return TensorTrain(torch.stack(out, dim=-4), lg, tt.phys)
+
+
+def orthogonalize_right(tt: TensorTrain) -> TensorTrain:
+    """Right-canonical gauge by a right-to-left LQ sweep (value-preserving),
+    with the same pre-scale and carry rescale as :func:`orthogonalize_left`."""
+    cores = tt.cores
+    batch, (T1, D, _, P) = cores.shape[:-4], cores.shape[-4:]
+    C = torch.eye(D, dtype=cores.dtype, device=cores.device).expand(
+        batch + (D, D))
+    lg = tt.logz
+    out = [None] * T1
+    for t in range(T1 - 1, 0, -1):
+        core = torch.einsum("...mnp,...nk->...mkp", cores[..., t, :, :, :], C)
+        m0 = _maxabs(core, 3)
+        M = (core / m0[..., None, None, None]).transpose(-1, -2) \
+            .reshape(batch + (D, P * D))
+        Q, Rm = torch.linalg.qr(M.transpose(-1, -2))   # M = R^T Q^T
+        m = _maxabs(Rm, 2)
+        out[t] = Q.transpose(-1, -2).reshape(batch + (D, P, D)) \
+            .transpose(-1, -2)
+        C = Rm.transpose(-1, -2) / m[..., None, None]
+        lg = lg - torch.log(m) - torch.log(m0)
+    out[0] = torch.einsum("...mnp,...nk->...mkp", cores[..., 0, :, :, :], C)
+    return TensorTrain(torch.stack(out, dim=-4), lg, tt.phys)
+
+
+def _sweep_truncate_rl(cores: torch.Tensor, logz: torch.Tensor,
+                       trunc: SVDTrunc, Dout: int):
+    """Right-to-left truncating SVD sweep of left-orthogonal trains
+    ``cores [..., T1, Din, Din, P]`` -> (cores [..., T1, Dout, Dout, P],
+    logz).  The carried factor ``U S`` is rescaled to max-abs 1."""
+    batch, (T1, Din, _, P) = cores.shape[:-4], cores.shape[-4:]
+    nxt = _fit_axis(cores[..., -1, :, :, :], -2, Dout)  # col 0 only: exact
+    lg = logz
+    out = [None] * T1
+    for t in range(T1 - 2, -1, -1):
+        M = nxt.transpose(-1, -2).reshape(batch + (Din, P * Dout))
+        U, S, Vt = batched_svd(M)
+        S = S * trunc.keep_mask(S).to(S.dtype)
+        k = S.shape[-1]
+        out[t + 1] = _fit_axis(
+            Vt.reshape(batch + (k, P, Dout)).transpose(-1, -2), -3, Dout)
+        C = _fit_axis(U * S[..., None, :], -1, Dout)         # [..., Din, Dout]
+        m = _maxabs(C, 2)
+        nxt = torch.einsum("...mnp,...nk->...mkp", cores[..., t, :, :, :],
+                           C / m[..., None, None])
+        lg = lg - torch.log(m)
+    out[0] = _fit_axis(nxt, -3, Dout)                    # row 0 only: exact
+    return torch.stack(out, dim=-4), lg
+
+
+def _sweep_truncate_lr(cores: torch.Tensor, logz: torch.Tensor,
+                       trunc: SVDTrunc, Dout: int):
+    """Left-to-right truncating SVD sweep of right-orthogonal trains."""
+    batch, (T1, Din, _, P) = cores.shape[:-4], cores.shape[-4:]
+    prv = _fit_axis(cores[..., 0, :, :, :], -3, Dout)
+    lg = logz
+    out = []
+    for t in range(1, T1):
+        M = prv.transpose(-1, -2).reshape(batch + (Dout * P, Din))
+        U, S, Vt = batched_svd(M)
+        S = S * trunc.keep_mask(S).to(S.dtype)
+        k = S.shape[-1]
+        out.append(_fit_axis(
+            U.reshape(batch + (Dout, P, k)).transpose(-1, -2), -2, Dout))
+        C = _fit_axis(S[..., :, None] * Vt, -2, Dout)        # [..., Dout, Din]
+        m = _maxabs(C, 2)
+        prv = torch.einsum("...km,...mnp->...knp", C / m[..., None, None],
+                           cores[..., t, :, :, :])
+        lg = lg - torch.log(m)
+    out.append(_fit_axis(prv, -2, Dout))
+    return torch.stack(out, dim=-4), lg
+
+
+def compress(tt: TensorTrain, trunc: SVDTrunc | None = None,
+             Dout: int | None = None, assume: str | None = None
+             ) -> TensorTrain:
+    """Truncated-SVD compression to bond capacity ``Dout``.
+
+    ``assume``: None (orthogonalize first), ``"left"`` or ``"right"`` if the
+    input is already canonical on that side."""
+    trunc = TruncThresh(0.0) if trunc is None else trunc
+    Dout = tt.cores.shape[-3] if Dout is None else Dout
+    if assume == "left":
+        cores, lg = _sweep_truncate_rl(tt.cores, tt.logz, trunc, Dout)
+    elif assume == "right":
+        cores, lg = _sweep_truncate_lr(tt.cores, tt.logz, trunc, Dout)
+    elif assume is None:
+        o = orthogonalize_right(tt)
+        cores, lg = _sweep_truncate_lr(o.cores, o.logz, trunc, Dout)
+    else:
+        raise ValueError(f"assume must be None, 'left' or 'right': {assume!r}")
+    return TensorTrain(cores, lg, tt.phys)
+
+
+# ---------------------------------------------------------------------------
+# algebra
+# ---------------------------------------------------------------------------
+
+def tt_sum(a: TensorTrain, b: TensorTrain, wb) -> TensorTrain:
+    """Direct sum ``a + wb * b`` with bond capacity ``Da + Db`` (damping);
+    the caller re-compresses the doubled bond."""
+    Da, Db = a.cores.shape[-3], b.cores.shape[-3]
+    T1, P = a.cores.shape[-4], a.cores.shape[-1]
+    batch = a.cores.shape[:-4]
+    scale = wb * torch.exp(a.logz - b.logz)
+    bc = torch.cat([b.cores[..., :1, :, :, :]
+                    * scale[..., None, None, None, None],
+                    b.cores[..., 1:, :, :, :]], dim=-4)
+    D = Da + Db
+    cores = a.cores.new_zeros(batch + (T1, D, D, P))
+    cores[..., :Da, :Da, :] = a.cores
+    cores[..., Da:, Da:, :] = bc
+    # open boundaries: both trains enter through row 0 and leave through
+    # column 0
+    cores[..., 0, :, :, :] = 0.0
+    cores[..., 0, 0, :Da, :] = a.cores[..., 0, 0, :, :]
+    cores[..., 0, 0, Da:, :] = bc[..., 0, 0, :, :]
+    cores[..., -1, :, :, :] = 0.0
+    cores[..., -1, :Da, 0, :] = a.cores[..., -1, :, 0, :]
+    cores[..., -1, Da:, 0, :] = bc[..., -1, :, 0, :]
+    return TensorTrain(cores, a.logz, a.phys)
+
+
+def tt_dot(a: TensorTrain, b: TensorTrain) -> torch.Tensor:
+    """Inner product ``sum_x a(x) b(x)``."""
+    Da, Db = a.cores.shape[-3], b.cores.shape[-3]
+    E = a.cores.new_zeros(a.cores.shape[:-4] + (Da, Db))
+    E[..., 0, 0] = 1.0
+    for t in range(a.cores.shape[-4]):
+        E = torch.einsum("...mk,...mnp,...kjp->...nj", E,
+                         a.cores[..., t, :, :, :], b.cores[..., t, :, :, :])
+    return E[..., 0, 0] * torch.exp(-a.logz - b.logz)

@@ -1,13 +1,18 @@
-"""Each CUDA scan kernel against its plain version on the card (f64 at small
-shapes, 1e-10; f32 at the bench shape, 1e-4 of the plain output's max-abs).
-Marked ``gpu``; skips from its fixture when no CUDA device is present.  Needs
-no JAX: on the card run it with
+"""Each CUDA kernel against its plain version on the card: the scan kernels
+(f64 at small shapes, 1e-10; f32 at the bench shape, 1e-4 of the plain
+output's max-abs), the CholQR kernel (f64 1e-10; f32 at the D=10 and D=20
+sketch shapes, 1e-5 of max-abs: both factor in f64 and round once) and the
+Jacobi eigen kernel (f64, 1e-10 relative in eigenvalues and in the
+reconstruction).  Marked ``gpu``; skips from its fixture when no CUDA device
+is present.  Needs no JAX: on the card run it with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``.
 """
 import pytest
 import torch
 
 from matrixproductbp_tpu_torch.ops import fused_stta as fs
+from matrixproductbp_tpu_torch.ops import kernels, smallsvd
+from matrixproductbp_tpu_torch.ops.smallalg import cholqr_unrolled
 
 pytestmark = pytest.mark.gpu
 
@@ -98,3 +103,59 @@ def test_oversized_shape_raises(cuda):
     Th = torch.zeros(1, 40, 40, 2, 2, 2, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         fs.merge_wscan(L, L, Th)
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float64, (7, 24, 8)), (torch.float64, (5, 80, 20)),
+    (torch.float32, (4096, 80, 20)), (torch.float32, (4096, 160, 40))])
+def test_cholqr_kernel(cuda, dtype, shape):
+    g = torch.Generator().manual_seed(2)
+    A = _randn(g, *shape).to(cuda, dtype)
+    A[::3] = A[::3, :, :1] * A[::3, :1, :]               # rank 1 instances
+    before = kernels.batched_cholqr.launches
+    Q, R = kernels.cholqr(A)
+    assert kernels.batched_cholqr.launches == before + 1
+    Qp, Rp = cholqr_unrolled(A)
+    tol = None if dtype == torch.float64 else 1e-5
+    _assert_close((Q, R), (Qp, Rp), tol)
+    assert bool(torch.isfinite(Q).all())
+
+
+@pytest.mark.parametrize("k,B", [(5, 7), (20, 512), (40, 512), (64, 16)])
+def test_jacobi_eigh_kernel(cuda, k, B):
+    g = torch.Generator().manual_seed(k)
+    X = _randn(g, B, 2 * k, k)
+    X[: B // 2, :, k // 2:] = 0.0                        # rank-deficient half
+    G = (X.transpose(1, 2) @ X).to(cuda)
+    before = smallsvd.eigh_desc.launches
+    w, V = smallsvd.eigh_desc(G)
+    assert smallsvd.eigh_desc.launches == before + 1
+    wp, _ = smallsvd.eigh_desc_plain(G)
+    torch.cuda.synchronize()
+    scale = float(G.abs().max())
+    assert float((w - wp).abs().max()) <= 1e-10 * scale
+    rec = (V * w[..., None, :]) @ V.transpose(1, 2)
+    assert float((rec - G).abs().max()) <= 1e-10 * scale
+    eye = torch.eye(k, dtype=G.dtype, device=cuda)
+    assert float((V.transpose(1, 2) @ V - eye).abs().max()) <= 1e-10
+
+
+def test_svd_by_gram_on_the_card(cuda):
+    g = torch.Generator().manual_seed(3)
+    M = _randn(g, 256, 80, 20).to(cuda, torch.float32)
+    M[:128, :, 10:] = 0.0
+    U, S, Vh = smallsvd.svd_by_gram(M)
+    Sr = torch.linalg.svdvals(M.double())
+    assert float((S.double() - Sr).abs().max()) <= 1e-5 * float(Sr.max())
+    rec = (U.double() * S.double()[..., None, :]) @ Vh.double()
+    assert float((rec - M.double()).abs().max()) <= 1e-5 * float(
+        M.abs().max())
+
+
+def test_cholqr_and_eigh_refuse_what_they_cannot_take(cuda):
+    with pytest.raises(ValueError, match="n <= 64"):
+        kernels.cholqr(torch.zeros(2, 80, 65, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.cholqr(torch.zeros(2, 20, 80, device=cuda).transpose(1, 2))
+    with pytest.raises(TypeError, match="float64"):
+        smallsvd.eigh_desc(torch.zeros(2, 4, 4, device=cuda))

@@ -1,5 +1,7 @@
 """The port's graph, SIS tables, state conversion and entry-point rules
 against the JAX package (CPU)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -139,12 +141,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(method="qr"), "item 3"),
-    (dict(method="randomized"), "item 14"),
-    (dict(method="sketch", damp=0.5), "item 9"),
-    (dict(method="sketch", chunk=2), "item 7"),
-    (dict(method="sketch", schedule="seidel"), "item 7"),
-    (dict(method="sketch", polish=1), "item 3"),
+    # ids fixed to the ones these cases had in a longer list, so that runs
+    # of this test stay comparable across versions
+    pytest.param(dict(method="sketch", chunk=2), "item 7", id="kwargs3-item 7"),
+    pytest.param(dict(method="sketch", schedule="seidel"), "item 7",
+                 id="kwargs4-item 7"),
 ])
 def test_unported_options_raise(kwargs, match):
     _, tb = _sis_pair()
@@ -152,10 +153,26 @@ def test_unported_options_raise(kwargs, match):
         tp.iterate(tb, maxiter=1, trunc=tp.TruncBond(4), **kwargs)
 
 
+@pytest.mark.parametrize("kwargs", [
+    dict(method="qr"), dict(method="randomized"),
+    dict(method="sketch", damp=0.5), dict(method="sketch", polish=1),
+], ids=["qr", "randomized", "damp", "polish"])
+def test_iterate_options_run(kwargs):
+    """Every method and option ``iterate`` takes runs on the SIS pair's
+    state and gives finite, normalised beliefs."""
+    _, tb = _sis_pair()
+    tb, n, _ = tp.iterate(tb, maxiter=1, trunc=tp.TruncBond(4), **kwargs)
+    b = tp.beliefs(tb)
+    assert n == 1 and bool(torch.isfinite(b).all())
+    np.testing.assert_allclose(b.sum(-1).numpy(), 1.0, rtol=1e-12)
+
+
 def test_unported_modes_raise():
     g = tp.graph_from_edges(3, [(0, 1), (1, 2)])
     with pytest.raises(NotImplementedError, match="item 10"):
         mpbp_sis(SIS(g, 0.2, 0.1, T=2), D=3, periodic=True, device="cpu")
     _, tb = _sis_pair()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tp.bp_sweep(tb, tp.TruncBond(4))
+    banded = dataclasses.replace(
+        tb, tables=dataclasses.replace(tb.tables, yy_off=1))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tp.bp_sweep(banded, tp.TruncBond(4))

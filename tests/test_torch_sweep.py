@@ -26,6 +26,17 @@ TREE = (4, [(0, 1), (0, 2), (2, 3)])
 STAR = (5, [(0, 1), (0, 2), (0, 3), (0, 4)])     # hub of degree 4: K > 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The shapes here are tiny: torch's intra-op threads would only contend
+    with the other test workers for the cores (one sweep test ran 40x
+    slower beside a second worker with them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class JaxSketches:
     """Sketch source drawing exactly what the JAX package draws from
     ``PRNGKey(17)``, handed over as numpy."""
