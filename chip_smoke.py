@@ -27,11 +27,12 @@ import time
 
 import numpy as np
 
-# published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and
-# fp32 and fp64 FLOP/s outside the tensor cores
+# published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, fp32
+# FLOP/s outside the tensor cores, and fp64 FLOP/s on the tensor cores
+# (DMMA; 34e12 outside them), the card's highest rate for that type
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-FP64_FLOP_PER_S = 34e12
+FP64_FLOP_PER_S = 67e12
 
 BENCH_N, BENCH_DEG, BENCH_T = 4096, 3, 15
 TIMED_SWEEPS_D10, TIMED_SWEEPS_D20 = 3, 2
@@ -340,12 +341,14 @@ def eigh_vs_plain(dev):
     """Jacobi eigen kernel against torch.linalg.eigh (f64): eigenvalues,
     the reconstruction V diag(w) V^T and V's orthonormality.  k = 20 and
     40 (D=10 and D=20) at the message conversion's batch; torch.linalg.eigh
-    runs one matrix per launch at k = 40 (~6 s for this batch)."""
+    runs one matrix per launch at k = 40 (~6 s for this batch).  k = 33
+    (two warps per matrix, dummy index) in a batch of 13, which leaves the
+    last block of matrices ragged."""
     import torch
     from matrixproductbp_tpu_torch.ops import smallsvd
     rows = []
     for k, Bn in ((5, 7), (20, BENCH_N * BENCH_DEG),
-                  (40, BENCH_N * BENCH_DEG), (64, 16)):
+                  (40, BENCH_N * BENCH_DEG), (64, 16), (33, 13)):
         G = gram_inputs(Bn, k, dev, k)
         w, V = smallsvd.eigh_desc(G)
         wp, _ = smallsvd.eigh_desc_plain(G)

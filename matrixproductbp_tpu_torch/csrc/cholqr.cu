@@ -25,7 +25,8 @@
 // What bounds it.  Per instance the kernel reads A once and writes Q and R
 // once (14.4 KB at [80, 20] in float32) and does ~m*n^2 + m*n^2 + n^3/3
 // float64 FLOP (~0.13 MFLOP at [80, 20]): near the ridge of the card's HBM
-// rate and its float64 rate (3.35 TB/s, 34 TFLOP/s).  The factorisation is a
+// rate and its float64 rate (3.35 TB/s, 67 TFLOP/s on the tensor cores),
+// bound by bytes.  The factorisation is a
 // chain of n dependent column steps.
 //
 // Design.  On the TPU 128 instances rode the lanes and the column loop was

@@ -50,7 +50,7 @@ _SIGNATURES = {
         "cholqr": [_I, _P, _P, _P, _I, _I, _I, _D, _I, _L, _P],
     },
     "jacobi_eigh": {
-        "jacobi_eigh": [_P, _P, _P, _I, _I, _I, _L, _P],
+        "jacobi_eigh": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
     },
 }
 SOURCES = tuple(_SIGNATURES)

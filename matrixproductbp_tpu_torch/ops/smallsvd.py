@@ -16,7 +16,11 @@ from them, which keeps those vectors finite.
 
 :func:`eigh_desc` launches the CUDA kernel (``csrc/jacobi_eigh.cu``) on a
 CUDA tensor and runs its plain version (``torch.linalg.eigh``, reordered) on
-a CPU tensor; ``eigh_desc.launches`` counts kernel launches.
+a CPU tensor; ``eigh_desc.launches`` counts kernel launches.  The kernel
+gives one warp to each matrix up to k = 32 and two warps above, several
+matrices to a block; A lives in the warp's own slice of shared memory and
+each thread keeps one row of V in registers.  :func:`eigh_geometry`
+computes that launch geometry and refuses what does not fit.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ import torch
 
 from . import build
 
-__all__ = ["svd_by_gram", "eigh_desc", "eigh_desc_plain", "MAX_K", "RTOL"]
+__all__ = ["svd_by_gram", "eigh_desc", "eigh_desc_plain", "eigh_geometry",
+           "EIGH_SIZES", "MAX_K", "RTOL"]
 
 #: largest Gram matrix the kernel takes
 MAX_K = 64
@@ -32,10 +37,33 @@ MAX_K = 64
 RTOL = 1e-7
 
 
-def _smem_eigh(k: int) -> int:
-    """Bytes of shared memory per block (``jacobi_eigh.cu``)."""
-    npairs = (k + 1) // 2
-    return 8 * 2 * k * (k + 1) + (8 * 2 + 4 * 2) * npairs
+#: the kernel's tournament sizes (compiled instances): the sweeps' k = 20
+#: (D=10) and 40 (D=20), and 32 and 64 to cover every k; one warp per
+#: matrix up to 32, two above
+EIGH_SIZES = (20, 32, 40, 64)
+
+
+def eigh_geometry(k: int):
+    """Launch geometry of ``jacobi_eigh.cu`` for k x k matrices:
+    (tournament size K, matrices per block, bytes of shared memory per
+    block).  K is the least of ``EIGH_SIZES`` that holds k; a block holds
+    128 threads' worth of matrices.  Shared memory follows the kernel's
+    layout: per matrix the round's rotations, two scratch values, the
+    output permutation, two buffers of A [K, K + 1] and, above K = 32, the
+    table of the round's 2 x 2 blocks."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the Jacobi eigen kernel takes 1 <= k <= {MAX_K}, "
+                         f"got {k}")
+    K = next(n for n in EIGH_SIZES if n >= k)
+    mpb = 4 if K <= 32 else 2
+    npairs = K // 2
+    table = 0 if K <= 32 else 2 * npairs * (npairs + 1) // 2
+    smem = mpb * 8 * (3 * npairs + 2 + 2 * K * (K + 1) + table)
+    if smem > build.SMEM_PER_BLOCK:
+        raise ValueError(f"Jacobi eigen k={k}: needs {smem} bytes of shared "
+                         f"memory per block, over the {build.SMEM_PER_BLOCK}"
+                         "-byte limit")
+    return K, mpb, smem
 
 
 def eigh_desc_plain(G: torch.Tensor):
@@ -60,23 +88,15 @@ def eigh_desc(G: torch.Tensor):
         raise ValueError(f"G must be [..., k, k], got {tuple(G.shape)}")
     if not G.is_contiguous():
         raise ValueError("G must be contiguous")
-    k = G.shape[-1]
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the Jacobi eigen kernel takes 1 <= k <= {MAX_K}, "
-                         f"got {k}")
-    smem = _smem_eigh(k)
-    if smem > build.SMEM_PER_BLOCK:
-        raise ValueError(f"Jacobi eigen k={k}: needs {smem} bytes of shared "
-                         f"memory per block, over the {build.SMEM_PER_BLOCK}"
-                         "-byte limit")
+    K, mpb, smem = eigh_geometry(G.shape[-1])
     w = G.new_empty(G.shape[:-1])
     V = torch.empty_like(G)
+    k = G.shape[-1]
     Bn = w.numel() // k
     if Bn == 0:
         return w, V
     rc = build.library("jacobi_eigh").jacobi_eigh(
-        G.data_ptr(), w.data_ptr(), V.data_ptr(), Bn, k,
-        128 if k <= 32 else 256, smem,
+        G.data_ptr(), w.data_ptr(), V.data_ptr(), Bn, k, K, mpb, smem,
         torch.cuda.current_stream(G.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"Jacobi eigen: CUDA launch failed with error {rc}")

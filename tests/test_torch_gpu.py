@@ -3,8 +3,10 @@
 output's max-abs), the CholQR kernel (f64 1e-10; f32 at the D=10 and D=20
 sketch shapes, 1e-5 of max-abs: both factor in f64 and round once) and the
 Jacobi eigen kernel (f64, 1e-10 relative in eigenvalues and in the
-reconstruction).  Marked ``gpu``; skips from its fixture when no CUDA device
-is present.  Needs no JAX: on the card run it with
+reconstruction, V orthonormal to 1e-10; Gaussian, degenerate, zero and
+diagonal inputs at k = 1..64 and ragged batches).  Marked ``gpu``; skips
+from its fixture when no CUDA device is present.  Needs no JAX: on the
+card run it with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``.
 """
 import pytest
@@ -121,12 +123,37 @@ def test_cholqr_kernel(cuda, dtype, shape):
     assert bool(torch.isfinite(Q).all())
 
 
-@pytest.mark.parametrize("k,B", [(5, 7), (20, 512), (40, 512), (64, 16)])
-def test_jacobi_eigh_kernel(cuda, k, B):
-    g = torch.Generator().manual_seed(k)
-    X = _randn(g, B, 2 * k, k)
-    X[: B // 2, :, k // 2:] = 0.0                        # rank-deficient half
-    G = (X.transpose(1, 2) @ X).to(cuda)
+def _eigh_inputs(kind, B, k, seed):
+    """[B, k, k] float64: Gram matrices of Gaussian [2k, k] matrices with
+    the first half rank-deficient, multiples of the identity, a 5-fold
+    degenerate eigenvalue cluster, zeros, or diagonal matrices."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "gauss":
+        X = _randn(g, B, 2 * k, k)
+        X[: B // 2, :, k // 2:] = 0.0                    # rank-deficient half
+        return X.transpose(1, 2) @ X
+    if kind == "identity":
+        return _randn(g, B, 1, 1) * torch.eye(k, dtype=torch.float64)
+    if kind == "cluster5":
+        Q, _ = torch.linalg.qr(_randn(g, B, k, k))
+        ev = _randn(g, B, k)
+        ev[:, : min(5, k)] = 2.0
+        return (Q * ev[:, None, :]) @ Q.transpose(1, 2)
+    if kind == "zero":
+        return torch.zeros(B, k, k, dtype=torch.float64)
+    return torch.diag_embed(_randn(g, B, k))
+
+
+# odd k (the dummy index), k on either side of a warp (31, 32, 33), the
+# bench shapes, and a batch of 13 that leaves the last block ragged
+@pytest.mark.parametrize("kind", ["gauss", "identity", "cluster5", "zero",
+                                  "diagonal"])
+@pytest.mark.parametrize("k,B", [(5, 7), (20, 512), (40, 512), (64, 16),
+                                 (1, 13), (2, 13), (21, 13), (31, 13),
+                                 (32, 13), (33, 13), (40, 13), (63, 13),
+                                 (64, 13)])
+def test_jacobi_eigh_kernel(cuda, k, B, kind):
+    G = _eigh_inputs(kind, B, k, k).to(cuda)
     before = smallsvd.eigh_desc.launches
     w, V = smallsvd.eigh_desc(G)
     assert smallsvd.eigh_desc.launches == before + 1
@@ -138,6 +165,7 @@ def test_jacobi_eigh_kernel(cuda, k, B):
     assert float((rec - G).abs().max()) <= 1e-10 * scale
     eye = torch.eye(k, dtype=G.dtype, device=cuda)
     assert float((V.transpose(1, 2) @ V - eye).abs().max()) <= 1e-10
+    assert bool((w[..., :-1] >= w[..., 1:]).all())
 
 
 def test_svd_by_gram_on_the_card(cuda):
