@@ -47,6 +47,7 @@
 // f64 instantiations exist so that tests hold each kernel to its plain version
 // at 1e-10; they fit only at small shapes.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 typedef long long i64;
@@ -108,6 +109,94 @@ __device__ void block_gemm(const T* __restrict__ A, const T* __restrict__ B,
       if (i_ok && j_ok) c[g.ci + g.cj] = c11;
     }
   }
+}
+
+// block_gemm with TM x TN register tiles and the K sum split over KS
+// neighbouring lanes of a warp (KS a power of two up to 32), reduced by warp
+// shuffles: the products of merge_f_staged_kernel.  The tasks (tile, k
+// share) are padded to whole warps, so every lane of a warp takes part in
+// the shuffles; a padding task computes tile 0 and stores nothing.
+template <typename T, int TM, int TN, int KS, bool ACC>
+__device__ __forceinline__ void tile_gemm(const T* __restrict__ A,
+                                          const T* __restrict__ B,
+                                          T* __restrict__ C, const Gemm& g) {
+  const int mt = (g.M + TM - 1) / TM, nt = (g.N + TN - 1) / TN;
+  const int tiles = g.nb1 * g.nb2 * mt * nt;
+  const int tasks = KS == 1 ? tiles : (tiles * KS + 31) & ~31;
+  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+    const int ks = t & (KS - 1);
+    int r = t / KS;
+    const bool live = r < tiles;
+    if (!live) r = 0;
+    const int tj = r % nt; r /= nt;
+    const int ti = r % mt; r /= mt;
+    const int b2 = r % g.nb2;
+    const int b1 = r / g.nb2;
+    const T* a = A + b1 * g.ab1 + b2 * g.ab2;
+    const T* b = B + b1 * g.bb1 + b2 * g.bb2;
+    int ia[TM], jb[TN];
+#pragma unroll
+    for (int u = 0; u < TM; ++u) ia[u] = min(TM * ti + u, g.M - 1) * g.ai;
+#pragma unroll
+    for (int v = 0; v < TN; ++v) jb[v] = min(TN * tj + v, g.N - 1) * g.bj;
+    T c[TM][TN];
+#pragma unroll
+    for (int u = 0; u < TM; ++u)
+#pragma unroll
+      for (int v = 0; v < TN; ++v) c[u][v] = T(0);
+    for (int k = ks; k < g.K; k += KS) {
+      const T* ak = a + k * g.ak;
+      const T* bk = b + k * g.bk;
+      T av[TM], bv[TN];
+#pragma unroll
+      for (int u = 0; u < TM; ++u) av[u] = ak[ia[u]];
+#pragma unroll
+      for (int v = 0; v < TN; ++v) bv[v] = bk[jb[v]];
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+#pragma unroll
+        for (int v = 0; v < TN; ++v) c[u][v] += av[u] * bv[v];
+    }
+#pragma unroll
+    for (int o = KS >> 1; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+#pragma unroll
+        for (int v = 0; v < TN; ++v)
+          c[u][v] += __shfl_xor_sync(0xffffffffu, c[u][v], o);
+    if (!live || ks != 0) continue;
+    T* cc = C + b1 * g.cb1 + b2 * g.cb2 + TM * ti * g.ci + TN * tj * g.cj;
+#pragma unroll
+    for (int u = 0; u < TM; ++u)
+#pragma unroll
+      for (int v = 0; v < TN; ++v)
+        if (TM * ti + u < g.M && TN * tj + v < g.N) {
+          if (ACC) cc[u * g.ci + v * g.cj] += c[u][v];
+          else cc[u * g.ci + v * g.cj] = c[u][v];
+        }
+  }
+}
+
+// Start an asynchronous copy of n contiguous elements from global into shared
+// memory (cp.async: 16-byte chunks when both ends and n allow it, else one
+// element per copy) and commit it as one group.  Every thread must call it;
+// __pipeline_wait_prior and a block barrier make the data visible.
+template <typename T>
+__device__ void async_copy(T* dst, const T* src, int n) {
+  const bool vec = ((reinterpret_cast<size_t>(dst) |
+                     reinterpret_cast<size_t>(src) | (n * sizeof(T))) &
+                    15) == 0;
+  if (vec) {
+    const int nc = n * (int)sizeof(T) / 16;
+    for (int i = threadIdx.x; i < nc; i += blockDim.x)
+      __pipeline_memcpy_async(reinterpret_cast<char*>(dst) + 16 * i,
+                              reinterpret_cast<const char*>(src) + 16 * i,
+                              16);
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      __pipeline_memcpy_async(dst + i, src + i, sizeof(T));
+  }
+  __pipeline_commit();
 }
 
 // Per-block max-abs scale of x[0..n) with the _safe_scale guard.  Every
@@ -381,6 +470,129 @@ __global__ void merge_f_kernel(const T* __restrict__ L, Str6 sL,
 }
 
 // ---------------------------------------------------------------------------
+// merge F, staged: the same scan as merge_f_kernel for the shapes whose
+// buffers fit (D=10 and below).  W_t and W_{t+1} come from two shared-memory
+// buffers filled by cp.async (the copy of W_{t+1} is issued at the start of
+// step s and waited for before N; it is step s+1's W_t).  t2 is kept for all
+// (y,x) pairs, so N for all pairs is one product; M and N split their
+// K = DL*DB sum over 8 lanes, so that they have work for the whole block, and
+// are written to shared memory, then stored to Ms and Ns coalesced.
+// Shared layouts: W [2][nWp] (16-byte aligned), t2 [(y,x)][e][n][j],
+// Mo [e][a], No [e][y][x][b]; the rest as merge_f_kernel.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
+                                      const T* __restrict__ Bm, Str6 sB,
+                                      const T* __restrict__ Pyy,
+                                      const T* __restrict__ Phi,
+                                      const T* __restrict__ Ws,
+                                      const T* __restrict__ Sinit,
+                                      T* __restrict__ Ns, T* __restrict__ Ms,
+                                      int S, int DL, int DB, int Y, int q,
+                                      int sr, int sl) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  constexpr int V16 = 16 / sizeof(T);
+  const int DLB = DL * DB, nS = sl * DLB, nW = DLB * sr, P = Y * q;
+  const int nWp = (nW + V16 - 1) / V16 * V16;
+  const int nL = DL * DL * Y * q, nB = DB * DB * Y * q, nBp = DB * DB * Y;
+  const int nF = sl * sl * P, nP = Y * Y * P, nM = sl * sr, nN = sl * P * sr;
+  T* Wb = sm;
+  T* Sc = Wb + 2 * nWp;
+  T* S2 = Sc + nS;
+  T* t1 = S2 + nS;
+  T* t2 = t1 + nS * Y;
+  T* Ls = t2 + nS * P;
+  T* Bs = Ls + nL;
+  T* Bp = Bs + nB;
+  T* Fs = Bp + nBp;
+  T* Ps = Fs + nF;
+  T* Mo = Ps + nP;
+  T* No = Mo + nM;
+  const i64 z = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Gemm gm_ = {sl, sr, DLB, 1, 1,   DLB, 1, 0, 0,
+                   sr, 1, 0, 0,   sr, 1, 0, 0};
+  const Gemm g1_ = {sl, DL, DL, DB, Y,   DLB, DB, 1, 0,
+                   DL * Y * q, Y * q, 0, q,   DLB * Y, DB * Y, Y, 1};
+  const Gemm g2_ = {sl * DL, DB, DB * Y, 1, 1,   DB * Y, 1, 0, 0,
+                   DB, 1, 0, 0,   DB, 1, 0, 0};
+  const Gemm gn_ = {sl, sr, DLB, P, 1,   DLB, 1, nS, 0,
+                   sr, 1, 0, 0,   P * sr, 1, sr, 0};
+  const Gemm gs_ = {sl, DLB, sl, 1, 1,   Y * q, sl * Y * q, 0, 0,
+                   DLB, 1, 0, 0,   DLB, 1, 0, 0};
+  __shared__ Gemm gd[5];
+  if (tid == 0) {
+    gd[0] = gm_;
+    gd[1] = g1_;
+    gd[2] = g2_;
+    gd[3] = gn_;
+    gd[4] = gs_;
+  }
+  const Gemm& gm = gd[0];
+  const Gemm& g1 = gd[1];
+  const Gemm& g2 = gd[2];
+  const Gemm& gn = gd[3];
+  const Gemm& gs = gd[4];
+
+  async_copy(Wb, Ws + z * S * (i64)nW, nW);                   // W_1
+  copy_block(Ps, Pyy, nP);
+  copy_block(Sc, Sinit + z * (i64)nS, nS);
+  for (int s = 0; s < S; ++s) {
+    const i64 row = z * S + s;
+    const bool last = (s == S - 1);
+    T* Wt = Wb + (s & 1) * nWp;
+    T* Wt1 = Wb + ((s + 1) & 1) * nWp;
+    if (!last) async_copy(Wt1, Ws + (row + 1) * nW, nW);       // W_{t+1}
+    else __pipeline_commit();
+    stage4(Ls, L + z * sL.s[0] + s * sL.s[1], sL.s, DL, DL, Y, q);
+    stage4(Bs, Bm + z * sB.s[0] + s * sB.s[1], sB.s, DB, DB, Y, q);
+    copy_block(Fs, Phi + (i64)s * nF, nF);
+    for (int i = tid; i < nS; i += nt) S2[i] = T(0);
+    __pipeline_wait_prior(1);                                  // W_t
+    __syncthreads();
+    tile_gemm<T, 2, 2, 8, false>(Sc, Wt, Mo, gm);              // M = S . W_t
+    for (int x = 0; x < q; ++x) {
+      block_gemm<T, false>(Sc, Ls + x, t1, g1);                // t1 = S . L_t
+      for (int y = 0; y < Y; ++y) {
+        for (int i = tid; i < nBp; i += nt) {                  // Bp[m][uu][j]
+          int r = i;
+          const int j = r % DB; r /= DB;
+          const int uu = r % Y;
+          const int m = r / Y;
+          T acc = T(0);
+          for (int v = 0; v < Y; ++v)
+            acc += Ps[((y * Y + uu) * Y + v) * q + x] *
+                   Bs[((m * DB + j) * Y + v) * q + x];
+          Bp[i] = acc;
+        }
+        __syncthreads();
+        T* t2p = t2 + (y * q + x) * nS;
+        block_gemm<T, false>(t1, Bp, t2p, g2);                 // t2 = t1 . Bp
+        __syncthreads();
+        block_gemm<T, true>(Fs + y * q + x, t2p, S2, gs);      // S2 += Phi . t2
+      }
+    }
+    __pipeline_wait_prior(0);                                  // W_{t+1}
+    __syncthreads();
+    if (last) {
+      for (int i = tid; i < nN; i += nt) {
+        const int b = i % sr, p = (i / sr) % P, e = i / (sr * P);
+        No[i] = (b == 0) ? t2[p * nS + e * DLB] : T(0);
+      }
+    } else {
+      tile_gemm<T, 2, 2, 8, false>(t2, Wt1, No, gn);           // N = t2 . W_{t+1}
+    }
+    __syncthreads();
+    const T sc = block_scale(S2, nS);
+    for (int i = tid; i < nS; i += nt) Sc[i] = S2[i] / sc;
+    for (int i = tid; i < nM; i += nt) Ms[row * nM + i] = Mo[i];
+    for (int i = tid; i < nN; i += nt) Ns[row * nN + i] = No[i];
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // MPEM3 W: W_t[m,i,b] = sum_{j,c} Psi_t[b,c,i,j] sum_{n,r} B_t[m,n,i,j,r] W_{t+1}[n,r,c]
 // B [Bn,S,Db,Db,qi,qj,qi] by strides; Psi [S,sr,sr,qi,qj]; Ws [Bn,S,Db,qi,sr].
 // Shared layouts: Bs [i][j][m][n][r]; Pp [i][j][c][b]; t1 [m][i][j][c].
@@ -590,6 +802,24 @@ static int merge_f_launch(const void* L, const i64* sL, const void* B,
 }
 
 template <typename T>
+static int merge_f_staged_launch(const void* L, const i64* sL, const void* B,
+                                 const i64* sB, const void* Pyy,
+                                 const void* Phi, const void* Ws,
+                                 const void* Sinit, void* Ns, void* Ms,
+                                 int Bn, int S, int DL, int DB, int Y, int q,
+                                 int sr, int sl, int threads, size_t smem,
+                                 cudaStream_t st) {
+  Str6 a, b;
+  for (int i = 0; i < 6; ++i) { a.s[i] = sL[i]; b.s[i] = sB[i]; }
+  int e = prepare(merge_f_staged_kernel<T>, smem, &threads);
+  if (e) return e;
+  merge_f_staged_kernel<T><<<Bn, threads, smem, st>>>(
+      (const T*)L, a, (const T*)B, b, (const T*)Pyy, (const T*)Phi,
+      (const T*)Ws, (const T*)Sinit, (T*)Ns, (T*)Ms, S, DL, DB, Y, q, sr, sl);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 static int mpem3_w_launch(const void* B, const i64* sB, const void* Psi,
                           void* Ws, int Bn, int S, int Db, int qi, int qj,
                           int sr, int threads, size_t smem, cudaStream_t st) {
@@ -642,6 +872,22 @@ int stta_merge_f(int dtype, const void* L, const i64* sL, const void* B,
       : merge_f_launch<double>(L, sL, B, sB, Pyy, Phi, Ws, Sinit, Ns, Ms, Bn,
                                S, DL, DB, Y, q, sr, sl, threads, (size_t)smem,
                                st);
+}
+
+int stta_merge_f_staged(int dtype, const void* L, const i64* sL,
+                        const void* B, const i64* sB, const void* Pyy,
+                        const void* Phi, const void* Ws, const void* Sinit,
+                        void* Ns, void* Ms, int Bn, int S, int DL, int DB,
+                        int Y, int q, int sr, int sl, int threads,
+                        long long smem, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return dtype == 0
+      ? merge_f_staged_launch<float>(L, sL, B, sB, Pyy, Phi, Ws, Sinit, Ns,
+                                     Ms, Bn, S, DL, DB, Y, q, sr, sl, threads,
+                                     (size_t)smem, st)
+      : merge_f_staged_launch<double>(L, sL, B, sB, Pyy, Phi, Ws, Sinit, Ns,
+                                      Ms, Bn, S, DL, DB, Y, q, sr, sl,
+                                      threads, (size_t)smem, st);
 }
 
 int stta_mpem3_w(int dtype, const void* B, const i64* sB, const void* Psi,

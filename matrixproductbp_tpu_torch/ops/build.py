@@ -42,6 +42,8 @@ _SIGNATURES = {
         "stta_merge_w": [_I, _P, _LP, _P, _LP, _P, _P] + [_I] * 8 + [_L, _P],
         "stta_merge_f": ([_I, _P, _LP, _P, _LP, _P, _P, _P, _P, _P, _P]
                          + [_I] * 9 + [_L, _P]),
+        "stta_merge_f_staged": ([_I, _P, _LP, _P, _LP, _P, _P, _P, _P, _P,
+                                 _P] + [_I] * 9 + [_L, _P]),
         "stta_mpem3_w": [_I, _P, _LP, _P, _P] + [_I] * 7 + [_L, _P],
         "stta_mpem3_f": ([_I, _P, _LP, _P, _P, _P, _P, _P] + [_I] * 8
                          + [_L, _P]),

@@ -12,6 +12,9 @@ kernel launches.
 The kernels replace, in order, ``_merge_wstep_kernel`` (``fused_stta.py:231``),
 ``_merge_fstep_kernel`` / ``_merge_fstep_kernel_lean`` (``:281``, ``:382``),
 ``_mpem3_wstep_kernel`` (``:508``) and ``_mpem3_fstep_kernel`` (``:545``).
+Merge F has two kernels, picked by shape in :func:`merge_f_geometry`:
+``merge_f_staged_kernel`` wherever its buffers fit (D=10 and below), and
+``merge_f_kernel`` for the larger shapes (D=20).
 The TPU-only machinery around them (lane padding, instance chunking, the
 VMEM admission model) has no counterpart: one thread block owns one
 instance, and the only admission rule is the 227 KB shared-memory limit.
@@ -30,7 +33,7 @@ from .stta import (merge_fscan_plain, merge_sketch, merge_wscan_plain,
 __all__ = ["merge_stta_fused", "mpem3_stta_fused", "mpem3_stta_fused_tm",
            "merge_wscan", "merge_fscan", "mpem3_wscan", "mpem3_fscan",
            "merge_wscan_plain", "merge_fscan_plain", "mpem3_wscan_plain",
-           "mpem3_fscan_plain", "SMEM_LIMIT"]
+           "mpem3_fscan_plain", "merge_f_geometry", "SMEM_LIMIT"]
 
 #: dynamic shared memory a scan kernel's block may use: the card's limit
 #: less the kernels' static reduction scratch
@@ -55,6 +58,34 @@ def _smem_merge_f(DL, DB, Y, q, sr, sl):
     nS = sl * DL * DB
     return (3 * nS + nS * Y + DL * DL * Y * q + DB * DB * Y * q
             + DB * DB * Y + sl * sl * Y * q + Y * Y * Y * q)
+
+
+def _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize):
+    """merge_f_staged_kernel's buffers: two W buffers, each padded to 16
+    bytes, t2 for all (y, x) pairs, and M and N of one step."""
+    nS, nW, P = sl * DL * DB, DL * DB * sr, Y * q
+    v16 = 16 // esize
+    nWp = -(-nW // v16) * v16
+    return (2 * nWp + 2 * nS + nS * Y + nS * P + DL * DL * P + DB * DB * P
+            + DB * DB * Y + sl * sl * P + Y * Y * P + sl * sr + sl * P * sr)
+
+
+def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
+    """(variant, threads, shared-memory bytes) of the merge F kernel for one
+    shape: ``"staged"`` (``merge_f_staged_kernel``) wherever its buffers fit
+    in ``SMEM_LIMIT``, else ``"base"`` (``merge_f_kernel``).  ``variant``
+    forces one of the two.  Raises ``ValueError`` where neither fits (or the
+    forced one does not)."""
+    esize = 4 if dtype == torch.float32 else 8
+    sizes = {"staged": _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize),
+             "base": _smem_merge_f(DL, DB, Y, q, sr, sl)}
+    for name in (sizes if variant is None else (variant,)):
+        nbytes = sizes[name] * esize
+        if nbytes <= SMEM_LIMIT:
+            return name, _merge_threads(nbytes), nbytes
+    raise ValueError(f"merge F scan: needs {sizes['base'] * esize} bytes of "
+                     f"shared memory per block, over the {SMEM_LIMIT}-byte "
+                     "limit")
 
 
 def _smem_mpem3_w(Db, qi, qj, sr):
@@ -143,9 +174,10 @@ def merge_wscan(L1, B1, Th):
     return Ws
 
 
-def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init):
+def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init, _variant=None):
     """Forward merge scan; arguments and results as
-    :func:`merge_fscan_plain`."""
+    :func:`merge_fscan_plain`.  On the card it launches the kernel
+    :func:`merge_f_geometry` picks (``_variant`` forces one, for tests)."""
     if _on_cpu(L1, B1, Pyy, Phi, Ws, S_init):
         return merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init)
     code = _dtype_code(L1, B1, Pyy, Phi, Ws, S_init)
@@ -157,19 +189,23 @@ def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init):
     _check_shape("Ws", Ws, (Bn, S, DL, DB, sr))
     _check_shape("S_init", S_init, (Bn, sl, DL, DB))
     _check_contiguous(Pyy=Pyy, Phi=Phi, Ws=Ws, S_init=S_init)
-    smem = _smem_bytes(_smem_merge_f(DL, DB, Y, q, sr, sl), L1.dtype,
-                       "merge F scan")
+    variant, threads, smem = merge_f_geometry(DL, DB, Y, q, sr, sl,
+                                              L1.dtype, _variant)
     Ns = L1.new_empty((Bn, S, sl, Y, q, sr))
     Ms = L1.new_empty((Bn, S, sl, sr))
     if Bn == 0 or S == 0:
         return Ns, Ms
-    rc = build.library("stta_scans").stta_merge_f(
+    lib = build.library("stta_scans")
+    launch = lib.stta_merge_f_staged if variant == "staged" else \
+        lib.stta_merge_f
+    rc = launch(
         code, L1.data_ptr(), _strides(L1), B1.data_ptr(), _strides(B1),
         Pyy.data_ptr(), Phi.data_ptr(), Ws.data_ptr(), S_init.data_ptr(),
-        Ns.data_ptr(), Ms.data_ptr(), Bn, S, DL, DB, Y, q, sr, sl,
-        _merge_threads(smem), smem, _stream(L1))
+        Ns.data_ptr(), Ms.data_ptr(), Bn, S, DL, DB, Y, q, sr, sl, threads,
+        smem, _stream(L1))
     _raise_on(rc, "merge F scan")
     merge_fscan.launches += 1
+    merge_fscan.variant_launches[variant] += 1
     return Ns, Ms
 
 
@@ -227,6 +263,8 @@ def mpem3_fscan(B1, Phi, Ws, S_init):
 
 for _w in (merge_wscan, merge_fscan, mpem3_wscan, mpem3_fscan):
     _w.launches = 0
+#: merge F launches by kernel: "staged" and "base" (see merge_f_geometry)
+merge_fscan.variant_launches = {"staged": 0, "base": 0}
 
 
 # ---------------------------------------------------------------------------
