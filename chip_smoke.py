@@ -199,11 +199,25 @@ def max_err(a, b):
     return err, ref
 
 
-def run_merge(fs, L1, B1, Th, Pyy, Phi, S_init, plain=False):
-    w = fs.merge_wscan_plain if plain else fs.merge_wscan
-    f = fs.merge_fscan_plain if plain else fs.merge_fscan
-    Ws = w(L1, B1, Th)
-    return (Ws,) + tuple(f(L1, B1, Pyy, Phi, Ws, S_init))
+def run_merge(fs, L1, B1, Th, Pyy, Phi, S_init, plain=False, variant=None):
+    """Ws, Ns, Ms through the kernels (``variant`` forces the merge F
+    kernel) or through the plain versions."""
+    if plain:
+        Ws = fs.merge_wscan_plain(L1, B1, Th)
+        return (Ws,) + tuple(fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws,
+                                                  S_init))
+    Ws = fs.merge_wscan(L1, B1, Th)
+    return (Ws,) + tuple(fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S_init,
+                                        _variant=variant))
+
+
+def merge_f_variants(dims, dtype):
+    """The merge F kernels that take this shape: both where the staged
+    kernel fits, else the base kernel alone."""
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    first = fs.merge_f_geometry(*(dims[k] for k in ("DL", "DB", "Y", "q",
+                                                    "sr", "sl")), dtype)[0]
+    return ("staged", "base") if first == "staged" else ("base",)
 
 
 def run_mpem3(fs, B1, Psi, Phi, S_init, plain=False):
@@ -246,43 +260,53 @@ def phase_build():
 
 def phase_kernels():
     """Each kernel against its plain version on the card: f64 at small
-    shapes, f32 at the bench shapes for D=10 and D=20."""
+    shapes, f32 at the bench shapes for D=10 and D=20.  Each merge case
+    runs every merge F kernel that takes its shape (both at D=10 and
+    below, ``merge_f_kernel`` alone at D=20) and names it."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
     results = []
-    f64_cases = [("merge", dict(DL=4, DB=3, Y=2, q=2, sr=5, sl=9)),
-                 ("merge", dict(DL=3, DB=3, Y=3, q=2, sr=4, sl=8)),
-                 ("mpem3", dict(Db=4, qi=2, qj=2, sr=5, sl=8)),
-                 ("mpem3", dict(Db=3, qi=2, qj=1, sr=4, sl=6))]
+    small = dict(DL=4, DB=3, Y=2, q=2, sr=5, sl=9)
+    # S=1: the one-hot W_{T1} at the only step, nothing to prefetch
+    f64_cases = [("merge", small, 4),
+                 ("merge", dict(DL=3, DB=3, Y=3, q=2, sr=4, sl=8), 4),
+                 ("merge", small, 1),
+                 ("mpem3", dict(Db=4, qi=2, qj=2, sr=5, sl=8), 4),
+                 ("mpem3", dict(Db=3, qi=2, qj=1, sr=4, sl=6), 4)]
     f32_cases = []
     for D in (10, 20):
-        f32_cases += [("merge", merge_dims(D)), ("mpem3", mpem3_dims(D)),
-                      ("mpem3", mpem3_dims(D, qj=1))]
-    for dtype, cases, Bn, S in ((torch.float64, f64_cases, 7, 4),
-                                (torch.float32, f32_cases, 256, BENCH_T)):
-        for i, (kind, dims) in enumerate(cases):
+        f32_cases += [("merge", merge_dims(D), BENCH_T),
+                      ("mpem3", mpem3_dims(D), BENCH_T),
+                      ("mpem3", mpem3_dims(D, qj=1), BENCH_T)]
+    for dtype, cases, Bn in ((torch.float64, f64_cases, 7),
+                             (torch.float32, f32_cases, 256)):
+        for i, (kind, dims, S) in enumerate(cases):
             if kind == "merge":
                 args = merge_inputs(Bn, S, **dims, dtype=dtype, device=dev,
                                     seed=i)
-                out = run_merge(fs, *args)
                 ref = run_merge(fs, *args, plain=True)
+                outs = [(v, run_merge(fs, *args, variant=v))
+                        for v in merge_f_variants(dims, dtype)]
             else:
                 args = mpem3_inputs(Bn, S, **dims, dtype=dtype, device=dev,
                                     seed=i)
-                out = run_mpem3(fs, *args)
                 ref = run_mpem3(fs, *args, plain=True)
+                outs = [(None, run_mpem3(fs, *args))]
             torch.cuda.synchronize()
-            err, scale = max_err(out, ref)
-            if dtype == torch.float64:
-                tol = TOL_F64 * max(1.0, scale)
-            else:
-                tol = TOL_F32_REL * scale
-            results.append({"kind": kind, "dtype": str(dtype)[6:], **dims,
-                            "B": Bn, "S": S, "max_abs_err": err,
-                            "ref_max_abs": scale, "tol": tol})
-            check(err <= tol, f"{kind} kernels disagree with their plain "
-                              f"versions: {results[-1]}")
+            for variant, out in outs:
+                err, scale = max_err(out, ref)
+                if dtype == torch.float64:
+                    tol = TOL_F64 * max(1.0, scale)
+                else:
+                    tol = TOL_F32_REL * scale
+                results.append({"kind": kind, "dtype": str(dtype)[6:],
+                                **dims, "B": Bn, "S": S, "max_abs_err": err,
+                                "ref_max_abs": scale, "tol": tol,
+                                **({"merge_f_kernel": variant}
+                                   if variant else {})})
+                check(err <= tol, f"{kind} kernels disagree with their "
+                                  f"plain versions: {results[-1]}")
     results += cholqr_vs_plain(dev) + eigh_vs_plain(dev)
     emit("kernels_vs_plain", cases=results)
 
@@ -408,12 +432,23 @@ def _wrappers():
 
 
 def reset_counts():
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
     for w in _wrappers().values():
         w.launches = 0
+    fs.merge_fscan.variant_launches.update(staged=0, base=0)
 
 
 def read_counts():
-    return {name: w.launches for name, w in _wrappers().items()}
+    """Launches by kernel: merge F's wrapper counts its two kernels apart,
+    ``merge_f`` (``merge_f_kernel``) and ``merge_f_staged``."""
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    counts = {name: w.launches for name, w in _wrappers().items()}
+    by_kernel = fs.merge_fscan.variant_launches
+    check(sum(by_kernel.values()) == counts["merge_f"],
+          f"merge F launches {counts['merge_f']} != {by_kernel}")
+    counts.update(merge_f=by_kernel["base"],
+                  merge_f_staged=by_kernel["staged"])
+    return counts
 
 
 def phase_accuracy():
@@ -492,8 +527,8 @@ def phase_main_d10():
     import torch
     import matrixproductbp_tpu_torch as tp
     bp0, bp1, res = timed_main_path(10, TIMED_SWEEPS_D10)
-    want = {"merge_w": 3, "merge_f": 3, "mpem3_w": 2, "mpem3_f": 2,
-            "cholqr": 0, "jacobi_eigh": 0}
+    want = {"merge_w": 3, "merge_f": 0, "merge_f_staged": 3, "mpem3_w": 2,
+            "mpem3_f": 2, "cholqr": 0, "jacobi_eigh": 0}
     per_sweep = {k: v / TIMED_SWEEPS_D10 for k, v in res["launches"].items()}
     check(per_sweep == want, f"launches per sweep {per_sweep}, want {want}")
     with plain_scans():
@@ -533,6 +568,7 @@ def phase_profile(bp, method="sketch"):
         return sum(us for us, _ in hit) / 1e6, sum(c for _, c in hit)
 
     ours_s, _ = named("merge_w_kernel<", "merge_f_kernel<",
+                      "merge_f_staged_kernel<",
                       "mpem3_w_kernel<", "mpem3_f_kernel<", "cholqr_kernel<",
                       "jacobi_eigh_kernel")
     svd_s, svd_n = named("jacobi_eigh_kernel", "gesvd", "syevj", "syevd")
@@ -547,11 +583,14 @@ def phase_profile(bp, method="sketch"):
 
 
 def phase_main_d20():
+    """The D=20 sketch sweep: its merges take ``merge_f_kernel`` (the
+    staged kernel's buffers do not fit)."""
     res = timed_main_path(20, TIMED_SWEEPS_D20)[2]
     emit("main_d20", **res)
     scans = ("merge_w", "merge_f", "mpem3_w", "mpem3_f")
     check(all(res["launches"][k] > 0 for k in scans),
           f"D=20: a scan kernel was not launched: {res['launches']}")
+    return res["launches"]
 
 
 def phase_main_randomized(D, sweeps):
@@ -562,8 +601,9 @@ def phase_main_randomized(D, sweeps):
     import matrixproductbp_tpu_torch as tp
     bp0, bp1, res = timed_main_path(D, sweeps, method="randomized")
     per_sweep = {k: v / sweeps for k, v in res["launches"].items()}
-    want = {"merge_w": 0, "merge_f": 0, "mpem3_w": 0, "mpem3_f": 0,
-            "cholqr": CHOLQR_PER_SWEEP, "jacobi_eigh": SVD_PER_SWEEP}
+    want = {"merge_w": 0, "merge_f": 0, "merge_f_staged": 0, "mpem3_w": 0,
+            "mpem3_f": 0, "cholqr": CHOLQR_PER_SWEEP,
+            "jacobi_eigh": SVD_PER_SWEEP}
     res.update(launches_per_sweep=per_sweep)
     if D == 10:
         with plain_linalg():
@@ -626,10 +666,13 @@ def time_cuda(fn, n):
     return a.elapsed_time(b) / n
 
 
-def phase_kernel_times(launches, D=10, reps=10):
+def phase_kernel_times(launches, launches_d20, D=10, reps=10):
     """Each kernel at the bench shape (the 8192-instance merge and the
     12288-instance message conversion), CUDA events over ``reps`` launches,
-    beside its bound and its plain version's time."""
+    beside its bound and its plain version's time.  Both merge F kernels
+    run on the same inputs where both take the shape, timed in turns
+    (staged, base, base, staged); ``merge_f_kernel``'s launches are those
+    of the D=20 sweep, the path that runs it."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
@@ -646,9 +689,6 @@ def phase_kernel_times(launches, D=10, reps=10):
         ("merge_w", lambda: fs.merge_wscan(L1, B1, Th),
          lambda: fs.merge_wscan_plain(L1, B1, Th),
          work_merge_w(2 * BENCH_N, S, **md, esize=4), ":231"),
-        ("merge_f", lambda: fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S_init),
-         lambda: fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init),
-         work_merge_f(2 * BENCH_N, S, **md, esize=4), ":281"),
         ("mpem3_w", lambda: fs.mpem3_wscan(Bm, Psi),
          lambda: fs.mpem3_wscan_plain(Bm, Psi),
          work_mpem3_w(BENCH_N * BENCH_DEG, S, **pd, esize=4), ":508"),
@@ -656,22 +696,38 @@ def phase_kernel_times(launches, D=10, reps=10):
          lambda: fs.mpem3_fscan_plain(Bm, PhiM, WsM, SiM),
          work_mpem3_f(BENCH_N * BENCH_DEG, S, **pd, esize=4), ":545"),
     ]
+    merge_f = {v: (lambda v=v: fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S_init,
+                                              _variant=v))
+               for v in merge_f_variants(md, torch.float32)}
+    turns = {v: [] for v in merge_f}
+    for v in list(merge_f) + list(merge_f)[::-1]:
+        turns[v].append(time_cuda(merge_f[v], reps))
+    cases[1:1] = [("merge_f_staged" if v == "staged" else "merge_f", kern,
+                   lambda: fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws,
+                                                S_init),
+                   work_merge_f(2 * BENCH_N, S, **md, esize=4), ":281")
+                  for v, kern in merge_f.items()]
+    counts = {**launches, "merge_f": launches_d20["merge_f"]}
     rows = []
     for name, kern, plain, (flops, nbytes), line in cases:
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         err, _ = max_err(tuple(out) if isinstance(out, tuple) else out,
                          tuple(ref) if isinstance(ref, tuple) else ref)
-        ms = time_cuda(kern, reps)
+        variant = {"merge_f_staged": "staged", "merge_f": "base"}.get(name)
+        ms_runs = turns[variant] if variant else [time_cuda(kern, reps)]
         plain_ms = time_cuda(plain, 2)
         bms, by = bound_ms(flops, nbytes)
         rows.append({
             "name": name, "route": "cuda",
             "source": "matrixproductbp_tpu_torch/csrc/stta_scans.cu",
             "replaces": "matrixproductbp_tpu/ops/fused_stta.py" + line,
-            "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "flops": flops, "bytes": nbytes})
+            "launches": counts[name], "max_abs_err": err,
+            "ms": sum(ms_runs) / len(ms_runs), "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "flops": flops, "bytes": nbytes,
+            **({"ms_turns": ms_runs} if variant else {}),
+            **({"launches_from": "main_d20"} if name == "merge_f" else {})})
         emit(f"kernel_time_d{D}", **rows[-1])
         del out, ref
     return rows
@@ -743,15 +799,15 @@ def main():
     launches, bp_d10 = phase_main_d10()
     phase_profile(bp_d10)
     del bp_d10
-    phase_main_d20()
+    launches_d20 = phase_main_d20()
     rlaunches, bp_r10 = phase_main_randomized(10, TIMED_RANDOMIZED_D10)
     phase_profile(bp_r10, method="randomized")
     del bp_r10
     phase_main_randomized(20, TIMED_RANDOMIZED_D20)
     phase_karate()
-    rows = phase_kernel_times(launches)
+    rows = phase_kernel_times(launches, launches_d20)
     rows += phase_linalg_kernel_times(rlaunches)
-    phase_kernel_times(launches, D=20, reps=3)
+    phase_kernel_times(launches, launches_d20, D=20, reps=3)
     phase_linalg_kernel_times(rlaunches, D=20, reps=3)
     emit("done", seconds=time.perf_counter() - t0)
     print(info["nvidia_smi"], flush=True)

@@ -3,8 +3,13 @@
 //
 // Replaces the Pallas TPU kernels of matrixproductbp_tpu/ops/fused_stta.py:
 //   merge_w_kernel  <- _merge_wstep_kernel (fused_stta.py:231, grid wrapper _merge_wscan :359)
-//   merge_f_kernel  <- _merge_fstep_kernel (:281) and _merge_fstep_kernel_lean (:382),
-//                      grid wrapper _merge_fscan (:466); one kernel covers both bodies
+//   merge_f_staged_kernel, merge_f_kernel
+//                   <- _merge_fstep_kernel (:281) and _merge_fstep_kernel_lean (:382),
+//                      grid wrapper _merge_fscan (:466); each kernel covers both
+//                      bodies.  The wrapper picks one by shape
+//                      (fused_stta.py::merge_f_geometry): the staged kernel
+//                      wherever its buffers fit (D=10 and below), merge_f_kernel
+//                      for the larger shapes (D=20)
 //   mpem3_w_kernel  <- _mpem3_wstep_kernel (:508, grid wrapper _mpem3_wscan :605)
 //   mpem3_f_kernel  <- _mpem3_fstep_kernel (:545, grid wrapper _mpem3_fscan :628)
 // Their plain versions are matrixproductbp_tpu_torch/ops/stta.py::*_plain.
@@ -15,7 +20,10 @@
 // (merges) or ~0.02-0.08 MFLOP (MPEM3) against a few KB of streamed input:
 // the merges are bound by operations, the MPEM3 scans by bytes (fp32 peaks).
 // In practice both are bound by shared-memory operand traffic and by the
-// block barriers between dependent contractions.
+// block barriers between dependent contractions.  Counted for merge F at
+// D=10 (a CPU model of the warp-wide loads): merge_f_kernel issues ~18,000
+// shared-memory wavefronts per instance-step, with 1.25-1.9x bank conflicts
+// in every product, against ~26k SM-cycles measured per instance-step.
 //
 // Design.  On the TPU 128 instances rode the lanes and the grid's sequential
 // axis carried W/S in VMEM.  Here one thread block owns one instance and the
@@ -32,6 +40,16 @@
 // only: wgmma, TMA and packing instances into tensor-core tiles are later
 // work.
 //
+// merge_f_staged_kernel goes further for the shapes whose buffers fit: W_t and
+// W_{t+1} are staged by cp.async into two rotating buffers (merge_f_kernel
+// reads them from global memory inside its k-loops), every contraction of a
+// step is one product over all (y,x) pairs (5 block barriers a step, not
+// 17), the products use 4x5 register tiles (9 loads per 20 FMAs) and split
+// their K sum over lanes where the output is small, and S and t1 rows are
+// padded to odd strides: ~6,500 wavefronts per instance-step at D=10.  The
+// D=10 shape is compiled with its sizes as constants (FixedDims), so task
+// decodes and strides fold; 80 registers, 3 blocks of 256 threads per SM.
+//
 // Shared memory per block (elements of T; the wrapper computes the same sums,
 // fused_stta.py::_smem_*, and refuses shapes over 227 KB):
 //   merge W : 2*DL*DB*sr (carry, accumulator) + DL^2*Y*q + DB^2*Y*q (L_t, B_t)
@@ -43,6 +61,12 @@
 //             + DB^2*Y*q + DB^2*Y (B_t premixed with prob_yy) + sl^2*Y*q
 //             (Phi_t) + Y^3*q.  D=20, f32, sl=24: 54320 floats = 212.2 KiB.
 //             W_t and W_{t+1} are read from global memory.
+//   merge F, staged: 2*nWp (W_t, W_{t+1}; nWp = DL*DB*sr rounded up to 16
+//             bytes) + 2*sl*sE (S, S2; sE = DL*DB|1) + max(sl*DL*R1,
+//             sl*Y*q*sr) (t1 for both x, R1 = DB*Y*q|1; N reuses it)
+//             + sl*DL*DB*Y*q (t2, all pairs) + DL^2*Y*q + DB^2*Y*q (L_t, B_t)
+//             + DB^2*Y*Y*q (Bp, all pairs) + sl^2*Y*q (Phi_t) + Y^3*q
+//             + sl*sr (M).  D=10, f32, sl=14: 18708 floats = 73.1 KiB.
 //   MPEM3 W/F: under 10 KiB at D=20.
 // f64 instantiations exist so that tests hold each kernel to its plain version
 // at 1e-10; they fit only at small shapes.
@@ -111,19 +135,19 @@ __device__ void block_gemm(const T* __restrict__ A, const T* __restrict__ B,
   }
 }
 
-// block_gemm with TM x TN register tiles and the K sum split over KS
-// neighbouring lanes of a warp (KS a power of two up to 32), reduced by warp
-// shuffles: the products of merge_f_staged_kernel.  The tasks (tile, k
+// block_gemm for a block of NT threads, with TM x TN register tiles and the
+// K sum split over KS neighbouring lanes of a warp (KS a power of two up to
+// 32), reduced by warp shuffles: the products of merge_f_staged_kernel.  The tasks (tile, k
 // share) are padded to whole warps, so every lane of a warp takes part in
 // the shuffles; a padding task computes tile 0 and stores nothing.
-template <typename T, int TM, int TN, int KS, bool ACC>
+template <int NT, typename T, int TM, int TN, int KS, bool ACC>
 __device__ __forceinline__ void tile_gemm(const T* __restrict__ A,
                                           const T* __restrict__ B,
                                           T* __restrict__ C, const Gemm& g) {
   const int mt = (g.M + TM - 1) / TM, nt = (g.N + TN - 1) / TN;
   const int tiles = g.nb1 * g.nb2 * mt * nt;
   const int tasks = KS == 1 ? tiles : (tiles * KS + 31) & ~31;
-  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+  for (int t = threadIdx.x; t < tasks; t += NT) {
     const int ks = t & (KS - 1);
     int r = t / KS;
     const bool live = r < tiles;
@@ -470,125 +494,175 @@ __global__ void merge_f_kernel(const T* __restrict__ L, Str6 sL,
 }
 
 // ---------------------------------------------------------------------------
-// merge F, staged: the same scan as merge_f_kernel for the shapes whose
-// buffers fit (D=10 and below).  W_t and W_{t+1} come from two shared-memory
-// buffers filled by cp.async (the copy of W_{t+1} is issued at the start of
-// step s and waited for before N; it is step s+1's W_t).  t2 is kept for all
-// (y,x) pairs, so N for all pairs is one product; M and N split their
-// K = DL*DB sum over 8 lanes, so that they have work for the whole block, and
-// are written to shared memory, then stored to Ms and Ns coalesced.
-// Shared layouts: W [2][nWp] (16-byte aligned), t2 [(y,x)][e][n][j],
-// Mo [e][a], No [e][y][x][b]; the rest as merge_f_kernel.
+// merge F, staged: the same scan as merge_f_kernel, for the shapes whose
+// buffers fit (D=10 and below), in blocks of STAGED_THREADS threads.  One
+// product per contraction and step, five block barriers per step:
+//   stage L_t, B_t, Phi_t; cp.async W_{t+1}                        | barrier
+//   M = S . W_t;  t1 = S . L_t (both x);  Bp (all (y,x) pairs)     | barrier
+//   t2 = t1 . Bp (all pairs)                                       | barrier
+//   N = t2 . W_{t+1} (all pairs);  S2 = sum_{y,x,e} Phi_t t2        | barrier
+//   per-warp max-abs of S2                                         | barrier
+//   every thread finishes the max; S <- S2 / scale; store M, N
+// W_t and W_{t+1} sit in two shared-memory buffers filled by cp.async (the
+// copy of W_{t+1} is issued at the start of step s and waited for before N;
+// it is step s+1's W_t).  Every product takes 4x5 register tiles (2x5 for
+// M), and M, t2 and N split their K sum over 16, 2 and 8 lanes, so that
+// each has work for the whole block.  Rows of S (and S2) and of t1 are
+// padded to odd strides, against bank conflicts.  M and N are written to
+// shared memory and stored to Ms and Ns coalesced.  The shape is a template
+// argument: FixedDims for the D=10 sketch merge, whose sizes, strides and
+// task decodes then fold into constants, RunDims for every other shape.
+// Shared layouts: W [2][nWp] (16-byte aligned); S, S2 [e][k][m] (row
+// stride sE); t1 [e][n][m][u][x] (row (e,n) stride R1); t2 [y][x][e][n][j];
+// Bp [x][y][m][u][j]; Fs [y][x][e][f]; Mo [e][a]; No [e][y][x][b] (in t1).
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
-                                      const T* __restrict__ Bm, Str6 sB,
-                                      const T* __restrict__ Pyy,
-                                      const T* __restrict__ Phi,
-                                      const T* __restrict__ Ws,
-                                      const T* __restrict__ Sinit,
-                                      T* __restrict__ Ns, T* __restrict__ Ms,
-                                      int S, int DL, int DB, int Y, int q,
-                                      int sr, int sl) {
+constexpr int STAGED_THREADS = 256;
+
+struct RunDims {
+  static constexpr bool kFixed = false;
+  int DL, DB, Y, q, sr, sl;
+};
+
+template <int DL_, int DB_, int Y_, int Q_, int SR_, int SL_>
+struct FixedDims {
+  static constexpr bool kFixed = true;
+  static constexpr int DL = DL_, DB = DB_, Y = Y_, q = Q_, sr = SR_,
+                       sl = SL_;
+};
+
+template <typename T, typename Dm>
+__global__ void __launch_bounds__(STAGED_THREADS, 3)
+merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
+                      const T* __restrict__ Bm, Str6 sB,
+                      const T* __restrict__ Pyy, const T* __restrict__ Phi,
+                      const T* __restrict__ Ws, const T* __restrict__ Sinit,
+                      T* __restrict__ Ns, T* __restrict__ Ms, int S, Dm dm) {
+  constexpr int NT = STAGED_THREADS, NWARP = NT / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ double red_m[NWARP];
+  __shared__ int red_b[NWARP];
   T* sm = reinterpret_cast<T*>(smem_raw);
   constexpr int V16 = 16 / sizeof(T);
+  const int DL = dm.DL, DB = dm.DB, Y = dm.Y, q = dm.q, sr = dm.sr,
+            sl = dm.sl;
   const int DLB = DL * DB, nS = sl * DLB, nW = DLB * sr, P = Y * q;
   const int nWp = (nW + V16 - 1) / V16 * V16;
-  const int nL = DL * DL * Y * q, nB = DB * DB * Y * q, nBp = DB * DB * Y;
+  const int sE = DLB | 1, R1 = (DB * P) | 1;
+  const int nSp = sl * sE, nT1 = max(sl * DL * R1, sl * P * sr);
+  const int nL = DL * DL * P, nB = DB * DB * P, nBp = DB * Y * DB;
   const int nF = sl * sl * P, nP = Y * Y * P, nM = sl * sr, nN = sl * P * sr;
   T* Wb = sm;
   T* Sc = Wb + 2 * nWp;
-  T* S2 = Sc + nS;
-  T* t1 = S2 + nS;
-  T* t2 = t1 + nS * Y;
+  T* S2 = Sc + nSp;
+  T* t1 = S2 + nSp;
+  T* t2 = t1 + nT1;
   T* Ls = t2 + nS * P;
   T* Bs = Ls + nL;
   T* Bp = Bs + nB;
-  T* Fs = Bp + nBp;
+  T* Fs = Bp + nBp * P;
   T* Ps = Fs + nF;
   T* Mo = Ps + nP;
-  T* No = Mo + nM;
+  T* No = t1;                      // t1 is dead once t2 is formed
   const i64 z = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const Gemm gm_ = {sl, sr, DLB, 1, 1,   DLB, 1, 0, 0,
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // {M, N, K, nb1, nb2,  ai, ak, ab1, ab2,  bk, bj, bb1, bb2,  ci, cj, cb1, cb2}
+  const Gemm gm_ = {sl, sr, DLB, 1, 1,   sE, 1, 0, 0,
                    sr, 1, 0, 0,   sr, 1, 0, 0};
-  const Gemm g1_ = {sl, DL, DL, DB, Y,   DLB, DB, 1, 0,
-                   DL * Y * q, Y * q, 0, q,   DLB * Y, DB * Y, Y, 1};
-  const Gemm g2_ = {sl * DL, DB, DB * Y, 1, 1,   DB * Y, 1, 0, 0,
-                   DB, 1, 0, 0,   DB, 1, 0, 0};
+  const Gemm g1_ = {sl, DL, DL, DB, P,   sE, DB, 1, 0,
+                   DL * P, P, 0, 1,   DL * R1, R1, P, 1};
+  const Gemm g2_ = {sl * DL, DB, DB * Y, q, Y,   R1, q, 1, 0,
+                   DB, 1, Y * nBp, nBp,   DB, 1, nS, q * nS};
   const Gemm gn_ = {sl, sr, DLB, P, 1,   DLB, 1, nS, 0,
                    sr, 1, 0, 0,   P * sr, 1, sr, 0};
-  const Gemm gs_ = {sl, DLB, sl, 1, 1,   Y * q, sl * Y * q, 0, 0,
-                   DLB, 1, 0, 0,   DLB, 1, 0, 0};
+  const Gemm gs_ = {sl, DLB, P * sl, 1, 1,   1, sl, 0, 0,
+                   DLB, 1, 0, 0,   sE, 1, 0, 0};
+  // a run-time shape reads its products' geometry from shared memory
+  // (registers are the scarcer); a fixed one folds it into the code
   __shared__ Gemm gd[5];
-  if (tid == 0) {
+  if (!Dm::kFixed && tid == 0) {
     gd[0] = gm_;
     gd[1] = g1_;
     gd[2] = g2_;
     gd[3] = gn_;
     gd[4] = gs_;
   }
-  const Gemm& gm = gd[0];
-  const Gemm& g1 = gd[1];
-  const Gemm& g2 = gd[2];
-  const Gemm& gn = gd[3];
-  const Gemm& gs = gd[4];
+  const Gemm& gm = Dm::kFixed ? gm_ : gd[0];
+  const Gemm& g1 = Dm::kFixed ? g1_ : gd[1];
+  const Gemm& g2 = Dm::kFixed ? g2_ : gd[2];
+  const Gemm& gn = Dm::kFixed ? gn_ : gd[3];
+  const Gemm& gs = Dm::kFixed ? gs_ : gd[4];
 
   async_copy(Wb, Ws + z * S * (i64)nW, nW);                   // W_1
-  copy_block(Ps, Pyy, nP);
-  copy_block(Sc, Sinit + z * (i64)nS, nS);
+  for (int i = tid; i < nP; i += NT) Ps[i] = Pyy[i];
+  for (int i = tid; i < nSp; i += NT) {                        // pads stay 0
+    const int e = i / sE, c = i - e * sE;
+    Sc[i] = c < DLB ? Sinit[z * nS + e * DLB + c] : T(0);
+    S2[i] = T(0);
+  }
   for (int s = 0; s < S; ++s) {
     const i64 row = z * S + s;
     const bool last = (s == S - 1);
-    T* Wt = Wb + (s & 1) * nWp;
+    const T* Wt = Wb + (s & 1) * nWp;
     T* Wt1 = Wb + ((s + 1) & 1) * nWp;
     if (!last) async_copy(Wt1, Ws + (row + 1) * nW, nW);       // W_{t+1}
     else __pipeline_commit();
     stage4(Ls, L + z * sL.s[0] + s * sL.s[1], sL.s, DL, DL, Y, q);
     stage4(Bs, Bm + z * sB.s[0] + s * sB.s[1], sB.s, DB, DB, Y, q);
-    copy_block(Fs, Phi + (i64)s * nF, nF);
-    for (int i = tid; i < nS; i += nt) S2[i] = T(0);
+    // Phi_t[e][f][(y,x)] -> Fs[(y,x)][e][f]
+    stage_t4(Fs, Phi + (i64)s * nF, sl, sl, P, 1, sl, 1, sl * sl, 0);
     __pipeline_wait_prior(1);                                  // W_t
     __syncthreads();
-    tile_gemm<T, 2, 2, 8, false>(Sc, Wt, Mo, gm);              // M = S . W_t
-    for (int x = 0; x < q; ++x) {
-      block_gemm<T, false>(Sc, Ls + x, t1, g1);                // t1 = S . L_t
-      for (int y = 0; y < Y; ++y) {
-        for (int i = tid; i < nBp; i += nt) {                  // Bp[m][uu][j]
-          int r = i;
-          const int j = r % DB; r /= DB;
-          const int uu = r % Y;
-          const int m = r / Y;
-          T acc = T(0);
-          for (int v = 0; v < Y; ++v)
-            acc += Ps[((y * Y + uu) * Y + v) * q + x] *
-                   Bs[((m * DB + j) * Y + v) * q + x];
-          Bp[i] = acc;
-        }
-        __syncthreads();
-        T* t2p = t2 + (y * q + x) * nS;
-        block_gemm<T, false>(t1, Bp, t2p, g2);                 // t2 = t1 . Bp
-        __syncthreads();
-        block_gemm<T, true>(Fs + y * q + x, t2p, S2, gs);      // S2 += Phi . t2
-      }
+    tile_gemm<NT, T, 2, 5, 16, false>(Sc, Wt, Mo, gm);         // M = S . W_t
+    tile_gemm<NT, T, 4, 5, 1, false>(Sc, Ls, t1, g1);          // t1 = S . L_t
+    for (int i = tid; i < nBp * P; i += NT) {                  // Bp[x][y][m][u][j]
+      int r = i;
+      const int j = r % DB; r /= DB;
+      const int uu = r % Y; r /= Y;
+      const int m = r % DB; r /= DB;
+      const int y = r % Y;
+      const int x = r / Y;
+      T acc = T(0);
+      for (int v = 0; v < Y; ++v)
+        acc += Ps[((y * Y + uu) * Y + v) * q + x] *
+               Bs[((m * DB + j) * Y + v) * q + x];
+      Bp[i] = acc;
     }
+    __syncthreads();
+    tile_gemm<NT, T, 4, 5, 2, false>(t1, Bp, t2, g2);          // t2 = t1 . Bp
     __pipeline_wait_prior(0);                                  // W_{t+1}
     __syncthreads();
     if (last) {
-      for (int i = tid; i < nN; i += nt) {
+      for (int i = tid; i < nN; i += NT) {
         const int b = i % sr, p = (i / sr) % P, e = i / (sr * P);
         No[i] = (b == 0) ? t2[p * nS + e * DLB] : T(0);
       }
     } else {
-      tile_gemm<T, 2, 2, 8, false>(t2, Wt1, No, gn);           // N = t2 . W_{t+1}
+      tile_gemm<NT, T, 4, 5, 8, false>(t2, Wt1, No, gn);       // N = t2 . W_{t+1}
     }
+    tile_gemm<NT, T, 4, 5, 1, false>(Fs, t2, S2, gs);          // S2 = Phi . t2
     __syncthreads();
-    const T sc = block_scale(S2, nS);
-    for (int i = tid; i < nS; i += nt) Sc[i] = S2[i] / sc;
-    for (int i = tid; i < nM; i += nt) Ms[row * nM + i] = Mo[i];
-    for (int i = tid; i < nN; i += nt) Ns[row * nN + i] = No[i];
+    // max-abs of S2 with the _safe_scale guard: per-warp partials, then
+    // every thread folds the partials itself (one barrier)
+    double mx = 0.0;
+    int bad = 0;
+    for (int i = tid; i < nSp; i += NT) {
+      const double v = (double)S2[i];
+      if (!isfinite(v)) bad = 1; else mx = fmax(mx, fabs(v));
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      mx = fmax(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      bad |= __shfl_xor_sync(0xffffffffu, bad, o);
+    }
+    if (lane == 0) { red_m[warp] = mx; red_b[warp] = bad; }
     __syncthreads();
+    mx = 0.0;
+    bad = 0;
+#pragma unroll
+    for (int w = 0; w < NWARP; ++w) { mx = fmax(mx, red_m[w]); bad |= red_b[w]; }
+    const T sc = (bad || !(mx > 0.0)) ? T(1) : T(mx);
+    for (int i = tid; i < nSp; i += NT) Sc[i] = S2[i] / sc;
+    for (int i = tid; i < nM; i += NT) Ms[row * nM + i] = Mo[i];
+    for (int i = tid; i < nN; i += NT) Ns[row * nN + i] = No[i];
   }
 }
 
@@ -801,6 +875,22 @@ static int merge_f_launch(const void* L, const i64* sL, const void* B,
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename Dm>
+static int merge_f_staged_run(const T* L, Str6 a, const T* B, Str6 b,
+                              const T* Pyy, const T* Phi, const T* Ws,
+                              const T* Sinit, T* Ns, T* Ms, int Bn, int S,
+                              Dm dm, size_t smem, cudaStream_t st) {
+  int threads = STAGED_THREADS;
+  int e = prepare(merge_f_staged_kernel<T, Dm>, smem, &threads);
+  if (e) return e;
+  if (threads != STAGED_THREADS) return (int)cudaErrorInvalidConfiguration;
+  merge_f_staged_kernel<T, Dm><<<Bn, STAGED_THREADS, smem, st>>>(
+      L, a, B, b, Pyy, Phi, Ws, Sinit, Ns, Ms, S, dm);
+  return (int)cudaGetLastError();
+}
+
+// The staged kernel runs in blocks of STAGED_THREADS threads (the wrapper
+// asks for that many); the D=10 sketch merge takes its fixed-shape build.
 template <typename T>
 static int merge_f_staged_launch(const void* L, const i64* sL, const void* B,
                                  const i64* sB, const void* Pyy,
@@ -809,14 +899,16 @@ static int merge_f_staged_launch(const void* L, const i64* sL, const void* B,
                                  int Bn, int S, int DL, int DB, int Y, int q,
                                  int sr, int sl, int threads, size_t smem,
                                  cudaStream_t st) {
+  if (threads != STAGED_THREADS) return (int)cudaErrorInvalidValue;
   Str6 a, b;
   for (int i = 0; i < 6; ++i) { a.s[i] = sL[i]; b.s[i] = sB[i]; }
-  int e = prepare(merge_f_staged_kernel<T>, smem, &threads);
-  if (e) return e;
-  merge_f_staged_kernel<T><<<Bn, threads, smem, st>>>(
-      (const T*)L, a, (const T*)B, b, (const T*)Pyy, (const T*)Phi,
-      (const T*)Ws, (const T*)Sinit, (T*)Ns, (T*)Ms, S, DL, DB, Y, q, sr, sl);
-  return (int)cudaGetLastError();
+  const T *l = (const T*)L, *bm = (const T*)B, *p = (const T*)Pyy,
+          *f = (const T*)Phi, *w = (const T*)Ws, *s0 = (const T*)Sinit;
+  if (DL == 10 && DB == 10 && Y == 2 && q == 2 && sr == 10 && sl == 14)
+    return merge_f_staged_run(l, a, bm, b, p, f, w, s0, (T*)Ns, (T*)Ms, Bn,
+                              S, FixedDims<10, 10, 2, 2, 10, 14>(), smem, st);
+  return merge_f_staged_run(l, a, bm, b, p, f, w, s0, (T*)Ns, (T*)Ms, Bn, S,
+                            RunDims{DL, DB, Y, q, sr, sl}, smem, st);
 }
 
 template <typename T>

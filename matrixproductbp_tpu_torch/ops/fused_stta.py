@@ -39,6 +39,8 @@ __all__ = ["merge_stta_fused", "mpem3_stta_fused", "mpem3_stta_fused_tm",
 #: less the kernels' static reduction scratch
 SMEM_LIMIT = build.SMEM_PER_BLOCK - 1024
 _MPEM3_THREADS = 128
+#: the staged merge F kernel's block (``STAGED_THREADS`` in the source)
+_STAGED_THREADS = 256
 
 
 def _merge_threads(smem: int) -> int:
@@ -62,12 +64,16 @@ def _smem_merge_f(DL, DB, Y, q, sr, sl):
 
 def _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize):
     """merge_f_staged_kernel's buffers: two W buffers, each padded to 16
-    bytes, t2 for all (y, x) pairs, and M and N of one step."""
-    nS, nW, P = sl * DL * DB, DL * DB * sr, Y * q
+    bytes; S and S2 with rows padded to an odd stride; t1 for both x (rows
+    padded to an odd stride; N of one step reuses it); t2, Bp and Phi_t for
+    all (y, x) pairs; L_t, B_t, Pyy and M of one step."""
+    DLB, P = DL * DB, Y * q
     v16 = 16 // esize
-    nWp = -(-nW // v16) * v16
-    return (2 * nWp + 2 * nS + nS * Y + nS * P + DL * DL * P + DB * DB * P
-            + DB * DB * Y + sl * sl * P + Y * Y * P + sl * sr + sl * P * sr)
+    nWp = -(-(DLB * sr) // v16) * v16
+    return (2 * nWp + 2 * sl * (DLB | 1)
+            + max(sl * DL * ((DB * P) | 1), sl * P * sr)
+            + sl * DLB * P + DL * DL * P + DB * DB * P + DB * Y * DB * P
+            + sl * sl * P + Y * Y * P + sl * sr)
 
 
 def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
@@ -82,7 +88,9 @@ def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
     for name in (sizes if variant is None else (variant,)):
         nbytes = sizes[name] * esize
         if nbytes <= SMEM_LIMIT:
-            return name, _merge_threads(nbytes), nbytes
+            threads = (_STAGED_THREADS if name == "staged"
+                       else _merge_threads(nbytes))
+            return name, threads, nbytes
     raise ValueError(f"merge F scan: needs {sizes['base'] * esize} bytes of "
                      f"shared memory per block, over the {SMEM_LIMIT}-byte "
                      "limit")

@@ -21,6 +21,7 @@ bench shape.  Needs a CUDA card.
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -32,16 +33,17 @@ from matrixproductbp_tpu_torch.ops import fused_stta as fs
 SOURCE = os.path.join(os.path.dirname(build.__file__), "..", "csrc",
                       "stta_scans.cu")
 BENCH = dict(Bn=8192, S=15, DL=10, DB=10, Y=2, q=2, sr=10, sl=14)
-# the card tests' edge shapes (DL, DB, Y, q, sr, sl), S
+# the card tests' edge shapes (DL, DB, Y, q, sr, sl), S; the last one is
+# the D=10 sketch merge, which takes the staged kernel's fixed-shape build
 F64_SHAPES = [((4, 3, 2, 2, 5, 9), 4), ((3, 3, 3, 2, 4, 8), 4),
               ((4, 3, 2, 2, 5, 9), 1), ((4, 3, 2, 2, 5, 9), 2),
               ((3, 5, 2, 2, 7, 11), 3), ((5, 2, 2, 2, 6, 10), 3),
-              ((3, 3, 3, 2, 5, 9), 3), ((4, 4, 2, 1, 5, 9), 3)]
+              ((3, 3, 3, 2, 5, 9), 3), ((4, 4, 2, 1, 5, 9), 3),
+              ((10, 10, 2, 2, 10, 14), 3)]
 
 _M_BASE = ("block_gemm<T, false>(Sc, Wt, Ms + row * sl * sr, gm);", "")
 _N_BASE = ("block_gemm<T, false>(t2, Wt1, Nyx, gn);", "")
-_M_STAGED = ("tile_gemm<T, 2, 2, 8, false>(Sc, Wt, Mo, gm);", "")
-_N_STAGED = ("tile_gemm<T, 2, 2, 8, false>(t2, Wt1, No, gn);", "")
+_STAGED = "merge_f_staged_kernel"
 # variant: (kernel, [(text inside its body, replacement), ...])
 VARIANTS = {
     "base_without_MN": ("merge_f_kernel", [_M_BASE, _N_BASE]),
@@ -51,17 +53,25 @@ VARIANTS = {
         "block_gemm<T, false>(t1, Bp, t2, g2);", "")]),
     "base_without_S2": ("merge_f_kernel", [(
         "block_gemm<T, true>(Fs + y * q + x, t2, S2, gs);", "")]),
-    "staged_without_MN": ("merge_f_staged_kernel", [_M_STAGED, _N_STAGED]),
+    "staged_without_MN": (_STAGED, [
+        ("tile_gemm<NT, T, 2, 5, 16, false>(Sc, Wt, Mo, gm);", ""),
+        ("tile_gemm<NT, T, 4, 5, 8, false>(t2, Wt1, No, gn);", "")]),
+    "staged_without_t1": (_STAGED, [(
+        "tile_gemm<NT, T, 4, 5, 1, false>(Sc, Ls, t1, g1);", "")]),
+    "staged_without_t2": (_STAGED, [(
+        "tile_gemm<NT, T, 4, 5, 2, false>(t1, Bp, t2, g2);", "")]),
+    "staged_without_S2": (_STAGED, [(
+        "tile_gemm<NT, T, 4, 5, 1, false>(Fs, t2, S2, gs);", "")]),
 }
 
 
 def _body(text, kernel):
     """(start, end) of one kernel's definition in the source."""
-    start = text.find(f"__global__ void {kernel}(")
-    if start < 0:
+    m = re.search(r"__global__ void (__launch_bounds__\([^)]*\)\s*)?"
+                  + kernel + r"\(", text)
+    if m is None:
         raise RuntimeError(f"the source holds no kernel {kernel}")
-    end = text.find("\n// ----", start)
-    return start, end
+    return m.start(), text.find("\n// ----", m.start())
 
 
 def variant_sources(text):

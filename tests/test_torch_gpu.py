@@ -1,6 +1,7 @@
 """Each CUDA kernel against its plain version on the card: the scan kernels
-(f64 at small shapes, 1e-10; f32 at the bench shape, 1e-4 of the plain
-output's max-abs), the CholQR kernel (f64 1e-10; f32 at the D=10 and D=20
+(f64 at small shapes, 1e-10, both merge F kernels at its edge shapes; f32
+at the bench shape, 1e-4 of the plain output's max-abs; D=20 takes the base
+merge F kernel), the CholQR kernel (f64 1e-10; f32 at the D=10 and D=20
 sketch shapes, 1e-5 of max-abs: both factor in f64 and round once) and the
 Jacobi eigen kernel (f64, 1e-10 relative in eigenvalues and in the
 reconstruction, V orthonormal to 1e-10; Gaussian, degenerate, zero and
@@ -30,7 +31,9 @@ def _randn(g, *shape):
     return torch.randn(shape, generator=g, dtype=torch.float64)
 
 
-def _merge_case(Bn, S, DL, DB, Y, q, sr, sl, dtype, dev):
+def _merge_case(Bn, S, DL, DB, Y, q, sr, sl, dtype, dev, variant=None):
+    """(kernel outputs, plain outputs): Ws, Ns, Ms; ``variant`` forces the
+    merge F kernel."""
     g = torch.Generator().manual_seed(0)
     L = _randn(g, Bn, S + 1, DL, DL, Y, q).to(dev, dtype)
     B = _randn(g, Bn, S + 1, DB, DB, Y, q).to(dev, dtype)
@@ -40,11 +43,10 @@ def _merge_case(Bn, S, DL, DB, Y, q, sr, sl, dtype, dev):
     Phi = _randn(g, S, sl, sl, Y, q).to(dev, dtype)
     S0 = _randn(g, Bn, sl, DL, DB).to(dev, dtype)
     L1, B1 = L[:, 1:], B[:, 1:]
-    out, ref = [], []
-    for w, f, dst in ((fs.merge_wscan, fs.merge_fscan, out),
-                      (fs.merge_wscan_plain, fs.merge_fscan_plain, ref)):
-        Ws = w(L1, B1, Th)
-        dst.extend([Ws, *f(L1, B1, Pyy, Phi, Ws, S0)])
+    Ws = fs.merge_wscan(L1, B1, Th)
+    out = [Ws, *fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S0, _variant=variant)]
+    Wp = fs.merge_wscan_plain(L1, B1, Th)
+    ref = [Wp, *fs.merge_fscan_plain(L1, B1, Pyy, Phi, Wp, S0)]
     return out, ref
 
 
@@ -73,11 +75,40 @@ def _assert_close(out, ref, tol_rel):
         assert float((o - r).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("dims", [dict(DL=4, DB=3, Y=2, q=2, sr=5, sl=9),
-                                  dict(DL=3, DB=3, Y=3, q=2, sr=4, sl=8)])
-def test_merge_kernels_f64(cuda, dims):
-    _assert_close(*_merge_case(7, 4, **dims, dtype=torch.float64, dev=cuda),
-                  None)
+# the two small shapes; S=1 (only the last step: the one-hot W_{T1}, nothing
+# to prefetch); S=2; odd sl/sr (ragged tiles and K splits); DL != DB both
+# ways; Y=3; q=1; the D=10 sketch merge (the staged kernel's fixed-shape
+# build) -- each through both merge F kernels
+@pytest.mark.parametrize("variant", ["staged", "base"])
+@pytest.mark.parametrize("dims,S", [
+    (dict(DL=4, DB=3, Y=2, q=2, sr=5, sl=9), 4),
+    (dict(DL=3, DB=3, Y=3, q=2, sr=4, sl=8), 4),
+    (dict(DL=4, DB=3, Y=2, q=2, sr=5, sl=9), 1),
+    (dict(DL=4, DB=3, Y=2, q=2, sr=5, sl=9), 2),
+    (dict(DL=3, DB=5, Y=2, q=2, sr=7, sl=11), 3),
+    (dict(DL=5, DB=2, Y=2, q=2, sr=6, sl=10), 3),
+    (dict(DL=3, DB=3, Y=3, q=2, sr=5, sl=9), 3),
+    (dict(DL=4, DB=4, Y=2, q=1, sr=5, sl=9), 3),
+    (dict(DL=10, DB=10, Y=2, q=2, sr=10, sl=14), 3)])
+def test_merge_kernels_f64(cuda, dims, S, variant):
+    before = fs.merge_fscan.variant_launches[variant]
+    _assert_close(*_merge_case(7, S, **dims, dtype=torch.float64, dev=cuda,
+                               variant=variant), None)
+    assert fs.merge_fscan.variant_launches[variant] == before + 1
+
+
+@pytest.mark.parametrize("variant", ["staged", "base"])
+def test_merge_f_kernels_f32_bench_shape(cuda, variant):
+    _assert_close(*_merge_case(64, 15, 10, 10, 2, 2, 10, 14, torch.float32,
+                               cuda, variant), 1e-4)
+
+
+def test_merge_f_d20_takes_the_base_kernel(cuda):
+    before = dict(fs.merge_fscan.variant_launches)
+    _assert_close(*_merge_case(16, 15, 20, 20, 2, 2, 20, 24, torch.float32,
+                               cuda), 1e-4)
+    assert fs.merge_fscan.variant_launches == {
+        "staged": before["staged"], "base": before["base"] + 1}
 
 
 @pytest.mark.parametrize("dims", [dict(Db=4, qi=2, qj=2, sr=5, sl=8),
