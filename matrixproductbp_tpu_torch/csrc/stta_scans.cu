@@ -42,13 +42,15 @@
 //
 // merge_f_staged_kernel goes further for the shapes whose buffers fit: W_t and
 // W_{t+1} are staged by cp.async into two rotating buffers (merge_f_kernel
-// reads them from global memory inside its k-loops), every contraction of a
-// step is one product over all (y,x) pairs (5 block barriers a step, not
-// 17), the products use 4x5 register tiles (9 loads per 20 FMAs) and split
-// their K sum over lanes where the output is small, and S and t1 rows are
-// padded to odd strides: ~6,500 wavefronts per instance-step at D=10.  The
-// D=10 shape is compiled with its sizes as constants (FixedDims), so task
-// decodes and strides fold; 80 registers, 3 blocks of 256 threads per SM.
+// reads them from global memory inside its k-loops), and so are L_t, B_t and
+// Phi_t, a step ahead; every contraction of a step is one product over all
+// (y,x) pairs (5 block barriers a step, not 17); the products use 20-output
+// register tiles (9-12 shared loads per 20 FMAs, not 20) and split their K
+// sum over lanes where the output is small; S and t1 rows are padded to odd
+// strides: ~6,500 wavefronts per instance-step at D=10 by the same count.
+// The D=10 shape is compiled with its sizes as constants (FixedDims), so
+// task decodes and strides fold; 80 registers, 3 blocks of 256 threads per
+// SM.
 //
 // Shared memory per block (elements of T; the wrapper computes the same sums,
 // fused_stta.py::_smem_*, and refuses shapes over 227 KB):
@@ -61,12 +63,13 @@
 //             + DB^2*Y*q + DB^2*Y (B_t premixed with prob_yy) + sl^2*Y*q
 //             (Phi_t) + Y^3*q.  D=20, f32, sl=24: 54320 floats = 212.2 KiB.
 //             W_t and W_{t+1} are read from global memory.
-//   merge F, staged: 2*nWp (W_t, W_{t+1}; nWp = DL*DB*sr rounded up to 16
-//             bytes) + 2*sl*sE (S, S2; sE = DL*DB|1) + max(sl*DL*R1,
-//             sl*Y*q*sr) (t1 for both x, R1 = DB*Y*q|1; N reuses it)
-//             + sl*DL*DB*Y*q (t2, all pairs) + DL^2*Y*q + DB^2*Y*q (L_t, B_t)
-//             + DB^2*Y*Y*q (Bp, all pairs) + sl^2*Y*q (Phi_t) + Y^3*q
-//             + sl*sr (M).  D=10, f32, sl=14: 18708 floats = 73.1 KiB.
+//   merge F, staged: 2*nWp + 2*nLp + 2*nBq (W_t and W_{t+1}; L_t and B_t
+//             for two steps; DL*DB*sr, DL^2*Y*q and DB^2*Y*q, each rounded
+//             up to 16 bytes) + sl*sE (S, S2 over it; sE = DL*DB|1)
+//             + max(sl*DL*R1, sl*Y*q*sr) (t1 for both x, R1 = DB*Y*q|1; N
+//             reuses it) + sl*DL*DB*Y*q (t2, all pairs) + DB^2*Y*Y*q (Bp,
+//             all pairs) + 2*sl^2*Y*q (Phi_t for two steps) + Y^3*q
+//             + sl*sr (M).  D=10, f32, sl=14: 18878 floats = 73.7 KiB.
 //   MPEM3 W/F: under 10 KiB at D=20.
 // f64 instantiations exist so that tests hold each kernel to its plain version
 // at 1e-10; they fit only at small shapes.
@@ -201,10 +204,10 @@ __device__ __forceinline__ void tile_gemm(const T* __restrict__ A,
   }
 }
 
-// Start an asynchronous copy of n contiguous elements from global into shared
-// memory (cp.async: 16-byte chunks when both ends and n allow it, else one
-// element per copy) and commit it as one group.  Every thread must call it;
-// __pipeline_wait_prior and a block barrier make the data visible.
+// Issue asynchronous copies (cp.async) of n contiguous elements from global
+// into shared memory: 16-byte chunks when both ends and n allow it, else one
+// element per copy.  Every thread must call it; __pipeline_commit groups the
+// copies, and __pipeline_wait_prior and a block barrier make them visible.
 template <typename T>
 __device__ void async_copy(T* dst, const T* src, int n) {
   const bool vec = ((reinterpret_cast<size_t>(dst) |
@@ -220,7 +223,29 @@ __device__ void async_copy(T* dst, const T* src, int n) {
     for (int i = threadIdx.x; i < n; i += blockDim.x)
       __pipeline_memcpy_async(dst + i, src + i, sizeof(T));
   }
-  __pipeline_commit();
+}
+
+// stage4 by asynchronous copies: one block copy where the row is contiguous,
+// else one copy per element.
+template <typename T>
+__device__ void async_stage4(T* dst, const T* src, const i64* s, int A, int B,
+                             int C, int D) {
+  if (s[5] == 1 && s[4] == D && s[3] == (i64)C * D &&
+      s[2] == (i64)B * C * D) {
+    async_copy(dst, src, A * B * C * D);
+    return;
+  }
+  const int n = A * B * C * D;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    int r = i;
+    const int d = r % D; r /= D;
+    const int c = r % C; r /= C;
+    const int b = r % B;
+    const int a = r / B;
+    __pipeline_memcpy_async(dst + i,
+                            src + a * s[2] + b * s[3] + c * s[4] + d * s[5],
+                            sizeof(T));
+  }
 }
 
 // Per-block max-abs scale of x[0..n) with the _safe_scale guard.  Every
@@ -497,24 +522,29 @@ __global__ void merge_f_kernel(const T* __restrict__ L, Str6 sL,
 // merge F, staged: the same scan as merge_f_kernel, for the shapes whose
 // buffers fit (D=10 and below), in blocks of STAGED_THREADS threads.  One
 // product per contraction and step, five block barriers per step:
-//   stage L_t, B_t, Phi_t; cp.async W_{t+1}                        | barrier
+//   cp.async W_{t+1}, then step s+1's L, B and Phi (two groups);
+//   wait for step s's                                              | barrier
 //   M = S . W_t;  t1 = S . L_t (both x);  Bp (all (y,x) pairs)     | barrier
-//   t2 = t1 . Bp (all pairs)                                       | barrier
+//   t2 = t1 . Bp (all pairs);  wait for W_{t+1}                    | barrier
 //   N = t2 . W_{t+1} (all pairs);  S2 = sum_{y,x,e} Phi_t t2        | barrier
 //   per-warp max-abs of S2                                         | barrier
 //   every thread finishes the max; S <- S2 / scale; store M, N
-// W_t and W_{t+1} sit in two shared-memory buffers filled by cp.async (the
-// copy of W_{t+1} is issued at the start of step s and waited for before N;
-// it is step s+1's W_t).  Every product takes 4x5 register tiles (2x5 for
-// M), and M, t2 and N split their K sum over 16, 2 and 8 lanes, so that
-// each has work for the whole block.  Rows of S (and S2) and of t1 are
-// padded to odd strides, against bank conflicts.  M and N are written to
-// shared memory and stored to Ms and Ns coalesced.  The shape is a template
-// argument: FixedDims for the D=10 sketch merge, whose sizes, strides and
-// task decodes then fold into constants, RunDims for every other shape.
-// Shared layouts: W [2][nWp] (16-byte aligned); S, S2 [e][k][m] (row
-// stride sE); t1 [e][n][m][u][x] (row (e,n) stride R1); t2 [y][x][e][n][j];
-// Bp [x][y][m][u][j]; Fs [y][x][e][f]; Mo [e][a]; No [e][y][x][b] (in t1).
+// Every streamed operand arrives by cp.async one step ahead: W into two
+// rotating buffers (the copy of W_{t+1} is issued at the start of step s and
+// waited for before N; it is step s+1's W_t), L_t, B_t and Phi_t into double
+// buffers (issued a step ahead, waited for at the step's first barrier).
+// S2 is written over S: every reader of S has passed a barrier by then.
+// The products take 20-output register tiles (2x5 for M and S2, 2x10 for
+// t1, 4x5 for t2 and N), and M, t2 and N split their K sum over 16, 2 and 4
+// lanes, so that each has work for the whole block.  Rows of S and of t1 are padded to odd strides, against bank
+// conflicts.  M and N are written to shared memory and stored to Ms and Ns
+// coalesced.  The shape is a template argument: FixedDims for the D=10
+// sketch merge, whose sizes, strides and task decodes then fold into
+// constants, RunDims for every other shape.
+// Shared layouts: W [2][nWp], L [2][nLp], B [2][nBq] (16-byte aligned);
+// S [e][k][m] (row stride sE); t1 [e][n][m][u][x] (row (e,n) stride R1);
+// t2 [y][x][e][n][j]; Bp [x][y][m][u][j]; Fs [2][y][x][e][f]; Mo [e][a];
+// No [e][y][x][b] (in t1).
 // ---------------------------------------------------------------------------
 constexpr int STAGED_THREADS = 256;
 
@@ -546,21 +576,21 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
   const int DL = dm.DL, DB = dm.DB, Y = dm.Y, q = dm.q, sr = dm.sr,
             sl = dm.sl;
   const int DLB = DL * DB, nS = sl * DLB, nW = DLB * sr, P = Y * q;
+  const int nL = DL * DL * P, nB = DB * DB * P, nBp = DB * Y * DB;
   const int nWp = (nW + V16 - 1) / V16 * V16;
+  const int nLp = (nL + V16 - 1) / V16 * V16, nBq = (nB + V16 - 1) / V16 * V16;
   const int sE = DLB | 1, R1 = (DB * P) | 1;
   const int nSp = sl * sE, nT1 = max(sl * DL * R1, sl * P * sr);
-  const int nL = DL * DL * P, nB = DB * DB * P, nBp = DB * Y * DB;
   const int nF = sl * sl * P, nP = Y * Y * P, nM = sl * sr, nN = sl * P * sr;
   T* Wb = sm;
-  T* Sc = Wb + 2 * nWp;
-  T* S2 = Sc + nSp;
-  T* t1 = S2 + nSp;
+  T* Ls = Wb + 2 * nWp;
+  T* Bs = Ls + 2 * nLp;
+  T* Sb = Bs + 2 * nBq;
+  T* t1 = Sb + nSp;
   T* t2 = t1 + nT1;
-  T* Ls = t2 + nS * P;
-  T* Bs = Ls + nL;
-  T* Bp = Bs + nB;
+  T* Bp = t2 + nS * P;
   T* Fs = Bp + nBp * P;
-  T* Ps = Fs + nF;
+  T* Ps = Fs + 2 * nF;
   T* Mo = Ps + nP;
   T* No = t1;                      // t1 is dead once t2 is formed
   const i64 z = blockIdx.x;
@@ -591,29 +621,46 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
   const Gemm& g2 = Dm::kFixed ? g2_ : gd[2];
   const Gemm& gn = Dm::kFixed ? gn_ : gd[3];
   const Gemm& gs = Dm::kFixed ? gs_ : gd[4];
+  // issue the copies of step t's L_t, B_t and Phi_t (transposed to
+  // Fs[(y,x)][e][f]) into buffer t & 1
+  auto stage_step = [&](int t) {
+    const int buf = t & 1;
+    async_stage4(Ls + buf * nLp, L + z * sL.s[0] + t * sL.s[1], sL.s, DL, DL,
+                 Y, q);
+    async_stage4(Bs + buf * nBq, Bm + z * sB.s[0] + t * sB.s[1], sB.s, DB,
+                 DB, Y, q);
+    const T* ph = Phi + (i64)t * nF;
+    T* fd = Fs + buf * nF;
+    for (int i = tid; i < nF; i += NT) {
+      const int p = i % P, f = (i / P) % sl, e = i / (P * sl);
+      __pipeline_memcpy_async(fd + (p * sl + e) * sl + f, ph + i, sizeof(T));
+    }
+  };
 
   async_copy(Wb, Ws + z * S * (i64)nW, nW);                   // W_1
+  stage_step(0);
+  __pipeline_commit();
   for (int i = tid; i < nP; i += NT) Ps[i] = Pyy[i];
   for (int i = tid; i < nSp; i += NT) {                        // pads stay 0
     const int e = i / sE, c = i - e * sE;
-    Sc[i] = c < DLB ? Sinit[z * nS + e * DLB + c] : T(0);
-    S2[i] = T(0);
+    Sb[i] = c < DLB ? Sinit[z * nS + e * DLB + c] : T(0);
   }
   for (int s = 0; s < S; ++s) {
     const i64 row = z * S + s;
     const bool last = (s == S - 1);
     const T* Wt = Wb + (s & 1) * nWp;
     T* Wt1 = Wb + ((s + 1) & 1) * nWp;
+    const T* Lc = Ls + (s & 1) * nLp;
+    const T* Bc = Bs + (s & 1) * nBq;
+    const T* Fc = Fs + (s & 1) * nF;
     if (!last) async_copy(Wt1, Ws + (row + 1) * nW, nW);       // W_{t+1}
-    else __pipeline_commit();
-    stage4(Ls, L + z * sL.s[0] + s * sL.s[1], sL.s, DL, DL, Y, q);
-    stage4(Bs, Bm + z * sB.s[0] + s * sB.s[1], sB.s, DB, DB, Y, q);
-    // Phi_t[e][f][(y,x)] -> Fs[(y,x)][e][f]
-    stage_t4(Fs, Phi + (i64)s * nF, sl, sl, P, 1, sl, 1, sl * sl, 0);
-    __pipeline_wait_prior(1);                                  // W_t
+    __pipeline_commit();
+    if (!last) stage_step(s + 1);
+    __pipeline_commit();
+    __pipeline_wait_prior(2);                                  // step s's
     __syncthreads();
-    tile_gemm<NT, T, 2, 5, 16, false>(Sc, Wt, Mo, gm);         // M = S . W_t
-    tile_gemm<NT, T, 4, 5, 1, false>(Sc, Ls, t1, g1);          // t1 = S . L_t
+    tile_gemm<NT, T, 2, 5, 16, false>(Sb, Wt, Mo, gm);         // M = S . W_t
+    tile_gemm<NT, T, 2, 10, 1, false>(Sb, Lc, t1, g1);          // t1 = S . L_t
     for (int i = tid; i < nBp * P; i += NT) {                  // Bp[x][y][m][u][j]
       int r = i;
       const int j = r % DB; r /= DB;
@@ -624,12 +671,12 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
       T acc = T(0);
       for (int v = 0; v < Y; ++v)
         acc += Ps[((y * Y + uu) * Y + v) * q + x] *
-               Bs[((m * DB + j) * Y + v) * q + x];
+               Bc[((m * DB + j) * Y + v) * q + x];
       Bp[i] = acc;
     }
     __syncthreads();
     tile_gemm<NT, T, 4, 5, 2, false>(t1, Bp, t2, g2);          // t2 = t1 . Bp
-    __pipeline_wait_prior(0);                                  // W_{t+1}
+    __pipeline_wait_prior(1);                                  // W_{t+1}
     __syncthreads();
     if (last) {
       for (int i = tid; i < nN; i += NT) {
@@ -637,16 +684,16 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
         No[i] = (b == 0) ? t2[p * nS + e * DLB] : T(0);
       }
     } else {
-      tile_gemm<NT, T, 4, 5, 8, false>(t2, Wt1, No, gn);       // N = t2 . W_{t+1}
+      tile_gemm<NT, T, 4, 5, 4, false>(t2, Wt1, No, gn);       // N = t2 . W_{t+1}
     }
-    tile_gemm<NT, T, 4, 5, 1, false>(Fs, t2, S2, gs);          // S2 = Phi . t2
+    tile_gemm<NT, T, 2, 5, 1, false>(Fc, t2, Sb, gs);          // S2 = Phi . t2
     __syncthreads();
     // max-abs of S2 with the _safe_scale guard: per-warp partials, then
     // every thread folds the partials itself (one barrier)
     double mx = 0.0;
     int bad = 0;
     for (int i = tid; i < nSp; i += NT) {
-      const double v = (double)S2[i];
+      const double v = (double)Sb[i];
       if (!isfinite(v)) bad = 1; else mx = fmax(mx, fabs(v));
     }
     for (int o = 16; o > 0; o >>= 1) {
@@ -660,7 +707,7 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
 #pragma unroll
     for (int w = 0; w < NWARP; ++w) { mx = fmax(mx, red_m[w]); bad |= red_b[w]; }
     const T sc = (bad || !(mx > 0.0)) ? T(1) : T(mx);
-    for (int i = tid; i < nSp; i += NT) Sc[i] = S2[i] / sc;
+    for (int i = tid; i < nSp; i += NT) Sb[i] = Sb[i] / sc;
     for (int i = tid; i < nM; i += NT) Ms[row * nM + i] = Mo[i];
     for (int i = tid; i < nN; i += NT) Ns[row * nN + i] = No[i];
   }

@@ -63,17 +63,20 @@ def _smem_merge_f(DL, DB, Y, q, sr, sl):
 
 
 def _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize):
-    """merge_f_staged_kernel's buffers: two W buffers, each padded to 16
-    bytes; S and S2 with rows padded to an odd stride; t1 for both x (rows
-    padded to an odd stride; N of one step reuses it); t2, Bp and Phi_t for
-    all (y, x) pairs; L_t, B_t, Pyy and M of one step."""
+    """merge_f_staged_kernel's buffers: W_t/W_{t+1}, and L_t, B_t and Phi_t
+    double-buffered (the cp.async copies run a step ahead), W, L and B each
+    padded to 16 bytes; S (S2 written over it) with rows padded to an odd
+    stride; t1 for both x (rows padded to an odd stride; N of one step
+    reuses it); t2 and Bp for all (y, x) pairs; Pyy; M of one step."""
     DLB, P = DL * DB, Y * q
     v16 = 16 // esize
-    nWp = -(-(DLB * sr) // v16) * v16
-    return (2 * nWp + 2 * sl * (DLB | 1)
-            + max(sl * DL * ((DB * P) | 1), sl * P * sr)
-            + sl * DLB * P + DL * DL * P + DB * DB * P + DB * Y * DB * P
-            + sl * sl * P + Y * Y * P + sl * sr)
+
+    def pad(n):
+        return -(-n // v16) * v16
+    return (2 * pad(DLB * sr) + 2 * pad(DL * DL * P) + 2 * pad(DB * DB * P)
+            + sl * (DLB | 1) + max(sl * DL * ((DB * P) | 1), sl * P * sr)
+            + sl * DLB * P + DB * Y * DB * P + 2 * sl * sl * P + Y * Y * P
+            + sl * sr)
 
 
 def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
@@ -91,9 +94,8 @@ def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
             threads = (_STAGED_THREADS if name == "staged"
                        else _merge_threads(nbytes))
             return name, threads, nbytes
-    raise ValueError(f"merge F scan: needs {sizes['base'] * esize} bytes of "
-                     f"shared memory per block, over the {SMEM_LIMIT}-byte "
-                     "limit")
+    raise ValueError(f"merge F scan: needs {nbytes} bytes of shared memory "
+                     f"per block, over the {SMEM_LIMIT}-byte limit")
 
 
 def _smem_mpem3_w(Db, qi, qj, sr):

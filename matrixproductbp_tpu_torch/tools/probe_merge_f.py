@@ -54,14 +54,14 @@ VARIANTS = {
     "base_without_S2": ("merge_f_kernel", [(
         "block_gemm<T, true>(Fs + y * q + x, t2, S2, gs);", "")]),
     "staged_without_MN": (_STAGED, [
-        ("tile_gemm<NT, T, 2, 5, 16, false>(Sc, Wt, Mo, gm);", ""),
-        ("tile_gemm<NT, T, 4, 5, 8, false>(t2, Wt1, No, gn);", "")]),
+        ("tile_gemm<NT, T, 2, 5, 16, false>(Sb, Wt, Mo, gm);", ""),
+        ("tile_gemm<NT, T, 4, 5, 4, false>(t2, Wt1, No, gn);", "")]),
     "staged_without_t1": (_STAGED, [(
-        "tile_gemm<NT, T, 4, 5, 1, false>(Sc, Ls, t1, g1);", "")]),
+        "tile_gemm<NT, T, 2, 10, 1, false>(Sb, Lc, t1, g1);", "")]),
     "staged_without_t2": (_STAGED, [(
         "tile_gemm<NT, T, 4, 5, 2, false>(t1, Bp, t2, g2);", "")]),
     "staged_without_S2": (_STAGED, [(
-        "tile_gemm<NT, T, 4, 5, 1, false>(Fs, t2, S2, gs);", "")]),
+        "tile_gemm<NT, T, 2, 5, 1, false>(Fc, t2, Sb, gs);", "")]),
 }
 
 

@@ -91,4 +91,4 @@ def test_probe_variants_apply_to_the_kernel_source():
     assert all(src != text for src in sources.values())
     with pytest.raises(RuntimeError, match="staged_without_t1"):
         probe_merge_f.variant_sources(text.replace(
-            "(Sc, Ls, t1, g1)", "(Sc, Ls,t1, g1)"))
+            "(Sb, Lc, t1, g1)", "(Sb, Lc,t1, g1)"))
