@@ -21,9 +21,10 @@
 // the merges are bound by operations, the MPEM3 scans by bytes (fp32 peaks).
 // In practice both are bound by shared-memory operand traffic and by the
 // block barriers between dependent contractions.  Counted for merge F at
-// D=10 (a CPU model of the warp-wide loads): merge_f_kernel issues ~18,000
-// shared-memory wavefronts per instance-step, with 1.25-1.9x bank conflicts
-// in every product, against ~26k SM-cycles measured per instance-step.
+// D=10 (tools/model_merge_f_smem.py, a CPU model of the warp-wide loads):
+// merge_f_kernel issues ~18,000 shared-memory wavefronts per instance-step,
+// with 1.25-1.9x bank conflicts in every product, against ~26k SM-cycles
+// measured per instance-step.
 //
 // Design.  On the TPU 128 instances rode the lanes and the grid's sequential
 // axis carried W/S in VMEM.  Here one thread block owns one instance and the
@@ -47,7 +48,7 @@
 // (y,x) pairs (5 block barriers a step, not 17); the products use 20-output
 // register tiles (9-12 shared loads per 20 FMAs, not 20) and split their K
 // sum over lanes where the output is small; S and t1 rows are padded to odd
-// strides: ~6,500 wavefronts per instance-step at D=10 by the same count.
+// strides: ~6,400 wavefronts per instance-step at D=10 by the same count.
 // The D=10 shape is compiled with its sizes as constants (FixedDims), so
 // task decodes and strides fold; 80 registers, 3 blocks of 256 threads per
 // SM.

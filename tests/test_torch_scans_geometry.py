@@ -3,13 +3,14 @@ pure :func:`merge_f_geometry`: the staged kernel at the D=10 bench shape
 and the small test shapes, ``merge_f_kernel`` at D=20, every shape of the
 sketch sweeps up to D=20 under the shared-memory limit, ``ValueError``
 above it.  Also: on the CPU the wrapper runs the plain scan whatever
-kernel is asked for, and every line that ``tools/probe_merge_f.py``
-replaces still exists in its kernel."""
+kernel is asked for, every line that ``tools/probe_merge_f.py`` replaces
+still exists in its kernel, and the shared-memory wavefront model gives the
+counts PERF.md quotes."""
 import pytest
 import torch
 
 from matrixproductbp_tpu_torch.ops import fused_stta as fs
-from matrixproductbp_tpu_torch.tools import probe_merge_f
+from matrixproductbp_tpu_torch.tools import model_merge_f_smem, probe_merge_f
 
 F32, F64 = torch.float32, torch.float64
 
@@ -92,3 +93,13 @@ def test_probe_variants_apply_to_the_kernel_source():
     with pytest.raises(RuntimeError, match="staged_without_t1"):
         probe_merge_f.variant_sources(text.replace(
             "(Sb, Lc, t1, g1)", "(Sb, Lc,t1, g1)"))
+
+
+def test_smem_model_counts():
+    counts = model_merge_f_smem.count()
+    base, staged = counts["merge_f_kernel"], counts["merge_f_staged_kernel"]
+    assert base["total"] == 18048 and staged["total"] == 6383
+    # every base product pays bank conflicts; the staged ones at most N's
+    assert all(w > ld for _, ld, w in (base[k] for k in base if k != "total"))
+    assert all(w <= 1.45 * ld for _, ld, w in
+               (staged[k] for k in staged if k != "total"))
