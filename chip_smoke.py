@@ -244,25 +244,42 @@ def phase_device():
     return info
 
 
+def staged_builds():
+    """The staged merge F kernel's builds this script runs, one per shape:
+    the D=10 sketch merge in f32 (the main path, the accuracy tree and
+    karate) and phase_kernels' f64 merges."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    shapes = [(*merge_dims(10).values(), torch.float32),
+              (4, 3, 2, 2, 5, 9, torch.float64),
+              (3, 3, 3, 2, 4, 8, torch.float64)]
+    return [("merge_f_staged", fs.merge_f_staged_macros(*d)) for d in shapes]
+
+
 def phase_build():
+    """Every source, and the staged merge F kernel at each shape the script
+    runs, one nvcc each, all started together."""
     from matrixproductbp_tpu_torch.ops import build
+    targets = list(build.SOURCES) + staged_builds()
     t0 = time.perf_counter()
-    build.build_all()
+    build.build_all(targets)
     seconds = time.perf_counter() - t0
-    report = [ln.strip() for name in build.SOURCES
-              for ln in build.build_log(name).splitlines()
+    report = [ln.strip() for t in targets
+              for ln in (build.build_log(t) if isinstance(t, str)
+                         else build.build_log(*t)).splitlines()
               if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     for ln in report:
         print("ptxas:", ln, flush=True)
     emit("build", seconds=seconds, sources=list(build.SOURCES),
-         lines=len(report))
+         merge_f_staged=[" ".join(m) for _, m in targets[len(
+             build.SOURCES):]], lines=len(report))
 
 
 def phase_kernels():
     """Each kernel against its plain version on the card: f64 at small
     shapes, f32 at the bench shapes for D=10 and D=20.  Each merge case
-    runs every merge F kernel that takes its shape (both at D=10 and
-    below, ``merge_f_kernel`` alone at D=20) and names it."""
+    runs every merge F kernel that takes its shape (both where the staged
+    kernel fits, ``merge_f_kernel`` alone at D=20) and names it."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
@@ -568,7 +585,7 @@ def phase_profile(bp, method="sketch"):
         return sum(us for us, _ in hit) / 1e6, sum(c for _, c in hit)
 
     ours_s, _ = named("merge_w_kernel<", "merge_f_kernel<",
-                      "merge_f_staged_kernel<",
+                      "merge_f_staged_kernel(",
                       "mpem3_w_kernel<", "mpem3_f_kernel<", "cholqr_kernel<",
                       "jacobi_eigh_kernel")
     svd_s, svd_n = named("jacobi_eigh_kernel", "gesvd", "syevj", "syevd")
@@ -720,7 +737,9 @@ def phase_kernel_times(launches, launches_d20, D=10, reps=10):
         bms, by = bound_ms(flops, nbytes)
         rows.append({
             "name": name, "route": "cuda",
-            "source": "matrixproductbp_tpu_torch/csrc/stta_scans.cu",
+            "source": "matrixproductbp_tpu_torch/csrc/" + (
+                "merge_f_staged.cu" if name == "merge_f_staged"
+                else "stta_scans.cu"),
             "replaces": "matrixproductbp_tpu/ops/fused_stta.py" + line,
             "launches": counts[name], "max_abs_err": err,
             "ms": sum(ms_runs) / len(ms_runs), "plain_ms": plain_ms,

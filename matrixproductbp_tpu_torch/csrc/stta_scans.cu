@@ -1,15 +1,14 @@
-// STTA sketch scans for Hopper (sm_90a): the four time-scan kernels of the
-// sketch sweep, written by hand in CUDA C++.
+// STTA sketch scans for Hopper (sm_90a): the time-scan kernels of the
+// sketch sweep, written by hand in CUDA C++.  The fifth, the staged merge F
+// kernel, is merge_f_staged.cu, built once per shape.
 //
 // Replaces the Pallas TPU kernels of matrixproductbp_tpu/ops/fused_stta.py:
 //   merge_w_kernel  <- _merge_wstep_kernel (fused_stta.py:231, grid wrapper _merge_wscan :359)
-//   merge_f_staged_kernel, merge_f_kernel
-//                   <- _merge_fstep_kernel (:281) and _merge_fstep_kernel_lean (:382),
-//                      grid wrapper _merge_fscan (:466); each kernel covers both
-//                      bodies.  The wrapper picks one by shape
-//                      (fused_stta.py::merge_f_geometry): the staged kernel
-//                      wherever its buffers fit (D=10 and below), merge_f_kernel
-//                      for the larger shapes (D=20)
+//   merge_f_kernel  <- _merge_fstep_kernel (:281) and _merge_fstep_kernel_lean (:382),
+//                      grid wrapper _merge_fscan (:466); it covers both bodies.
+//                      The wrapper (fused_stta.py::merge_f_geometry) runs it
+//                      only where merge_f_staged.cu's kernel does not fit:
+//                      the f32 sketch merges from D=16 (D=20 at the bench)
 //   mpem3_w_kernel  <- _mpem3_wstep_kernel (:508, grid wrapper _mpem3_wscan :605)
 //   mpem3_f_kernel  <- _mpem3_fstep_kernel (:545, grid wrapper _mpem3_fscan :628)
 // Their plain versions are matrixproductbp_tpu_torch/ops/stta.py::*_plain.
@@ -41,7 +40,7 @@
 // only: wgmma, TMA and packing instances into tensor-core tiles are later
 // work.
 //
-// merge_f_staged_kernel goes further for the shapes whose buffers fit: W_t and
+// merge_f_staged.cu goes further for the shapes whose buffers fit: W_t and
 // W_{t+1} are staged by cp.async into two rotating buffers (merge_f_kernel
 // reads them from global memory inside its k-loops), and so are L_t, B_t and
 // Phi_t, a step ahead; every contraction of a step is one product over all
@@ -49,9 +48,6 @@
 // register tiles (9-12 shared loads per 20 FMAs, not 20) and split their K
 // sum over lanes where the output is small; S and t1 rows are padded to odd
 // strides: ~6,400 wavefronts per instance-step at D=10 by the same count.
-// The D=10 shape is compiled with its sizes as constants (FixedDims), so
-// task decodes and strides fold; 80 registers, 3 blocks of 256 threads per
-// SM.
 //
 // Shared memory per block (elements of T; the wrapper computes the same sums,
 // fused_stta.py::_smem_*, and refuses shapes over 227 KB):
@@ -64,36 +60,17 @@
 //             + DB^2*Y*q + DB^2*Y (B_t premixed with prob_yy) + sl^2*Y*q
 //             (Phi_t) + Y^3*q.  D=20, f32, sl=24: 54320 floats = 212.2 KiB.
 //             W_t and W_{t+1} are read from global memory.
-//   merge F, staged: 2*nWp + 2*nLp + 2*nBq (W_t and W_{t+1}; L_t and B_t
-//             for two steps; DL*DB*sr, DL^2*Y*q and DB^2*Y*q, each rounded
-//             up to 16 bytes) + sl*sE (S, S2 over it; sE = DL*DB|1)
-//             + max(sl*DL*R1, sl*Y*q*sr) (t1 for both x, R1 = DB*Y*q|1; N
-//             reuses it) + sl*DL*DB*Y*q (t2, all pairs) + DB^2*Y*Y*q (Bp,
-//             all pairs) + 2*sl^2*Y*q (Phi_t for two steps) + Y^3*q
-//             + sl*sr (M).  D=10, f32, sl=14: 18878 floats = 73.7 KiB.
+//   merge F, staged: in merge_f_staged.cu; 73.7 KiB at D=10, f32.
 //   MPEM3 W/F: under 10 KiB at D=20.
 // f64 instantiations exist so that tests hold each kernel to its plain version
 // at 1e-10; they fit only at small shapes.
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-
-typedef long long i64;
-
-struct Str6 { i64 s[6]; };
+#include "stta_common.cuh"
 
 // A 5-axis slab copied into shared memory: the axes listed from the source's
 // slowest to its fastest stride, so that consecutive threads read
 // consecutive source addresses; dst gives each axis' shared-memory stride.
 struct Stage5 { int dim[5]; i64 src[5]; int dst[5]; };
-
-// C[b1,b2][i,j] (+)= sum_k A[b1,b2][i,k] B[b1,b2][k,j], all by strides.
-struct Gemm {
-  int M, N, K, nb1, nb2;
-  int ai, ak, ab1, ab2;
-  int bk, bj, bb1, bb2;
-  int ci, cj, cb1, cb2;
-};
 
 // Every thread of the block computes 2x2 output tiles; rows and columns past
 // M, N are loaded from the last valid index and never stored.
@@ -136,116 +113,6 @@ __device__ void block_gemm(const T* __restrict__ A, const T* __restrict__ B,
       if (i_ok) c[g.ci] = c10;
       if (i_ok && j_ok) c[g.ci + g.cj] = c11;
     }
-  }
-}
-
-// block_gemm for a block of NT threads, with TM x TN register tiles and the
-// K sum split over KS neighbouring lanes of a warp (KS a power of two up to
-// 32), reduced by warp shuffles: the products of merge_f_staged_kernel.  The tasks (tile, k
-// share) are padded to whole warps, so every lane of a warp takes part in
-// the shuffles; a padding task computes tile 0 and stores nothing.
-template <int NT, typename T, int TM, int TN, int KS, bool ACC>
-__device__ __forceinline__ void tile_gemm(const T* __restrict__ A,
-                                          const T* __restrict__ B,
-                                          T* __restrict__ C, const Gemm& g) {
-  const int mt = (g.M + TM - 1) / TM, nt = (g.N + TN - 1) / TN;
-  const int tiles = g.nb1 * g.nb2 * mt * nt;
-  const int tasks = KS == 1 ? tiles : (tiles * KS + 31) & ~31;
-  for (int t = threadIdx.x; t < tasks; t += NT) {
-    const int ks = t & (KS - 1);
-    int r = t / KS;
-    const bool live = r < tiles;
-    if (!live) r = 0;
-    const int tj = r % nt; r /= nt;
-    const int ti = r % mt; r /= mt;
-    const int b2 = r % g.nb2;
-    const int b1 = r / g.nb2;
-    const T* a = A + b1 * g.ab1 + b2 * g.ab2;
-    const T* b = B + b1 * g.bb1 + b2 * g.bb2;
-    int ia[TM], jb[TN];
-#pragma unroll
-    for (int u = 0; u < TM; ++u) ia[u] = min(TM * ti + u, g.M - 1) * g.ai;
-#pragma unroll
-    for (int v = 0; v < TN; ++v) jb[v] = min(TN * tj + v, g.N - 1) * g.bj;
-    T c[TM][TN];
-#pragma unroll
-    for (int u = 0; u < TM; ++u)
-#pragma unroll
-      for (int v = 0; v < TN; ++v) c[u][v] = T(0);
-    for (int k = ks; k < g.K; k += KS) {
-      const T* ak = a + k * g.ak;
-      const T* bk = b + k * g.bk;
-      T av[TM], bv[TN];
-#pragma unroll
-      for (int u = 0; u < TM; ++u) av[u] = ak[ia[u]];
-#pragma unroll
-      for (int v = 0; v < TN; ++v) bv[v] = bk[jb[v]];
-#pragma unroll
-      for (int u = 0; u < TM; ++u)
-#pragma unroll
-        for (int v = 0; v < TN; ++v) c[u][v] += av[u] * bv[v];
-    }
-#pragma unroll
-    for (int o = KS >> 1; o > 0; o >>= 1)
-#pragma unroll
-      for (int u = 0; u < TM; ++u)
-#pragma unroll
-        for (int v = 0; v < TN; ++v)
-          c[u][v] += __shfl_xor_sync(0xffffffffu, c[u][v], o);
-    if (!live || ks != 0) continue;
-    T* cc = C + b1 * g.cb1 + b2 * g.cb2 + TM * ti * g.ci + TN * tj * g.cj;
-#pragma unroll
-    for (int u = 0; u < TM; ++u)
-#pragma unroll
-      for (int v = 0; v < TN; ++v)
-        if (TM * ti + u < g.M && TN * tj + v < g.N) {
-          if (ACC) cc[u * g.ci + v * g.cj] += c[u][v];
-          else cc[u * g.ci + v * g.cj] = c[u][v];
-        }
-  }
-}
-
-// Issue asynchronous copies (cp.async) of n contiguous elements from global
-// into shared memory: 16-byte chunks when both ends and n allow it, else one
-// element per copy.  Every thread must call it; __pipeline_commit groups the
-// copies, and __pipeline_wait_prior and a block barrier make them visible.
-template <typename T>
-__device__ void async_copy(T* dst, const T* src, int n) {
-  const bool vec = ((reinterpret_cast<size_t>(dst) |
-                     reinterpret_cast<size_t>(src) | (n * sizeof(T))) &
-                    15) == 0;
-  if (vec) {
-    const int nc = n * (int)sizeof(T) / 16;
-    for (int i = threadIdx.x; i < nc; i += blockDim.x)
-      __pipeline_memcpy_async(reinterpret_cast<char*>(dst) + 16 * i,
-                              reinterpret_cast<const char*>(src) + 16 * i,
-                              16);
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      __pipeline_memcpy_async(dst + i, src + i, sizeof(T));
-  }
-}
-
-// stage4 by asynchronous copies: one block copy where the row is contiguous,
-// else one copy per element.
-template <typename T>
-__device__ void async_stage4(T* dst, const T* src, const i64* s, int A, int B,
-                             int C, int D) {
-  if (s[5] == 1 && s[4] == D && s[3] == (i64)C * D &&
-      s[2] == (i64)B * C * D) {
-    async_copy(dst, src, A * B * C * D);
-    return;
-  }
-  const int n = A * B * C * D;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    int r = i;
-    const int d = r % D; r /= D;
-    const int c = r % C; r /= C;
-    const int b = r % B;
-    const int a = r / B;
-    __pipeline_memcpy_async(dst + i,
-                            src + a * s[2] + b * s[3] + c * s[4] + d * s[5],
-                            sizeof(T));
   }
 }
 
@@ -520,201 +387,6 @@ __global__ void merge_f_kernel(const T* __restrict__ L, Str6 sL,
 }
 
 // ---------------------------------------------------------------------------
-// merge F, staged: the same scan as merge_f_kernel, for the shapes whose
-// buffers fit (D=10 and below), in blocks of STAGED_THREADS threads.  One
-// product per contraction and step, five block barriers per step:
-//   cp.async W_{t+1}, then step s+1's L, B and Phi (two groups);
-//   wait for step s's                                              | barrier
-//   M = S . W_t;  t1 = S . L_t (both x);  Bp (all (y,x) pairs)     | barrier
-//   t2 = t1 . Bp (all pairs);  wait for W_{t+1}                    | barrier
-//   N = t2 . W_{t+1} (all pairs);  S2 = sum_{y,x,e} Phi_t t2        | barrier
-//   per-warp max-abs of S2                                         | barrier
-//   every thread finishes the max; S <- S2 / scale; store M, N
-// Every streamed operand arrives by cp.async one step ahead: W into two
-// rotating buffers (the copy of W_{t+1} is issued at the start of step s and
-// waited for before N; it is step s+1's W_t), L_t, B_t and Phi_t into double
-// buffers (issued a step ahead, waited for at the step's first barrier).
-// S2 is written over S: every reader of S has passed a barrier by then.
-// The products take 20-output register tiles (2x5 for M and S2, 2x10 for
-// t1, 4x5 for t2 and N), and M, t2 and N split their K sum over 16, 2 and 4
-// lanes, so that each has work for the whole block.  Rows of S and of t1 are padded to odd strides, against bank
-// conflicts.  M and N are written to shared memory and stored to Ms and Ns
-// coalesced.  The shape is a template argument: FixedDims for the D=10
-// sketch merge, whose sizes, strides and task decodes then fold into
-// constants, RunDims for every other shape.
-// Shared layouts: W [2][nWp], L [2][nLp], B [2][nBq] (16-byte aligned);
-// S [e][k][m] (row stride sE); t1 [e][n][m][u][x] (row (e,n) stride R1);
-// t2 [y][x][e][n][j]; Bp [x][y][m][u][j]; Fs [2][y][x][e][f]; Mo [e][a];
-// No [e][y][x][b] (in t1).
-// ---------------------------------------------------------------------------
-constexpr int STAGED_THREADS = 256;
-
-struct RunDims {
-  static constexpr bool kFixed = false;
-  int DL, DB, Y, q, sr, sl;
-};
-
-template <int DL_, int DB_, int Y_, int Q_, int SR_, int SL_>
-struct FixedDims {
-  static constexpr bool kFixed = true;
-  static constexpr int DL = DL_, DB = DB_, Y = Y_, q = Q_, sr = SR_,
-                       sl = SL_;
-};
-
-template <typename T, typename Dm>
-__global__ void __launch_bounds__(STAGED_THREADS, 3)
-merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
-                      const T* __restrict__ Bm, Str6 sB,
-                      const T* __restrict__ Pyy, const T* __restrict__ Phi,
-                      const T* __restrict__ Ws, const T* __restrict__ Sinit,
-                      T* __restrict__ Ns, T* __restrict__ Ms, int S, Dm dm) {
-  constexpr int NT = STAGED_THREADS, NWARP = NT / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ double red_m[NWARP];
-  __shared__ int red_b[NWARP];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  constexpr int V16 = 16 / sizeof(T);
-  const int DL = dm.DL, DB = dm.DB, Y = dm.Y, q = dm.q, sr = dm.sr,
-            sl = dm.sl;
-  const int DLB = DL * DB, nS = sl * DLB, nW = DLB * sr, P = Y * q;
-  const int nL = DL * DL * P, nB = DB * DB * P, nBp = DB * Y * DB;
-  const int nWp = (nW + V16 - 1) / V16 * V16;
-  const int nLp = (nL + V16 - 1) / V16 * V16, nBq = (nB + V16 - 1) / V16 * V16;
-  const int sE = DLB | 1, R1 = (DB * P) | 1;
-  const int nSp = sl * sE, nT1 = max(sl * DL * R1, sl * P * sr);
-  const int nF = sl * sl * P, nP = Y * Y * P, nM = sl * sr, nN = sl * P * sr;
-  T* Wb = sm;
-  T* Ls = Wb + 2 * nWp;
-  T* Bs = Ls + 2 * nLp;
-  T* Sb = Bs + 2 * nBq;
-  T* t1 = Sb + nSp;
-  T* t2 = t1 + nT1;
-  T* Bp = t2 + nS * P;
-  T* Fs = Bp + nBp * P;
-  T* Ps = Fs + 2 * nF;
-  T* Mo = Ps + nP;
-  T* No = t1;                      // t1 is dead once t2 is formed
-  const i64 z = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // {M, N, K, nb1, nb2,  ai, ak, ab1, ab2,  bk, bj, bb1, bb2,  ci, cj, cb1, cb2}
-  const Gemm gm_ = {sl, sr, DLB, 1, 1,   sE, 1, 0, 0,
-                   sr, 1, 0, 0,   sr, 1, 0, 0};
-  const Gemm g1_ = {sl, DL, DL, DB, P,   sE, DB, 1, 0,
-                   DL * P, P, 0, 1,   DL * R1, R1, P, 1};
-  const Gemm g2_ = {sl * DL, DB, DB * Y, q, Y,   R1, q, 1, 0,
-                   DB, 1, Y * nBp, nBp,   DB, 1, nS, q * nS};
-  const Gemm gn_ = {sl, sr, DLB, P, 1,   DLB, 1, nS, 0,
-                   sr, 1, 0, 0,   P * sr, 1, sr, 0};
-  const Gemm gs_ = {sl, DLB, P * sl, 1, 1,   1, sl, 0, 0,
-                   DLB, 1, 0, 0,   sE, 1, 0, 0};
-  // a run-time shape reads its products' geometry from shared memory
-  // (registers are the scarcer); a fixed one folds it into the code
-  __shared__ Gemm gd[5];
-  if (!Dm::kFixed && tid == 0) {
-    gd[0] = gm_;
-    gd[1] = g1_;
-    gd[2] = g2_;
-    gd[3] = gn_;
-    gd[4] = gs_;
-  }
-  const Gemm& gm = Dm::kFixed ? gm_ : gd[0];
-  const Gemm& g1 = Dm::kFixed ? g1_ : gd[1];
-  const Gemm& g2 = Dm::kFixed ? g2_ : gd[2];
-  const Gemm& gn = Dm::kFixed ? gn_ : gd[3];
-  const Gemm& gs = Dm::kFixed ? gs_ : gd[4];
-  // issue the copies of step t's L_t, B_t and Phi_t (transposed to
-  // Fs[(y,x)][e][f]) into buffer t & 1
-  auto stage_step = [&](int t) {
-    const int buf = t & 1;
-    async_stage4(Ls + buf * nLp, L + z * sL.s[0] + t * sL.s[1], sL.s, DL, DL,
-                 Y, q);
-    async_stage4(Bs + buf * nBq, Bm + z * sB.s[0] + t * sB.s[1], sB.s, DB,
-                 DB, Y, q);
-    const T* ph = Phi + (i64)t * nF;
-    T* fd = Fs + buf * nF;
-    for (int i = tid; i < nF; i += NT) {
-      const int p = i % P, f = (i / P) % sl, e = i / (P * sl);
-      __pipeline_memcpy_async(fd + (p * sl + e) * sl + f, ph + i, sizeof(T));
-    }
-  };
-
-  async_copy(Wb, Ws + z * S * (i64)nW, nW);                   // W_1
-  stage_step(0);
-  __pipeline_commit();
-  for (int i = tid; i < nP; i += NT) Ps[i] = Pyy[i];
-  for (int i = tid; i < nSp; i += NT) {                        // pads stay 0
-    const int e = i / sE, c = i - e * sE;
-    Sb[i] = c < DLB ? Sinit[z * nS + e * DLB + c] : T(0);
-  }
-  for (int s = 0; s < S; ++s) {
-    const i64 row = z * S + s;
-    const bool last = (s == S - 1);
-    const T* Wt = Wb + (s & 1) * nWp;
-    T* Wt1 = Wb + ((s + 1) & 1) * nWp;
-    const T* Lc = Ls + (s & 1) * nLp;
-    const T* Bc = Bs + (s & 1) * nBq;
-    const T* Fc = Fs + (s & 1) * nF;
-    if (!last) async_copy(Wt1, Ws + (row + 1) * nW, nW);       // W_{t+1}
-    __pipeline_commit();
-    if (!last) stage_step(s + 1);
-    __pipeline_commit();
-    __pipeline_wait_prior(2);                                  // step s's
-    __syncthreads();
-    tile_gemm<NT, T, 2, 5, 16, false>(Sb, Wt, Mo, gm);         // M = S . W_t
-    tile_gemm<NT, T, 2, 10, 1, false>(Sb, Lc, t1, g1);          // t1 = S . L_t
-    for (int i = tid; i < nBp * P; i += NT) {                  // Bp[x][y][m][u][j]
-      int r = i;
-      const int j = r % DB; r /= DB;
-      const int uu = r % Y; r /= Y;
-      const int m = r % DB; r /= DB;
-      const int y = r % Y;
-      const int x = r / Y;
-      T acc = T(0);
-      for (int v = 0; v < Y; ++v)
-        acc += Ps[((y * Y + uu) * Y + v) * q + x] *
-               Bc[((m * DB + j) * Y + v) * q + x];
-      Bp[i] = acc;
-    }
-    __syncthreads();
-    tile_gemm<NT, T, 4, 5, 2, false>(t1, Bp, t2, g2);          // t2 = t1 . Bp
-    __pipeline_wait_prior(1);                                  // W_{t+1}
-    __syncthreads();
-    if (last) {
-      for (int i = tid; i < nN; i += NT) {
-        const int b = i % sr, p = (i / sr) % P, e = i / (sr * P);
-        No[i] = (b == 0) ? t2[p * nS + e * DLB] : T(0);
-      }
-    } else {
-      tile_gemm<NT, T, 4, 5, 4, false>(t2, Wt1, No, gn);       // N = t2 . W_{t+1}
-    }
-    tile_gemm<NT, T, 2, 5, 1, false>(Fc, t2, Sb, gs);          // S2 = Phi . t2
-    __syncthreads();
-    // max-abs of S2 with the _safe_scale guard: per-warp partials, then
-    // every thread folds the partials itself (one barrier)
-    double mx = 0.0;
-    int bad = 0;
-    for (int i = tid; i < nSp; i += NT) {
-      const double v = (double)Sb[i];
-      if (!isfinite(v)) bad = 1; else mx = fmax(mx, fabs(v));
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      mx = fmax(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      bad |= __shfl_xor_sync(0xffffffffu, bad, o);
-    }
-    if (lane == 0) { red_m[warp] = mx; red_b[warp] = bad; }
-    __syncthreads();
-    mx = 0.0;
-    bad = 0;
-#pragma unroll
-    for (int w = 0; w < NWARP; ++w) { mx = fmax(mx, red_m[w]); bad |= red_b[w]; }
-    const T sc = (bad || !(mx > 0.0)) ? T(1) : T(mx);
-    for (int i = tid; i < nSp; i += NT) Sb[i] = Sb[i] / sc;
-    for (int i = tid; i < nM; i += NT) Ms[row * nM + i] = Mo[i];
-    for (int i = tid; i < nN; i += NT) Ns[row * nN + i] = No[i];
-  }
-}
-
-// ---------------------------------------------------------------------------
 // MPEM3 W: W_t[m,i,b] = sum_{j,c} Psi_t[b,c,i,j] sum_{n,r} B_t[m,n,i,j,r] W_{t+1}[n,r,c]
 // B [Bn,S,Db,Db,qi,qj,qi] by strides; Psi [S,sr,sr,qi,qj]; Ws [Bn,S,Db,qi,sr].
 // Shared layouts: Bs [i][j][m][n][r]; Pp [i][j][c][b]; t1 [m][i][j][c].
@@ -857,21 +529,6 @@ __global__ void mpem3_f_kernel(const T* __restrict__ Bm, i64 sz, i64 st,
 // launchers: dtype 0 = float32, 1 = float64.  Each returns cudaGetLastError()
 // (or the error of the shared-memory attribute call) as an int.
 // ---------------------------------------------------------------------------
-// Allow `smem` bytes of dynamic shared memory and cut `threads` to what the
-// kernel's register use permits per block.
-template <typename K>
-static int prepare(K kernel, size_t smem, int* threads) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, kernel);
-  if (e != cudaSuccess) return (int)e;
-  const int cap = fa.maxThreadsPerBlock & ~31;
-  if (*threads > cap) *threads = cap;
-  return 0;
-}
-
 // B_t [m,n,i,j,r] (strides sB[2..6]) staged as [i][j][m][n][r], read in the
 // order of the source's strides.
 static Stage5 mpem3_stage(const i64* sB, int Db, int qi, int qj) {
@@ -921,42 +578,6 @@ static int merge_f_launch(const void* L, const i64* sL, const void* B,
       (const T*)L, a, (const T*)B, b, (const T*)Pyy, (const T*)Phi,
       (const T*)Ws, (const T*)Sinit, (T*)Ns, (T*)Ms, S, DL, DB, Y, q, sr, sl);
   return (int)cudaGetLastError();
-}
-
-template <typename T, typename Dm>
-static int merge_f_staged_run(const T* L, Str6 a, const T* B, Str6 b,
-                              const T* Pyy, const T* Phi, const T* Ws,
-                              const T* Sinit, T* Ns, T* Ms, int Bn, int S,
-                              Dm dm, size_t smem, cudaStream_t st) {
-  int threads = STAGED_THREADS;
-  int e = prepare(merge_f_staged_kernel<T, Dm>, smem, &threads);
-  if (e) return e;
-  if (threads != STAGED_THREADS) return (int)cudaErrorInvalidConfiguration;
-  merge_f_staged_kernel<T, Dm><<<Bn, STAGED_THREADS, smem, st>>>(
-      L, a, B, b, Pyy, Phi, Ws, Sinit, Ns, Ms, S, dm);
-  return (int)cudaGetLastError();
-}
-
-// The staged kernel runs in blocks of STAGED_THREADS threads (the wrapper
-// asks for that many); the D=10 sketch merge takes its fixed-shape build.
-template <typename T>
-static int merge_f_staged_launch(const void* L, const i64* sL, const void* B,
-                                 const i64* sB, const void* Pyy,
-                                 const void* Phi, const void* Ws,
-                                 const void* Sinit, void* Ns, void* Ms,
-                                 int Bn, int S, int DL, int DB, int Y, int q,
-                                 int sr, int sl, int threads, size_t smem,
-                                 cudaStream_t st) {
-  if (threads != STAGED_THREADS) return (int)cudaErrorInvalidValue;
-  Str6 a, b;
-  for (int i = 0; i < 6; ++i) { a.s[i] = sL[i]; b.s[i] = sB[i]; }
-  const T *l = (const T*)L, *bm = (const T*)B, *p = (const T*)Pyy,
-          *f = (const T*)Phi, *w = (const T*)Ws, *s0 = (const T*)Sinit;
-  if (DL == 10 && DB == 10 && Y == 2 && q == 2 && sr == 10 && sl == 14)
-    return merge_f_staged_run(l, a, bm, b, p, f, w, s0, (T*)Ns, (T*)Ms, Bn,
-                              S, FixedDims<10, 10, 2, 2, 10, 14>(), smem, st);
-  return merge_f_staged_run(l, a, bm, b, p, f, w, s0, (T*)Ns, (T*)Ms, Bn, S,
-                            RunDims{DL, DB, Y, q, sr, sl}, smem, st);
 }
 
 template <typename T>
@@ -1012,22 +633,6 @@ int stta_merge_f(int dtype, const void* L, const i64* sL, const void* B,
       : merge_f_launch<double>(L, sL, B, sB, Pyy, Phi, Ws, Sinit, Ns, Ms, Bn,
                                S, DL, DB, Y, q, sr, sl, threads, (size_t)smem,
                                st);
-}
-
-int stta_merge_f_staged(int dtype, const void* L, const i64* sL,
-                        const void* B, const i64* sB, const void* Pyy,
-                        const void* Phi, const void* Ws, const void* Sinit,
-                        void* Ns, void* Ms, int Bn, int S, int DL, int DB,
-                        int Y, int q, int sr, int sl, int threads,
-                        long long smem, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  return dtype == 0
-      ? merge_f_staged_launch<float>(L, sL, B, sB, Pyy, Phi, Ws, Sinit, Ns,
-                                     Ms, Bn, S, DL, DB, Y, q, sr, sl, threads,
-                                     (size_t)smem, st)
-      : merge_f_staged_launch<double>(L, sL, B, sB, Pyy, Phi, Ws, Sinit, Ns,
-                                      Ms, Bn, S, DL, DB, Y, q, sr, sl,
-                                      threads, (size_t)smem, st);
 }
 
 int stta_mpem3_w(int dtype, const void* B, const i64* sB, const void* Psi,

@@ -3,10 +3,13 @@
 Each source compiles at first use with ``nvcc`` for ``sm_90a`` into a shared
 library of its own with a plain C interface, loaded with ``ctypes``.  A
 library is cached under ``matrixproductbp_tpu_torch/_build/`` by the hash of
-its source and the flags, so a checkout builds each source exactly once; the
-``-Xptxas -v`` report (registers, shared memory, spills per kernel) is kept
-beside it.  :func:`build_all` starts one ``nvcc`` per missing library, all at
-once.  Nothing here runs at import time.
+its source, the headers under ``csrc/``, the flags and its macros, so a
+checkout builds each (source, macros) pair exactly once; the ``-Xptxas -v``
+report (registers, shared memory, spills per kernel) is kept beside it.
+Sources in :data:`PER_SHAPE` take their sizes as macros (``-D``) and are
+built once per shape; the others (:data:`SOURCES`) take none.
+:func:`build_all` starts one ``nvcc`` per missing library, all at once.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["SOURCES", "library", "build_all", "build_log"]
+__all__ = ["SOURCES", "PER_SHAPE", "library", "build_all", "build_log"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -42,8 +45,6 @@ _SIGNATURES = {
         "stta_merge_w": [_I, _P, _LP, _P, _LP, _P, _P] + [_I] * 8 + [_L, _P],
         "stta_merge_f": ([_I, _P, _LP, _P, _LP, _P, _P, _P, _P, _P, _P]
                          + [_I] * 9 + [_L, _P]),
-        "stta_merge_f_staged": ([_I, _P, _LP, _P, _LP, _P, _P, _P, _P, _P,
-                                 _P] + [_I] * 9 + [_L, _P]),
         "stta_mpem3_w": [_I, _P, _LP, _P, _P] + [_I] * 7 + [_L, _P],
         "stta_mpem3_f": ([_I, _P, _LP, _P, _P, _P, _P, _P] + [_I] * 8
                          + [_L, _P]),
@@ -54,8 +55,15 @@ _SIGNATURES = {
     "jacobi_eigh": {
         "jacobi_eigh": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
     },
+    "merge_f_staged": {
+        "merge_f_staged": ([_P, _LP, _P, _LP, _P, _P, _P, _P, _P, _P]
+                           + [_I] * 8 + [_L, _P]),
+    },
 }
-SOURCES = tuple(_SIGNATURES)
+#: sources built once per shape, with their sizes as macros
+PER_SHAPE = ("merge_f_staged",)
+#: sources built once, without macros
+SOURCES = tuple(n for n in _SIGNATURES if n not in PER_SHAPE)
 
 
 def _nvcc() -> str:
@@ -69,29 +77,49 @@ def _nvcc() -> str:
     return path
 
 
-def _paths(name: str):
+def _flags(defines=()) -> list:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _paths(name: str, defines=()):
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    stem = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}")
+    h = hashlib.sha256()
+    for path in [src] + sorted(os.path.join(_CSRC, f)
+                               for f in os.listdir(_CSRC)
+                               if f.endswith(".cuh")):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(_flags(defines)).encode())
+    stem = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}")
     return src, stem + ".so", stem + ".log"
 
 
-def build_all(names=SOURCES) -> dict:
-    """Compile every named source whose library is missing, one ``nvcc``
-    each, all started together; return {name: library path}.  Writes go to
-    temporary names first, so concurrent builds never load a half-written
-    file."""
+def _target(t):
+    """A build target: a source's name, or (name, macros) for a source of
+    :data:`PER_SHAPE`, the macros a tuple of ``"NAME=value"`` strings."""
+    name, defines = (t, ()) if isinstance(t, str) else (t[0], tuple(t[1]))
+    if (name in PER_SHAPE) != bool(defines):
+        raise ValueError(f"{name}: macros are given exactly for the sources "
+                         f"built per shape {PER_SHAPE}")
+    return name, defines
+
+
+def build_all(targets=SOURCES) -> dict:
+    """Compile every target (see :func:`_target`) whose library is
+    missing, one ``nvcc`` each, all started together; return {target:
+    library path}.  Writes go to temporary names first, so concurrent
+    builds never load a half-written file."""
     libs, running = {}, []
-    for name in names:
-        src, lib, log = _paths(name)
-        libs[name] = lib
+    for t in targets:
+        name, defines = _target(t)
+        src, lib, log = _paths(name, defines)
+        libs[t] = lib
         if os.path.exists(lib):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.Popen([_nvcc(), *_flags(defines), "-o", tmp, src],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         running.append((proc, src, tmp, lib, log))
@@ -114,18 +142,20 @@ def build_all(names=SOURCES) -> dict:
     return libs
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines=()) -> str:
     """The ``-Xptxas -v`` report of one source's build."""
-    _, _, log = _paths(name)
+    _, _, log = _paths(name, tuple(defines))
     with open(log) as fh:
         return fh.read()
 
 
 @functools.lru_cache(maxsize=None)
-def library(name: str) -> ctypes.CDLL:
+def library(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Build (at first use) and load one source's library, with ``argtypes``
-    and ``restype`` declared for every launcher."""
-    lib = ctypes.CDLL(build_all((name,))[name])
+    and ``restype`` declared for every launcher; ``defines`` are the
+    macros of a source built per shape."""
+    t = (name, defines) if defines else name
+    lib = ctypes.CDLL(build_all((t,))[t])
     for fn, argtypes in _SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes

@@ -5,16 +5,17 @@ Counterpart of ``matrixproductbp_tpu/ops/fused_stta.py``.  Each scan wrapper
 (:func:`merge_wscan`, :func:`merge_fscan`, :func:`mpem3_wscan`,
 :func:`mpem3_fscan`) runs its plain PyTorch version (``ops/stta.py``,
 re-exported here as ``*_plain``) when its tensors lie on the CPU, and
-launches its CUDA kernel (``csrc/stta_scans.cu``) when they lie on a CUDA
-device; there is no fallback between the two.  ``<wrapper>.launches`` counts
+launches its CUDA kernel (``csrc/stta_scans.cu``, ``csrc/merge_f_staged.cu``)
+when they lie on a CUDA device; there is no fallback between the two.  ``<wrapper>.launches`` counts
 kernel launches.
 
 The kernels replace, in order, ``_merge_wstep_kernel`` (``fused_stta.py:231``),
 ``_merge_fstep_kernel`` / ``_merge_fstep_kernel_lean`` (``:281``, ``:382``),
 ``_mpem3_wstep_kernel`` (``:508``) and ``_mpem3_fstep_kernel`` (``:545``).
 Merge F has two kernels, picked by shape in :func:`merge_f_geometry`:
-``merge_f_staged_kernel`` wherever its buffers fit (D=10 and below), and
-``merge_f_kernel`` for the larger shapes (D=20).
+``merge_f_staged_kernel`` (``merge_f_staged.cu``, built once per shape with
+its sizes as constants) wherever its buffers fit (the f32 sketch merges up to
+D=15), and ``merge_f_kernel`` for the larger shapes (D=20).
 The TPU-only machinery around them (lane padding, instance chunking, the
 VMEM admission model) has no counterpart: one thread block owns one
 instance, and the only admission rule is the 227 KB shared-memory limit.
@@ -33,14 +34,20 @@ from .stta import (merge_fscan_plain, merge_sketch, merge_wscan_plain,
 __all__ = ["merge_stta_fused", "mpem3_stta_fused", "mpem3_stta_fused_tm",
            "merge_wscan", "merge_fscan", "mpem3_wscan", "mpem3_fscan",
            "merge_wscan_plain", "merge_fscan_plain", "mpem3_wscan_plain",
-           "mpem3_fscan_plain", "merge_f_geometry", "SMEM_LIMIT"]
+           "mpem3_fscan_plain", "merge_f_geometry", "merge_f_staged_macros",
+           "build_merge_f", "SMEM_LIMIT"]
 
 #: dynamic shared memory a scan kernel's block may use: the card's limit
 #: less the kernels' static reduction scratch
 SMEM_LIMIT = build.SMEM_PER_BLOCK - 1024
 _MPEM3_THREADS = 128
-#: the staged merge F kernel's block (``STAGED_THREADS`` in the source)
+#: the staged merge F kernel's block (``NT`` in ``merge_f_staged.cu``)
 _STAGED_THREADS = 256
+#: shared memory of one H100 SM, and what each resident block reserves
+_SMEM_PER_SM, _SMEM_RESERVED = 233472, 1024
+#: the most staged blocks an SM is built for: 3 x 256 threads x 80 registers
+#: fill its 65,536 registers
+_STAGED_MAX_BLOCKS = 3
 
 
 def _merge_threads(smem: int) -> int:
@@ -82,9 +89,11 @@ def _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize):
 def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
     """(variant, threads, shared-memory bytes) of the merge F kernel for one
     shape: ``"staged"`` (``merge_f_staged_kernel``) wherever its buffers fit
-    in ``SMEM_LIMIT``, else ``"base"`` (``merge_f_kernel``).  ``variant``
-    forces one of the two.  Raises ``ValueError`` where neither fits (or the
-    forced one does not)."""
+    in ``SMEM_LIMIT`` (f32 sketch merges up to D=15; it ran faster than
+    ``merge_f_kernel`` at every D from 4 to 15, one block an SM included),
+    else ``"base"`` (``merge_f_kernel``).  ``variant`` forces one of the
+    two.  Raises ``ValueError`` where neither fits (or the forced one does
+    not)."""
     esize = 4 if dtype == torch.float32 else 8
     sizes = {"staged": _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize),
              "base": _smem_merge_f(DL, DB, Y, q, sr, sl)}
@@ -96,6 +105,27 @@ def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
             return name, threads, nbytes
     raise ValueError(f"merge F scan: needs {nbytes} bytes of shared memory "
                      f"per block, over the {SMEM_LIMIT}-byte limit")
+
+
+def merge_f_staged_macros(DL, DB, Y, q, sr, sl, dtype):
+    """The macros ``merge_f_staged.cu`` is built with for one shape: its
+    sizes, its element type and ``MF_MINB``, the blocks whose shared memory
+    fits on one SM (at most ``_STAGED_MAX_BLOCKS``), which sets the
+    register budget ptxas gets."""
+    _, _, smem = merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, "staged")
+    minb = min(_STAGED_MAX_BLOCKS, _SMEM_PER_SM // (smem + _SMEM_RESERVED))
+    return (f"MF_T={'float' if dtype == torch.float32 else 'double'}",
+            f"MF_DL={DL}", f"MF_DB={DB}", f"MF_Y={Y}", f"MF_Q={q}",
+            f"MF_SR={sr}", f"MF_SL={sl}", f"MF_MINB={minb}")
+
+
+def build_merge_f(shapes):
+    """Build, all at once, the staged merge F libraries of the shapes
+    ``(DL, DB, Y, q, sr, sl, dtype)`` that take that kernel; a caller that
+    knows its shapes ahead spares their serial builds at first use."""
+    build.build_all([("merge_f_staged", merge_f_staged_macros(*shape))
+                     for shape in shapes
+                     if merge_f_geometry(*shape)[0] == "staged"])
 
 
 def _smem_mpem3_w(Db, qi, qj, sr):
@@ -205,14 +235,16 @@ def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init, _variant=None):
     Ms = L1.new_empty((Bn, S, sl, sr))
     if Bn == 0 or S == 0:
         return Ns, Ms
-    lib = build.library("stta_scans")
-    launch = lib.stta_merge_f_staged if variant == "staged" else \
-        lib.stta_merge_f
-    rc = launch(
-        code, L1.data_ptr(), _strides(L1), B1.data_ptr(), _strides(B1),
-        Pyy.data_ptr(), Phi.data_ptr(), Ws.data_ptr(), S_init.data_ptr(),
-        Ns.data_ptr(), Ms.data_ptr(), Bn, S, DL, DB, Y, q, sr, sl, threads,
-        smem, _stream(L1))
+    args = (L1.data_ptr(), _strides(L1), B1.data_ptr(), _strides(B1),
+            Pyy.data_ptr(), Phi.data_ptr(), Ws.data_ptr(), S_init.data_ptr(),
+            Ns.data_ptr(), Ms.data_ptr(), Bn, S, DL, DB, Y, q, sr, sl)
+    if variant == "staged":
+        macros = merge_f_staged_macros(DL, DB, Y, q, sr, sl, L1.dtype)
+        rc = build.library("merge_f_staged", macros).merge_f_staged(
+            *args, smem, _stream(L1))
+    else:
+        rc = build.library("stta_scans").stta_merge_f(
+            code, *args, threads, smem, _stream(L1))
     _raise_on(rc, "merge F scan")
     merge_fscan.launches += 1
     merge_fscan.variant_launches[variant] += 1

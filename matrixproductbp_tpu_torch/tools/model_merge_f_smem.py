@@ -5,8 +5,9 @@ CPU (no card needed).
 
 A model, not a measurement: it replays the task order of ``block_gemm``
 (2x2 tiles, one task per thread in turn) and of ``tile_gemm`` (TM x TN
-tiles, the K sum split over KS lanes) in ``csrc/stta_scans.cu`` for one
-instance-step at the D=10 sketch merge (f32, 256 threads), and charges each
+tiles, the K sum split over KS lanes) in ``csrc/stta_scans.cu`` and
+``csrc/merge_f_staged.cu`` for one instance-step at the D=10 sketch merge
+(f32, 256 threads), and charges each
 warp-wide shared-memory load the largest number of distinct 4-byte words
 that any one of the 32 banks holds (one wavefront per word, one wavefront
 per cycle per SM).  One JSON line per product and a total per kernel:

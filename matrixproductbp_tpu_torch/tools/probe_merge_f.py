@@ -1,22 +1,23 @@
-"""The two merge F kernels (``csrc/stta_scans.cu``) on the card: their build
-report, their agreement with the plain version and their time per call.
+"""The two merge F kernels on the card: their build reports and their time
+per call, side by side on the same inputs.
 
     python3 -m matrixproductbp_tpu_torch.tools.probe_merge_f [--attribute]
 
-One JSON line per reading.  Builds ``stta_scans`` alone and prints the
-ptxas report of the merge F kernels; holds both kernels (``"staged"`` and
-``"base"``, forced through ``merge_fscan``'s private argument) against
-``merge_fscan_plain`` at the f64 shapes of ``F64_SHAPES`` (1e-10 of
-max-abs) and at the D=10 bench shape in f32 (1e-4 relative, 256
-instances); then times both with CUDA events on the same inputs at
-[8192, 15, D=10], in turns (base, staged, staged, base).
+One JSON line per reading.  Builds ``stta_scans`` (``merge_f_kernel``) and
+``merge_f_staged`` at every shape of ``SHAPES``, all at once, and prints the
+ptxas report of each merge F build; then times both kernels with CUDA
+events on the same f32 inputs, in turns (base, staged, staged, base), at
+[8192, 15] and each shape of ``SHAPES``: the SIS sketch merge at bond D
+(``DL = DB = sr = D``, ``sl = D + 4``) for D = 4 to 15, and one merge with
+``DL != DB``.  Their agreement with the plain version is
+``tests/test_torch_gpu.py -k merge`` (run on the card).
 
-``--attribute`` says where a launch's time goes: it builds copies of the
-source with products of one kernel left out (wrong results, same control
-flow; ``VARIANTS``, made by replacing lines inside that kernel's body,
-``variant_sources``; ``tests/test_torch_scans_geometry.py`` checks that
-every line still exists) and times each beside the whole kernel at the
-bench shape.  Needs a CUDA card.
+``--attribute`` says where a launch's time goes at the bench shape: it
+builds copies of each kernel's source with products left out (wrong
+results, same control flow; ``VARIANTS``, made by replacing lines inside
+that kernel's body, ``variant_sources``; ``tests/test_torch_scans_geometry.py``
+checks that every line still exists) and times each beside the whole
+kernel.  Needs a CUDA card.
 """
 import ctypes
 import json
@@ -30,16 +31,13 @@ import torch
 from matrixproductbp_tpu_torch.ops import build
 from matrixproductbp_tpu_torch.ops import fused_stta as fs
 
-SOURCE = os.path.join(os.path.dirname(build.__file__), "..", "csrc",
-                      "stta_scans.cu")
+CSRC = os.path.join(os.path.dirname(build.__file__), "..", "csrc")
+SOURCE = {"merge_f_kernel": os.path.join(CSRC, "stta_scans.cu"),
+          "merge_f_staged_kernel": os.path.join(CSRC, "merge_f_staged.cu")}
 BENCH = dict(Bn=8192, S=15, DL=10, DB=10, Y=2, q=2, sr=10, sl=14)
-# the card tests' edge shapes (DL, DB, Y, q, sr, sl), S; the last one is
-# the D=10 sketch merge, which takes the staged kernel's fixed-shape build
-F64_SHAPES = [((4, 3, 2, 2, 5, 9), 4), ((3, 3, 3, 2, 4, 8), 4),
-              ((4, 3, 2, 2, 5, 9), 1), ((4, 3, 2, 2, 5, 9), 2),
-              ((3, 5, 2, 2, 7, 11), 3), ((5, 2, 2, 2, 6, 10), 3),
-              ((3, 3, 3, 2, 5, 9), 3), ((4, 4, 2, 1, 5, 9), 3),
-              ((10, 10, 2, 2, 10, 14), 3)]
+#: (DL, DB, Y, q, sr, sl) timed beside the bench shape
+SHAPES = [(D, D, 2, 2, D, D + 4) for D in range(4, 16)] + [(10, 5, 2, 2, 10,
+                                                            14)]
 
 _M_BASE = ("block_gemm<T, false>(Sc, Wt, Ms + row * sl * sr, gm);", "")
 _N_BASE = ("block_gemm<T, false>(t2, Wt1, Nyx, gn);", "")
@@ -71,14 +69,16 @@ def _body(text, kernel):
                   + kernel + r"\(", text)
     if m is None:
         raise RuntimeError(f"the source holds no kernel {kernel}")
-    return m.start(), text.find("\n// ----", m.start())
+    end = text.find("\n// ----", m.start())
+    return m.start(), len(text) if end < 0 else end
 
 
-def variant_sources(text):
-    """{variant: source}; raises if a line to replace is not in its kernel's
-    body exactly once."""
+def variant_sources(texts):
+    """{variant: source} from {kernel: the source that holds it}; raises if
+    a line to replace is not in its kernel's body exactly once."""
     out = {}
     for name, (kernel, edits) in VARIANTS.items():
+        text = texts[kernel]
         a, b = _body(text, kernel)
         body = text[a:b]
         for old, new in edits:
@@ -87,6 +87,14 @@ def variant_sources(text):
                                    "exactly once")
             body = body.replace(old, new)
         out[name] = text[:a] + body + text[b:]
+    return out
+
+
+def read_sources():
+    out = {}
+    for kernel, path in SOURCE.items():
+        with open(path) as fh:
+            out[kernel] = fh.read()
     return out
 
 
@@ -124,84 +132,75 @@ def inputs(Bn, S, DL, DB, Y, q, sr, sl, dtype, dev, seed=0):
     return L1, B1, Pyy, Phi, Ws, S0
 
 
-def check(dev):
-    cases = [(dims, S, torch.float64, 7, 1e-10) for dims, S in F64_SHAPES]
-    cases.append(((10, 10, 2, 2, 10, 14), 15, torch.float32, 256, 1e-4))
-    for dims, S, dtype, Bn, tol in cases:
-        args = inputs(Bn, S, *dims, dtype, dev, seed=S)
-        ref = fs.merge_fscan_plain(*args)
-        for variant in ("staged", "base"):
-            out = fs.merge_fscan(*args, _variant=variant)
-            torch.cuda.synchronize()
-            scale = max(float(r.abs().max()) for r in ref)
-            err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
-            lim = tol * (max(1.0, scale) if dtype == torch.float64 else scale)
-            emit(check=variant, dtype=str(dtype)[6:], dims=dims, S=S, B=Bn,
-                 max_abs_err=err, ref_max_abs=scale, tol=lim,
-                 ok=bool(err <= lim))
-            if not err <= lim:
-                raise RuntimeError(f"merge F {variant} disagrees: {err}")
-
-
-def time_both(dev, reps=10):
-    args = inputs(**BENCH, dtype=torch.float32, dev=dev, seed=11)
+def time_both(dims, dev, Bn=8192, S=15, reps=5):
+    """Both kernels on the same inputs, in turns; one JSON line."""
+    args = inputs(Bn, S, *dims, torch.float32, dev, seed=11)
     ms = {"base": [], "staged": []}
+    outs = {}
     for variant in ("base", "staged", "staged", "base"):
-        ms[variant].append(tcuda(
-            lambda: fs.merge_fscan(*args, _variant=variant), reps))
-    row = {"shape": BENCH, "dtype": "float32"}
+        run = lambda: fs.merge_fscan(*args, _variant=variant)  # noqa: E731
+        ms[variant].append(tcuda(run, reps))
+        outs[variant] = run()
+    scale = max(float(o.abs().max()) for o in outs["base"])
+    row = {"dims": dict(zip(("DL", "DB", "Y", "q", "sr", "sl"), dims)),
+           "Bn": Bn, "S": S, "dtype": "float32",
+           "smem_staged": fs.merge_f_geometry(*dims, torch.float32,
+                                              "staged")[2],
+           "macros": fs.merge_f_staged_macros(*dims, torch.float32)}
     for v, t in ms.items():
         row[f"ms_{v}"] = sum(t) / len(t)
         row[f"ms_{v}_runs"] = t
     row["speedup"] = row["ms_base"] / row["ms_staged"]
+    row["staged_vs_base_rel"] = max(float((a - b).abs().max()) for a, b in
+                                    zip(outs["staged"], outs["base"])) / scale
     emit(**row)
     return args
 
 
 def attribute(dev, args, reps=10):
-    with open(SOURCE) as fh:
-        sources = variant_sources(fh.read())
+    b = BENCH
+    dims = tuple(b[k] for k in ("DL", "DB", "Y", "q", "sr", "sl"))
+    macros = fs.merge_f_staged_macros(*dims, torch.float32)
     out_dir = os.path.join(build.BUILD_DIR, "probe_merge_f")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, text in sources.items():
+    for name, text in variant_sources(read_sources()).items():
         cu = os.path.join(out_dir, name + ".cu")
         with open(cu, "w") as fh:
             fh.write(text)
+        flags = build._flags(macros if name.startswith("staged") else ())
         procs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", cu[:-3] + ".so", cu],
+            [build._nvcc(), *flags, "-I", CSRC, "-o", cu[:-3] + ".so", cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the {name} variant:\n{log}")
     L1, B1, Pyy, Phi, Ws, S0 = args
-    b = BENCH
     Ns = L1.new_empty((b["Bn"], b["S"], b["sl"], b["Y"], b["q"], b["sr"]))
     Ms = L1.new_empty((b["Bn"], b["S"], b["sl"], b["sr"]))
-    whole = build.library("stta_scans")
-    libs = {"base": whole, "staged": whole}
+    libs = {"base": build.library("stta_scans"),
+            "staged": build.library("merge_f_staged", macros)}
     libs.update({n: ctypes.CDLL(os.path.join(out_dir, n + ".so"))
                  for n in VARIANTS})
     row = {"shape": BENCH}
     for name, lib in libs.items():
         variant = name.split("_")[0]
-        _, threads, smem = fs.merge_f_geometry(
-            b["DL"], b["DB"], b["Y"], b["q"], b["sr"], b["sl"],
-            torch.float32, variant)
-        fn_name = "stta_merge_f_staged" if variant == "staged" else \
-            "stta_merge_f"
+        _, threads, smem = fs.merge_f_geometry(*dims, torch.float32, variant)
+        fn_name = "merge_f_staged" if variant == "staged" else "stta_merge_f"
+        src_name = "merge_f_staged" if variant == "staged" else "stta_scans"
         f = getattr(lib, fn_name)
-        f.argtypes = build._SIGNATURES["stta_scans"][fn_name]
+        f.argtypes = build._SIGNATURES[src_name][fn_name]
         f.restype = ctypes.c_int
+        ptrs = (L1.data_ptr(), fs._strides(L1), B1.data_ptr(),
+                fs._strides(B1), Pyy.data_ptr(), Phi.data_ptr(),
+                Ws.data_ptr(), S0.data_ptr(), Ns.data_ptr(), Ms.data_ptr(),
+                b["Bn"], b["S"], *dims)
+        st = torch.cuda.current_stream().cuda_stream
 
         def launch():
-            rc = f(0, L1.data_ptr(), fs._strides(L1), B1.data_ptr(),
-                   fs._strides(B1), Pyy.data_ptr(), Phi.data_ptr(),
-                   Ws.data_ptr(), S0.data_ptr(), Ns.data_ptr(), Ms.data_ptr(),
-                   b["Bn"], b["S"], b["DL"], b["DB"], b["Y"], b["q"],
-                   b["sr"], b["sl"], threads, smem,
-                   torch.cuda.current_stream().cuda_stream)
+            rc = (f(*ptrs, smem, st) if variant == "staged"
+                  else f(0, *ptrs, threads, smem, st))
             if rc != 0:
                 raise RuntimeError(f"{name}: CUDA error {rc}")
         row[f"ms_{name}"] = tcuda(launch, reps)
@@ -209,6 +208,15 @@ def attribute(dev, args, reps=10):
         whole_ms = row["ms_" + name.split("_")[0]]
         row[f"share_{name}"] = 1 - row[f"ms_{name}"] / whole_ms
     emit(**row)
+
+
+def _ptxas(log, pattern):
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry" in ln and pattern in ln:
+            print("ptxas:", " ".join(x.strip() for x in lines[i:i + 4]
+                                     if "Compiling" in x or "Used" in x
+                                     or "spill" in x), flush=True)
 
 
 def main():
@@ -219,15 +227,18 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip())
-    build.build_all(("stta_scans",))
-    lines = build.build_log("stta_scans").splitlines()
-    for i, ln in enumerate(lines):
-        if "Compiling entry" in ln and "merge_f" in ln:
-            for nxt in lines[i:i + 4]:
-                if "Used" in nxt or "spill" in nxt or "Compiling" in nxt:
-                    print("ptxas:", nxt.strip(), flush=True)
-    check(dev)
-    args = time_both(dev)
+    bench = tuple(BENCH[k] for k in ("DL", "DB", "Y", "q", "sr", "sl"))
+    shapes = [bench] + [d for d in SHAPES if d != bench]
+    macros = [fs.merge_f_staged_macros(*d, torch.float32) for d in shapes]
+    build.build_all(["stta_scans"] + [("merge_f_staged", m) for m in macros])
+    _ptxas(build.build_log("stta_scans"), "merge_f_kernelIf")
+    for m in macros:
+        print(" ".join(m), end=" ", flush=True)
+        _ptxas(build.build_log("merge_f_staged", m), "merge_f_staged")
+    args = None
+    for d in shapes:
+        out = time_both(d, dev)
+        args = out if d == bench else args
     if "--attribute" in sys.argv:
         attribute(dev, args)
 

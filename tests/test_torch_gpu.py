@@ -1,7 +1,8 @@
 """Each CUDA kernel against its plain version on the card: the scan kernels
 (f64 at small shapes, 1e-10, both merge F kernels at its edge shapes; f32
-at the bench shape, 1e-4 of the plain output's max-abs; D=20 takes the base
-merge F kernel), the CholQR kernel (f64 1e-10; f32 at the D=10 and D=20
+at the bench shape and, for the staged merge F kernel, at the sketch merges
+of D = 4 to 15 (one to three blocks an SM), 1e-4 of the plain output's
+max-abs; D=20 takes the base merge F kernel), the CholQR kernel (f64 1e-10; f32 at the D=10 and D=20
 sketch shapes, 1e-5 of max-abs: both factor in f64 and round once) and the
 Jacobi eigen kernel (f64, 1e-10 relative in eigenvalues and in the
 reconstruction, V orthonormal to 1e-10; Gaussian, degenerate, zero and
@@ -77,10 +78,8 @@ def _assert_close(out, ref, tol_rel):
 
 # the two small shapes; S=1 (only the last step: the one-hot W_{T1}, nothing
 # to prefetch); S=2; odd sl/sr (ragged tiles and K splits); DL != DB both
-# ways; Y=3; q=1; the D=10 sketch merge (the staged kernel's fixed-shape
-# build) -- each through both merge F kernels
-@pytest.mark.parametrize("variant", ["staged", "base"])
-@pytest.mark.parametrize("dims,S", [
+# ways; Y=3; q=1; the D=10 sketch merge -- each through both merge F kernels
+MERGE_F64 = [
     (dict(DL=4, DB=3, Y=2, q=2, sr=5, sl=9), 4),
     (dict(DL=3, DB=3, Y=3, q=2, sr=4, sl=8), 4),
     (dict(DL=4, DB=3, Y=2, q=2, sr=5, sl=9), 1),
@@ -89,7 +88,29 @@ def _assert_close(out, ref, tol_rel):
     (dict(DL=5, DB=2, Y=2, q=2, sr=6, sl=10), 3),
     (dict(DL=3, DB=3, Y=3, q=2, sr=5, sl=9), 3),
     (dict(DL=4, DB=4, Y=2, q=1, sr=5, sl=9), 3),
-    (dict(DL=10, DB=10, Y=2, q=2, sr=10, sl=14), 3)])
+    (dict(DL=10, DB=10, Y=2, q=2, sr=10, sl=14), 3)]
+# the f32 sketch merges at bond D that the staged kernel takes: 3 blocks an
+# SM (D <= 10), 2 (D=11) and 1 (D >= 12); the largest that fits is D=15
+MERGE_F32_D = [4, 8, 11, 12, 15]
+
+
+def _sketch_dims(D):
+    return dict(DL=D, DB=D, Y=2, q=2, sr=D, sl=D + 4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def staged_builds():
+    """Build the staged merge F kernel at every shape below at once (each
+    shape is its own build)."""
+    if torch.cuda.is_available():
+        shapes = [(*d.values(), torch.float64) for d, _ in MERGE_F64]
+        shapes += [(*_sketch_dims(D).values(), torch.float32)
+                   for D in MERGE_F32_D + [10]]
+        fs.build_merge_f(shapes)
+
+
+@pytest.mark.parametrize("variant", ["staged", "base"])
+@pytest.mark.parametrize("dims,S", MERGE_F64)
 def test_merge_kernels_f64(cuda, dims, S, variant):
     before = fs.merge_fscan.variant_launches[variant]
     _assert_close(*_merge_case(7, S, **dims, dtype=torch.float64, dev=cuda,
@@ -101,6 +122,28 @@ def test_merge_kernels_f64(cuda, dims, S, variant):
 def test_merge_f_kernels_f32_bench_shape(cuda, variant):
     _assert_close(*_merge_case(64, 15, 10, 10, 2, 2, 10, 14, torch.float32,
                                cuda, variant), 1e-4)
+
+
+@pytest.mark.parametrize("D", MERGE_F32_D)
+def test_merge_f_staged_f32_sketch_shapes(cuda, D):
+    before = dict(fs.merge_fscan.variant_launches)
+    _assert_close(*_merge_case(32, 6, **_sketch_dims(D), dtype=torch.float32,
+                               dev=cuda), 1e-4)
+    assert fs.merge_fscan.variant_launches == {
+        "staged": before["staged"] + 1, "base": before["base"]}
+
+
+def test_merge_f_staged_refuses_another_shape(cuda):
+    """A staged library is built for one shape; its launcher refuses any
+    other (cudaErrorInvalidValue) and launches nothing."""
+    from matrixproductbp_tpu_torch.ops import build
+    dims = _sketch_dims(10)
+    lib = build.library("merge_f_staged", fs.merge_f_staged_macros(
+        *dims.values(), torch.float32))
+    strides = fs._strides(torch.empty(1, 1, 8, 8, 2, 2))
+    rc = lib.merge_f_staged(0, strides, 0, strides, 0, 0, 0, 0, 0, 0, 1, 1,
+                            8, 8, 2, 2, 8, 12, 1024, 0)
+    assert rc == 1
 
 
 def test_merge_f_d20_takes_the_base_kernel(cuda):

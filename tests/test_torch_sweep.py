@@ -24,10 +24,6 @@ from matrixproductbp_tpu_torch.models import SIS, mpbp_sis
 
 TREE = (4, [(0, 1), (0, 2), (2, 3)])
 STAR = (5, [(0, 1), (0, 2), (0, 3), (0, 4)])     # hub of degree 4: K > 3
-# the >4-distinct-degree tree of tests/test_batched_sweep.py:124: degrees
-# 1-5, buckets K = 1, 2, 4, 5, so the K = 4 bucket pads its degree-3 node
-PADDED = (12, [(0, i) for i in range(1, 6)] + [(1, i) for i in range(6, 9)]
-          + [(2, 9), (2, 10), (3, 11)])
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -88,23 +84,6 @@ def test_one_sweep_matches_jax(graph, T, D, jax_batched, monkeypatch):
                                atol=1e-8)
     np.testing.assert_allclose(tb.msg_logz.numpy(), np.asarray(jb.msg_logz),
                                rtol=1e-8, atol=1e-8)
-
-
-def test_padded_buckets_match_jax():
-    """Buckets padded past a node's degree, 4 sweeps against the JAX
-    package's default (vmapped, under 256 nodes a bucket) path with the same
-    sketches.  Measured: 2.4e-10 in beliefs after 4 sweeps and after 10
-    (ROADMAP Queue 3)."""
-    jb, tb = _pair(PADDED, 3, 8, lam=0.3, rho=0.2, gamma=0.3)
-    assert sorted(k for _, k in tp.bp._degree_buckets(tb.graph)) == [1, 2,
-                                                                     4, 5]
-    for _ in range(4):
-        jb = mp.bp_sweep(jb, mp.TruncBond(8), method="sketch")
-        tb = tp.bp_sweep(tb, tp.TruncBond(8), method="sketch",
-                         sketches=JaxSketches())
-    np.testing.assert_allclose(tp.beliefs(tb).numpy(),
-                               np.asarray(mp.beliefs(jb)), rtol=0,
-                               atol=1e-8)
 
 
 def test_iterate_matches_jax_and_enumeration(jax_batched):

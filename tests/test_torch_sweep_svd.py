@@ -24,10 +24,6 @@ from matrixproductbp_tpu_torch.models import SIS, mpbp_sis
 TREE = (4, [(0, 1), (0, 2), (2, 3)])
 STAR = (5, [(0, 1), (0, 2), (0, 3), (0, 4)])     # hub of degree 4: K > 3
 TREE_SIS = dict(lam=0.35, rho=0.25, gamma=0.4)
-# the >4-distinct-degree tree of tests/test_batched_sweep.py:124: degrees
-# 1-5, buckets K = 1, 2, 4, 5, so the K = 4 bucket pads its degree-3 node
-PADDED = (12, [(0, i) for i in range(1, 6)] + [(1, i) for i in range(6, 9)]
-          + [(2, 9), (2, 10), (3, 11)])
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -98,22 +94,6 @@ def test_iterate_reaches_enumeration(method):
                           tol=1e-12, method=method)
     assert n < 15
     _assert_enumeration(tb)
-
-
-# measured after 4 sweeps: 1.5e-15 (qr), 7.7e-12 (randomized, same
-# sketches) in beliefs (ROADMAP Queue 3)
-@pytest.mark.parametrize("method,tol", [("qr", 1e-12),
-                                        ("randomized", 1e-10)])
-def test_padded_buckets_match_jax(method, tol):
-    jb, tb = _pair(PADDED, 3, 8, 0.3, 0.2, 0.3)
-    assert sorted(k for _, k in tp.bp._degree_buckets(tb.graph)) == [1, 2,
-                                                                     4, 5]
-    for _ in range(4):
-        jb = mp.bp_sweep(jb, mp.TruncBond(8), method=method)
-        tb = tp.bp_sweep(tb, tp.TruncBond(8), method=method,
-                         sketches=JaxSketches())
-    np.testing.assert_allclose(tp.beliefs(tb).numpy(),
-                               np.asarray(mp.beliefs(jb)), rtol=0, atol=tol)
 
 
 def test_star_k4_folds_reach_enumeration():
