@@ -212,12 +212,19 @@ def run_merge(fs, L1, B1, Th, Pyy, Phi, S_init, plain=False, variant=None):
 
 
 def merge_f_variants(dims, dtype):
-    """The merge F kernels that take this shape: both where the staged
-    kernel fits, else the base kernel alone."""
+    """The merge F kernels whose buffers fit this shape, the one
+    ``merge_f_geometry`` picks first: staged, cluster and base where all
+    three fit; cluster and base at D=20."""
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
-    first = fs.merge_f_geometry(*(dims[k] for k in ("DL", "DB", "Y", "q",
-                                                    "sr", "sl")), dtype)[0]
-    return ("staged", "base") if first == "staged" else ("base",)
+    shape = tuple(dims[k] for k in ("DL", "DB", "Y", "q", "sr", "sl"))
+    out = []
+    for v in ("staged", "cluster", "base"):
+        try:
+            fs.merge_f_geometry(*shape, dtype, v)
+        except ValueError:
+            continue
+        out.append(v)
+    return tuple(out)
 
 
 def run_mpem3(fs, B1, Psi, Phi, S_init, plain=False):
@@ -244,23 +251,31 @@ def phase_device():
     return info
 
 
-def staged_builds():
-    """The staged merge F kernel's builds this script runs, one per shape:
-    the D=10 sketch merge in f32 (the main path, the accuracy tree and
-    karate) and phase_kernels' f64 merges."""
+def merge_f_builds():
+    """The per-shape merge F kernels' builds this script runs, one per
+    (kernel, shape): the staged and the cluster kernel at the D=10 sketch
+    merge in f32 (the main path, the accuracy tree and karate take the
+    staged one), the cluster kernel at the D=20 one (the D=20 sweep), and
+    both at phase_kernels' f64 merges."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     shapes = [(*merge_dims(10).values(), torch.float32),
+              (*merge_dims(20).values(), torch.float32),
               (4, 3, 2, 2, 5, 9, torch.float64),
               (3, 3, 3, 2, 4, 8, torch.float64)]
-    return [("merge_f_staged", fs.merge_f_staged_macros(*d)) for d in shapes]
+    out = []
+    for d in shapes:
+        dims = dict(zip(("DL", "DB", "Y", "q", "sr", "sl"), d[:6]))
+        out += [fs._merge_f_target(v, d) for v in merge_f_variants(dims, d[6])
+                if v != "base"]
+    return out
 
 
 def phase_build():
-    """Every source, and the staged merge F kernel at each shape the script
-    runs, one nvcc each, all started together."""
+    """Every source, and the staged and cluster merge F kernels at each
+    shape the script runs, one nvcc each, all started together."""
     from matrixproductbp_tpu_torch.ops import build
-    targets = list(build.SOURCES) + staged_builds()
+    targets = list(build.SOURCES) + merge_f_builds()
     t0 = time.perf_counter()
     build.build_all(targets)
     seconds = time.perf_counter() - t0
@@ -271,15 +286,16 @@ def phase_build():
     for ln in report:
         print("ptxas:", ln, flush=True)
     emit("build", seconds=seconds, sources=list(build.SOURCES),
-         merge_f_staged=[" ".join(m) for _, m in targets[len(
+         per_shape=[f"{n}: {' '.join(m)}" for n, m in targets[len(
              build.SOURCES):]], lines=len(report))
 
 
 def phase_kernels():
     """Each kernel against its plain version on the card: f64 at small
     shapes, f32 at the bench shapes for D=10 and D=20.  Each merge case
-    runs every merge F kernel that takes its shape (both where the staged
-    kernel fits, ``merge_f_kernel`` alone at D=20) and names it."""
+    runs every merge F kernel whose buffers fit its shape (all three at
+    D=10 and the f64 shapes, the cluster kernel and ``merge_f_kernel`` at
+    D=20) and names it."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
@@ -452,19 +468,21 @@ def reset_counts():
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     for w in _wrappers().values():
         w.launches = 0
-    fs.merge_fscan.variant_launches.update(staged=0, base=0)
+    fs.merge_fscan.variant_launches.update(staged=0, cluster=0, base=0)
 
 
 def read_counts():
-    """Launches by kernel: merge F's wrapper counts its two kernels apart,
-    ``merge_f`` (``merge_f_kernel``) and ``merge_f_staged``."""
+    """Launches by kernel: merge F's wrapper counts its three kernels apart,
+    ``merge_f`` (``merge_f_kernel``), ``merge_f_staged`` and
+    ``merge_f_cluster``."""
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     counts = {name: w.launches for name, w in _wrappers().items()}
     by_kernel = fs.merge_fscan.variant_launches
     check(sum(by_kernel.values()) == counts["merge_f"],
           f"merge F launches {counts['merge_f']} != {by_kernel}")
     counts.update(merge_f=by_kernel["base"],
-                  merge_f_staged=by_kernel["staged"])
+                  merge_f_staged=by_kernel["staged"],
+                  merge_f_cluster=by_kernel["cluster"])
     return counts
 
 
@@ -544,8 +562,9 @@ def phase_main_d10():
     import torch
     import matrixproductbp_tpu_torch as tp
     bp0, bp1, res = timed_main_path(10, TIMED_SWEEPS_D10)
-    want = {"merge_w": 3, "merge_f": 0, "merge_f_staged": 3, "mpem3_w": 2,
-            "mpem3_f": 2, "cholqr": 0, "jacobi_eigh": 0}
+    want = {"merge_w": 3, "merge_f": 0, "merge_f_staged": 3,
+            "merge_f_cluster": 0, "mpem3_w": 2, "mpem3_f": 2, "cholqr": 0,
+            "jacobi_eigh": 0}
     per_sweep = {k: v / TIMED_SWEEPS_D10 for k, v in res["launches"].items()}
     check(per_sweep == want, f"launches per sweep {per_sweep}, want {want}")
     with plain_scans():
@@ -585,7 +604,7 @@ def phase_profile(bp, method="sketch"):
         return sum(us for us, _ in hit) / 1e6, sum(c for _, c in hit)
 
     ours_s, _ = named("merge_w_kernel<", "merge_f_kernel<",
-                      "merge_f_staged_kernel(",
+                      "merge_f_staged_kernel(", "merge_f_cluster_kernel(",
                       "mpem3_w_kernel<", "mpem3_f_kernel<", "cholqr_kernel<",
                       "jacobi_eigh_kernel")
     svd_s, svd_n = named("jacobi_eigh_kernel", "gesvd", "syevj", "syevd")
@@ -600,13 +619,17 @@ def phase_profile(bp, method="sketch"):
 
 
 def phase_main_d20():
-    """The D=20 sketch sweep: its merges take ``merge_f_kernel`` (the
-    staged kernel's buffers do not fit)."""
+    """The D=20 sketch sweep: all 3 merge F launches a sweep take the
+    cluster kernel (the staged kernel's buffers do not fit)."""
     res = timed_main_path(20, TIMED_SWEEPS_D20)[2]
+    per_sweep = {k: v / TIMED_SWEEPS_D20 for k, v in res["launches"].items()}
+    want = {"merge_w": 3, "merge_f": 0, "merge_f_staged": 0,
+            "merge_f_cluster": 3, "mpem3_w": 2, "mpem3_f": 2, "cholqr": 0,
+            "jacobi_eigh": 0}
+    res.update(launches_per_sweep=per_sweep)
     emit("main_d20", **res)
-    scans = ("merge_w", "merge_f", "mpem3_w", "mpem3_f")
-    check(all(res["launches"][k] > 0 for k in scans),
-          f"D=20: a scan kernel was not launched: {res['launches']}")
+    check(per_sweep == want, f"D=20: launches per sweep {per_sweep}, want "
+                             f"{want}")
     return res["launches"]
 
 
@@ -618,9 +641,9 @@ def phase_main_randomized(D, sweeps):
     import matrixproductbp_tpu_torch as tp
     bp0, bp1, res = timed_main_path(D, sweeps, method="randomized")
     per_sweep = {k: v / sweeps for k, v in res["launches"].items()}
-    want = {"merge_w": 0, "merge_f": 0, "merge_f_staged": 0, "mpem3_w": 0,
-            "mpem3_f": 0, "cholqr": CHOLQR_PER_SWEEP,
-            "jacobi_eigh": SVD_PER_SWEEP}
+    want = {"merge_w": 0, "merge_f": 0, "merge_f_staged": 0,
+            "merge_f_cluster": 0, "mpem3_w": 0, "mpem3_f": 0,
+            "cholqr": CHOLQR_PER_SWEEP, "jacobi_eigh": SVD_PER_SWEEP}
     res.update(launches_per_sweep=per_sweep)
     if D == 10:
         with plain_linalg():
@@ -683,13 +706,22 @@ def time_cuda(fn, n):
     return a.elapsed_time(b) / n
 
 
-def phase_kernel_times(launches, launches_d20, D=10, reps=10):
-    """Each kernel at the bench shape (the 8192-instance merge and the
-    12288-instance message conversion), CUDA events over ``reps`` launches,
-    beside its bound and its plain version's time.  Both merge F kernels
-    run on the same inputs where both take the shape, timed in turns
-    (staged, base, base, staged); ``merge_f_kernel``'s launches are those
-    of the D=20 sweep, the path that runs it."""
+#: each merge F kernel's name in the ``kernels`` record, its source and the
+#: TPU body it stands for (the TPU ran the lean body at D=20)
+MERGE_F_ROWS = {
+    "staged": ("merge_f_staged", "merge_f_staged.cu", ":281"),
+    "cluster": ("merge_f_cluster", "merge_f_cluster.cu", ":382"),
+    "base": ("merge_f", "stta_scans.cu", ":281"),
+}
+
+
+def phase_kernel_times(launches, D=10, reps=10):
+    """Each scan kernel at the bench shape of bond D (the 8192-instance merge
+    and the 12288-instance message conversion), CUDA events over ``reps``
+    launches, beside its bound and its plain version's time; ``launches``
+    are those of the sketch sweep at that D.  ``merge_f_kernel`` and the
+    merge F kernel the sweep takes (staged at D=10, cluster at D=20) run on
+    the same inputs, timed in turns (picked, base, base, picked)."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
@@ -705,48 +737,50 @@ def phase_kernel_times(launches, launches_d20, D=10, reps=10):
     cases = [
         ("merge_w", lambda: fs.merge_wscan(L1, B1, Th),
          lambda: fs.merge_wscan_plain(L1, B1, Th),
-         work_merge_w(2 * BENCH_N, S, **md, esize=4), ":231"),
+         work_merge_w(2 * BENCH_N, S, **md, esize=4), "stta_scans.cu",
+         ":231"),
         ("mpem3_w", lambda: fs.mpem3_wscan(Bm, Psi),
          lambda: fs.mpem3_wscan_plain(Bm, Psi),
-         work_mpem3_w(BENCH_N * BENCH_DEG, S, **pd, esize=4), ":508"),
+         work_mpem3_w(BENCH_N * BENCH_DEG, S, **pd, esize=4),
+         "stta_scans.cu", ":508"),
         ("mpem3_f", lambda: fs.mpem3_fscan(Bm, PhiM, WsM, SiM),
          lambda: fs.mpem3_fscan_plain(Bm, PhiM, WsM, SiM),
-         work_mpem3_f(BENCH_N * BENCH_DEG, S, **pd, esize=4), ":545"),
+         work_mpem3_f(BENCH_N * BENCH_DEG, S, **pd, esize=4),
+         "stta_scans.cu", ":545"),
     ]
+    picked = fs.merge_f_geometry(*md.values(), torch.float32)[0]
     merge_f = {v: (lambda v=v: fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S_init,
                                               _variant=v))
-               for v in merge_f_variants(md, torch.float32)}
+               for v in (picked, "base")}
     turns = {v: [] for v in merge_f}
-    for v in list(merge_f) + list(merge_f)[::-1]:
+    for v in (picked, "base", "base", picked):
         turns[v].append(time_cuda(merge_f[v], reps))
-    cases[1:1] = [("merge_f_staged" if v == "staged" else "merge_f", kern,
+    turns = {MERGE_F_ROWS[v][0]: t for v, t in turns.items()}
+    cases[1:1] = [(MERGE_F_ROWS[v][0], kern,
                    lambda: fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws,
                                                 S_init),
-                   work_merge_f(2 * BENCH_N, S, **md, esize=4), ":281")
+                   work_merge_f(2 * BENCH_N, S, **md, esize=4),
+                   MERGE_F_ROWS[v][1], MERGE_F_ROWS[v][2])
                   for v, kern in merge_f.items()]
-    counts = {**launches, "merge_f": launches_d20["merge_f"]}
     rows = []
-    for name, kern, plain, (flops, nbytes), line in cases:
+    for name, kern, plain, (flops, nbytes), src, line in cases:
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         err, _ = max_err(tuple(out) if isinstance(out, tuple) else out,
                          tuple(ref) if isinstance(ref, tuple) else ref)
-        variant = {"merge_f_staged": "staged", "merge_f": "base"}.get(name)
-        ms_runs = turns[variant] if variant else [time_cuda(kern, reps)]
+        ms_runs = turns.get(name) or [time_cuda(kern, reps)]
         plain_ms = time_cuda(plain, 2)
         bms, by = bound_ms(flops, nbytes)
         rows.append({
             "name": name, "route": "cuda",
-            "source": "matrixproductbp_tpu_torch/csrc/" + (
-                "merge_f_staged.cu" if name == "merge_f_staged"
-                else "stta_scans.cu"),
+            "source": "matrixproductbp_tpu_torch/csrc/" + src,
             "replaces": "matrixproductbp_tpu/ops/fused_stta.py" + line,
-            "launches": counts[name], "max_abs_err": err,
+            "launches": launches[name], "max_abs_err": err,
             "ms": sum(ms_runs) / len(ms_runs), "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "flops": flops, "bytes": nbytes,
-            **({"ms_turns": ms_runs} if variant else {}),
-            **({"launches_from": "main_d20"} if name == "merge_f" else {})})
+            "flops": flops, "bytes": nbytes, "D": D,
+            "launches_from": f"main_d{D}",
+            **({"ms_turns": ms_runs} if name in turns else {})})
         emit(f"kernel_time_d{D}", **rows[-1])
         del out, ref
     return rows
@@ -824,9 +858,13 @@ def main():
     del bp_r10
     phase_main_randomized(20, TIMED_RANDOMIZED_D20)
     phase_karate()
-    rows = phase_kernel_times(launches, launches_d20)
+    # the kernels record: every kernel that a main path launches, each at
+    # the bench shape of the sweep that launches it (merge_f_kernel, which
+    # no main path takes any more, is timed in its phase lines alone)
+    rows = [r for r in phase_kernel_times(launches) if r["launches"] > 0]
     rows += phase_linalg_kernel_times(rlaunches)
-    phase_kernel_times(launches, launches_d20, D=20, reps=3)
+    rows += [r for r in phase_kernel_times(launches_d20, D=20, reps=3)
+             if r["name"] == "merge_f_cluster"]
     phase_linalg_kernel_times(rlaunches, D=20, reps=3)
     emit("done", seconds=time.perf_counter() - t0)
     print(info["nvidia_smi"], flush=True)

@@ -1,6 +1,6 @@
 // Declarations shared by the STTA scan sources: stta_scans.cu (the four
-// scan kernels but one) and merge_f_staged.cu (the staged merge F kernel,
-// built once per shape).
+// scan kernels but two), merge_f_staged.cu and merge_f_cluster.cu (the
+// staged and the cluster merge F kernels, each built once per shape).
 
 #pragma once
 

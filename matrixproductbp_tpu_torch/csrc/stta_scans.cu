@@ -1,14 +1,15 @@
 // STTA sketch scans for Hopper (sm_90a): the time-scan kernels of the
-// sketch sweep, written by hand in CUDA C++.  The fifth, the staged merge F
-// kernel, is merge_f_staged.cu, built once per shape.
+// sketch sweep, written by hand in CUDA C++.  Two more merge F kernels,
+// merge_f_staged.cu and merge_f_cluster.cu, are built once per shape.
 //
 // Replaces the Pallas TPU kernels of matrixproductbp_tpu/ops/fused_stta.py:
 //   merge_w_kernel  <- _merge_wstep_kernel (fused_stta.py:231, grid wrapper _merge_wscan :359)
 //   merge_f_kernel  <- _merge_fstep_kernel (:281) and _merge_fstep_kernel_lean (:382),
 //                      grid wrapper _merge_fscan (:466); it covers both bodies.
 //                      The wrapper (fused_stta.py::merge_f_geometry) runs it
-//                      only where merge_f_staged.cu's kernel does not fit:
-//                      the f32 sketch merges from D=16 (D=20 at the bench)
+//                      only where neither merge_f_staged.cu's kernel (f32
+//                      sketch merges up to D=15) nor merge_f_cluster.cu's
+//                      (from D=16 to D=20) fits
 //   mpem3_w_kernel  <- _mpem3_wstep_kernel (:508, grid wrapper _mpem3_wscan :605)
 //   mpem3_f_kernel  <- _mpem3_fstep_kernel (:545, grid wrapper _mpem3_fscan :628)
 // Their plain versions are matrixproductbp_tpu_torch/ops/stta.py::*_plain.
@@ -61,6 +62,8 @@
 //             (Phi_t) + Y^3*q.  D=20, f32, sl=24: 54320 floats = 212.2 KiB.
 //             W_t and W_{t+1} are read from global memory.
 //   merge F, staged: in merge_f_staged.cu; 73.7 KiB at D=10, f32.
+//   merge F, cluster: in merge_f_cluster.cu; 217.5 KiB a block (two blocks
+//             an instance) at D=20, f32.
 //   MPEM3 W/F: under 10 KiB at D=20.
 // f64 instantiations exist so that tests hold each kernel to its plain version
 // at 1e-10; they fit only at small shapes.

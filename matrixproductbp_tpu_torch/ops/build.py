@@ -59,9 +59,14 @@ _SIGNATURES = {
         "merge_f_staged": ([_P, _LP, _P, _LP, _P, _P, _P, _P, _P, _P]
                            + [_I] * 8 + [_L, _P]),
     },
+    "merge_f_cluster": {
+        "merge_f_cluster": ([_P, _LP, _P, _LP, _P, _P, _P, _P, _P, _P]
+                            + [_I] * 8 + [_L, _P]),
+        "merge_f_cluster_occupancy": [_L],
+    },
 }
 #: sources built once per shape, with their sizes as macros
-PER_SHAPE = ("merge_f_staged",)
+PER_SHAPE = ("merge_f_staged", "merge_f_cluster")
 #: sources built once, without macros
 SOURCES = tuple(n for n in _SIGNATURES if n not in PER_SHAPE)
 

@@ -5,20 +5,25 @@ Counterpart of ``matrixproductbp_tpu/ops/fused_stta.py``.  Each scan wrapper
 (:func:`merge_wscan`, :func:`merge_fscan`, :func:`mpem3_wscan`,
 :func:`mpem3_fscan`) runs its plain PyTorch version (``ops/stta.py``,
 re-exported here as ``*_plain``) when its tensors lie on the CPU, and
-launches its CUDA kernel (``csrc/stta_scans.cu``, ``csrc/merge_f_staged.cu``)
-when they lie on a CUDA device; there is no fallback between the two.  ``<wrapper>.launches`` counts
+launches its CUDA kernel (``csrc/stta_scans.cu``, ``csrc/merge_f_staged.cu``,
+``csrc/merge_f_cluster.cu``) when they lie on a CUDA device; there is no
+fallback between the two.  ``<wrapper>.launches`` counts
 kernel launches.
 
 The kernels replace, in order, ``_merge_wstep_kernel`` (``fused_stta.py:231``),
 ``_merge_fstep_kernel`` / ``_merge_fstep_kernel_lean`` (``:281``, ``:382``),
 ``_mpem3_wstep_kernel`` (``:508``) and ``_mpem3_fstep_kernel`` (``:545``).
-Merge F has two kernels, picked by shape in :func:`merge_f_geometry`:
+Merge F has three kernels, picked by shape in :func:`merge_f_geometry`:
 ``merge_f_staged_kernel`` (``merge_f_staged.cu``, built once per shape with
 its sizes as constants) wherever its buffers fit (the f32 sketch merges up to
-D=15), and ``merge_f_kernel`` for the larger shapes (D=20).
+D=15); ``merge_f_cluster_kernel`` (``merge_f_cluster.cu``, built likewise: a
+cluster of two blocks per instance, which share the sketch rows through
+distributed shared memory) wherever its buffers fit (the f32 sketch merges
+from D=16 to D=20); and ``merge_f_kernel`` for the shapes neither takes.
 The TPU-only machinery around them (lane padding, instance chunking, the
-VMEM admission model) has no counterpart: one thread block owns one
-instance, and the only admission rule is the 227 KB shared-memory limit.
+VMEM admission model) has no counterpart: one thread block (or one cluster)
+owns one instance, and the only admission rule is the 227 KB shared-memory
+limit a block.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ __all__ = ["merge_stta_fused", "mpem3_stta_fused", "mpem3_stta_fused_tm",
            "merge_wscan", "merge_fscan", "mpem3_wscan", "mpem3_fscan",
            "merge_wscan_plain", "merge_fscan_plain", "mpem3_wscan_plain",
            "mpem3_fscan_plain", "merge_f_geometry", "merge_f_staged_macros",
-           "build_merge_f", "SMEM_LIMIT"]
+           "merge_f_cluster_macros", "build_merge_f", "SMEM_LIMIT"]
 
 #: dynamic shared memory a scan kernel's block may use: the card's limit
 #: less the kernels' static reduction scratch
@@ -48,6 +53,12 @@ _SMEM_PER_SM, _SMEM_RESERVED = 233472, 1024
 #: the most staged blocks an SM is built for: 3 x 256 threads x 80 registers
 #: fill its 65,536 registers
 _STAGED_MAX_BLOCKS = 3
+#: the cluster merge F kernel's block (``NT`` in ``merge_f_cluster.cu``; two
+#: blocks an instance), and the most of its blocks an SM is built for: one
+#: (136 registers a thread; the shapes it is picked for fill an SM's shared
+#: memory with one block)
+_CLUSTER_THREADS = 480
+_CLUSTER_MAX_BLOCKS = 1
 
 
 def _merge_threads(smem: int) -> int:
@@ -86,25 +97,56 @@ def _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize):
             + sl * sr)
 
 
+def _smem_merge_f_cluster(DL, DB, Y, q, sr, sl, esize):
+    """merge_f_cluster_kernel's buffers, a block (each of the two blocks of
+    an instance owns ``E0 = ceil(sl/2)`` rows of the sketch, the second
+    ``floor(sl/2)``, in buffers sized for ``E0``): W_t/W_{t+1}, and L_t and
+    B_t double-buffered, each padded to 16 bytes; S, own rows, padded to an
+    odd stride; t1 of one x (rows padded to an odd stride; the S2 partials
+    sent to the peer, 20 words for each 2x10 tile of S2, reuse it); t2 of
+    one x for both y; Bp for all (y, x) pairs; Phi_t (all rows)
+    double-buffered; Pyy; M and N of one step, own rows."""
+    DLB, P, E0 = DL * DB, Y * q, (sl + 1) // 2
+    v16 = 16 // esize
+
+    def pad(n):
+        return -(-n // v16) * v16
+    return (2 * pad(DLB * sr) + 2 * pad(DL * DL * P) + 2 * pad(DB * DB * P)
+            + E0 * (DLB | 1)
+            + max(E0 * DL * ((DB * Y) | 1), 20 * -(-sl // 2) * -(-DLB // 10))
+            + Y * E0 * DLB
+            + DB * Y * DB * P + 2 * sl * sl * P + Y * Y * P + E0 * sr
+            + E0 * P * sr)
+
+
 def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
-    """(variant, threads, shared-memory bytes) of the merge F kernel for one
-    shape: ``"staged"`` (``merge_f_staged_kernel``) wherever its buffers fit
-    in ``SMEM_LIMIT`` (f32 sketch merges up to D=15; it ran faster than
-    ``merge_f_kernel`` at every D from 4 to 15, one block an SM included),
-    else ``"base"`` (``merge_f_kernel``).  ``variant`` forces one of the
-    two.  Raises ``ValueError`` where neither fits (or the forced one does
-    not)."""
+    """(variant, threads a block, shared-memory bytes a block) of the merge F
+    kernel for one shape, the first whose buffers fit in ``SMEM_LIMIT`` of:
+    ``"staged"`` (``merge_f_staged_kernel``; f32 sketch merges up to D=15:
+    it ran faster than ``merge_f_kernel`` at every D from 4 to 15, one
+    block an SM included), ``"cluster"`` (``merge_f_cluster_kernel``, two
+    blocks an instance; f32 sketch merges from D=16 to D=20) and ``"base"``
+    (``merge_f_kernel``).  ``variant`` forces one of the three.  Raises
+    ``ValueError`` where none fits (or the forced one does not)."""
     esize = 4 if dtype == torch.float32 else 8
     sizes = {"staged": _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize),
+             "cluster": _smem_merge_f_cluster(DL, DB, Y, q, sr, sl, esize),
              "base": _smem_merge_f(DL, DB, Y, q, sr, sl)}
+    threads = {"staged": _STAGED_THREADS, "cluster": _CLUSTER_THREADS}
     for name in (sizes if variant is None else (variant,)):
         nbytes = sizes[name] * esize
         if nbytes <= SMEM_LIMIT:
-            threads = (_STAGED_THREADS if name == "staged"
-                       else _merge_threads(nbytes))
-            return name, threads, nbytes
+            return name, threads.get(name, _merge_threads(nbytes)), nbytes
     raise ValueError(f"merge F scan: needs {nbytes} bytes of shared memory "
                      f"per block, over the {SMEM_LIMIT}-byte limit")
+
+
+def _merge_f_macros(variant, most, DL, DB, Y, q, sr, sl, dtype):
+    _, _, smem = merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant)
+    minb = min(most, _SMEM_PER_SM // (smem + _SMEM_RESERVED))
+    return (f"MF_T={'float' if dtype == torch.float32 else 'double'}",
+            f"MF_DL={DL}", f"MF_DB={DB}", f"MF_Y={Y}", f"MF_Q={q}",
+            f"MF_SR={sr}", f"MF_SL={sl}", f"MF_MINB={minb}")
 
 
 def merge_f_staged_macros(DL, DB, Y, q, sr, sl, dtype):
@@ -112,20 +154,60 @@ def merge_f_staged_macros(DL, DB, Y, q, sr, sl, dtype):
     sizes, its element type and ``MF_MINB``, the blocks whose shared memory
     fits on one SM (at most ``_STAGED_MAX_BLOCKS``), which sets the
     register budget ptxas gets."""
-    _, _, smem = merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, "staged")
-    minb = min(_STAGED_MAX_BLOCKS, _SMEM_PER_SM // (smem + _SMEM_RESERVED))
-    return (f"MF_T={'float' if dtype == torch.float32 else 'double'}",
-            f"MF_DL={DL}", f"MF_DB={DB}", f"MF_Y={Y}", f"MF_Q={q}",
-            f"MF_SR={sr}", f"MF_SL={sl}", f"MF_MINB={minb}")
+    return _merge_f_macros("staged", _STAGED_MAX_BLOCKS, DL, DB, Y, q, sr, sl,
+                           dtype)
 
 
-def build_merge_f(shapes):
-    """Build, all at once, the staged merge F libraries of the shapes
-    ``(DL, DB, Y, q, sr, sl, dtype)`` that take that kernel; a caller that
-    knows its shapes ahead spares their serial builds at first use."""
-    build.build_all([("merge_f_staged", merge_f_staged_macros(*shape))
-                     for shape in shapes
-                     if merge_f_geometry(*shape)[0] == "staged"])
+def merge_f_cluster_macros(DL, DB, Y, q, sr, sl, dtype):
+    """The macros ``merge_f_cluster.cu`` is built with for one shape, as
+    :func:`merge_f_staged_macros` (``MF_MINB`` at most
+    ``_CLUSTER_MAX_BLOCKS``)."""
+    return _merge_f_macros("cluster", _CLUSTER_MAX_BLOCKS, DL, DB, Y, q, sr,
+                           sl, dtype)
+
+
+#: the per-shape merge F kernels: variant -> (source, its macros)
+_PER_SHAPE_MERGE_F = {"staged": ("merge_f_staged", merge_f_staged_macros),
+                      "cluster": ("merge_f_cluster", merge_f_cluster_macros)}
+
+
+def _merge_f_target(variant, shape):
+    src, macros = _PER_SHAPE_MERGE_F[variant]
+    return src, macros(*shape)
+
+
+def build_merge_f(shapes, variant=None):
+    """Build, all at once, the per-shape merge F libraries (staged or
+    cluster) of the shapes ``(DL, DB, Y, q, sr, sl, dtype)``: the kernel
+    :func:`merge_f_geometry` picks for each, or ``variant`` for all; a
+    caller that knows its shapes ahead spares their serial builds at first
+    use."""
+    targets = []
+    for shape in shapes:
+        v = variant or merge_f_geometry(*shape)[0]
+        if v in _PER_SHAPE_MERGE_F:
+            targets.append(_merge_f_target(v, shape))
+    build.build_all(targets)
+
+
+_CLUSTERS_CHECKED = set()
+
+
+def _cluster_library(macros, smem):
+    """The cluster kernel's library for one shape; at its first use, raises
+    if the card cannot hold one cluster of two such blocks at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    lib = build.library("merge_f_cluster", macros)
+    if macros not in _CLUSTERS_CHECKED:
+        n = lib.merge_f_cluster_occupancy(smem)
+        if n < 0:
+            _raise_on(-n, "merge F cluster set-up")
+        if n == 0:
+            raise RuntimeError(
+                "merge F cluster kernel: a cluster of two blocks of "
+                f"{smem} bytes of shared memory cannot be scheduled")
+        _CLUSTERS_CHECKED.add(macros)
+    return lib
 
 
 def _smem_mpem3_w(Db, qi, qj, sr):
@@ -238,10 +320,13 @@ def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init, _variant=None):
     args = (L1.data_ptr(), _strides(L1), B1.data_ptr(), _strides(B1),
             Pyy.data_ptr(), Phi.data_ptr(), Ws.data_ptr(), S_init.data_ptr(),
             Ns.data_ptr(), Ms.data_ptr(), Bn, S, DL, DB, Y, q, sr, sl)
+    shape = (DL, DB, Y, q, sr, sl, L1.dtype)
     if variant == "staged":
-        macros = merge_f_staged_macros(DL, DB, Y, q, sr, sl, L1.dtype)
-        rc = build.library("merge_f_staged", macros).merge_f_staged(
+        rc = build.library(*_merge_f_target(variant, shape)).merge_f_staged(
             *args, smem, _stream(L1))
+    elif variant == "cluster":
+        lib = _cluster_library(merge_f_cluster_macros(*shape), smem)
+        rc = lib.merge_f_cluster(*args, smem, _stream(L1))
     else:
         rc = build.library("stta_scans").stta_merge_f(
             code, *args, threads, smem, _stream(L1))
@@ -305,8 +390,9 @@ def mpem3_fscan(B1, Phi, Ws, S_init):
 
 for _w in (merge_wscan, merge_fscan, mpem3_wscan, mpem3_fscan):
     _w.launches = 0
-#: merge F launches by kernel: "staged" and "base" (see merge_f_geometry)
-merge_fscan.variant_launches = {"staged": 0, "base": 0}
+#: merge F launches by kernel: "staged", "cluster" and "base" (see
+#: merge_f_geometry)
+merge_fscan.variant_launches = {"staged": 0, "cluster": 0, "base": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Each CUDA kernel against its plain version on the card: the scan kernels
-(f64 at small shapes, 1e-10, both merge F kernels at its edge shapes; f32
-at the bench shape and, for the staged merge F kernel, at the sketch merges
-of D = 4 to 15 (one to three blocks an SM), 1e-4 of the plain output's
-max-abs; D=20 takes the base merge F kernel), the CholQR kernel (f64 1e-10; f32 at the D=10 and D=20
+(f64 at small shapes, 1e-10, the three merge F kernels at its edge shapes;
+f32 at the bench shape and, for the staged merge F kernel, at the sketch
+merges of D = 4 to 15 (one to three blocks an SM), for the cluster one at
+D = 16, 17 (odd sl), 20 and one DL != DB, 1e-4 of the plain output's
+max-abs; D=20 takes the cluster merge F kernel), the CholQR kernel (f64 1e-10; f32 at the D=10 and D=20
 sketch shapes, 1e-5 of max-abs: both factor in f64 and round once) and the
 Jacobi eigen kernel (f64, 1e-10 relative in eigenvalues and in the
 reconstruction, V orthonormal to 1e-10; Gaussian, degenerate, zero and
@@ -94,22 +95,30 @@ MERGE_F64 = [
 MERGE_F32_D = [4, 8, 11, 12, 15]
 
 
-def _sketch_dims(D):
-    return dict(DL=D, DB=D, Y=2, q=2, sr=D, sl=D + 4)
+def _sketch_dims(D, DB=None):
+    return dict(DL=D, DB=D if DB is None else DB, Y=2, q=2, sr=D, sl=D + 4)
+
+
+# the f32 sketch merges that the cluster kernel takes: D=16, 17 (odd sl:
+# 11 rows e on one block of the pair, 10 on the other), 20, and DL != DB
+MERGE_F32_CLUSTER = [_sketch_dims(16), _sketch_dims(17), _sketch_dims(20),
+                     _sketch_dims(20, 16)]
 
 
 @pytest.fixture(scope="module", autouse=True)
 def staged_builds():
-    """Build the staged merge F kernel at every shape below at once (each
-    shape is its own build)."""
+    """Build the staged and the cluster merge F kernels at every shape below
+    at once (each shape is its own build)."""
     if torch.cuda.is_available():
         shapes = [(*d.values(), torch.float64) for d, _ in MERGE_F64]
+        fs.build_merge_f(shapes, "cluster")
         shapes += [(*_sketch_dims(D).values(), torch.float32)
                    for D in MERGE_F32_D + [10]]
+        shapes += [(*d.values(), torch.float32) for d in MERGE_F32_CLUSTER]
         fs.build_merge_f(shapes)
 
 
-@pytest.mark.parametrize("variant", ["staged", "base"])
+@pytest.mark.parametrize("variant", ["staged", "base", "cluster"])
 @pytest.mark.parametrize("dims,S", MERGE_F64)
 def test_merge_kernels_f64(cuda, dims, S, variant):
     before = fs.merge_fscan.variant_launches[variant]
@@ -118,7 +127,7 @@ def test_merge_kernels_f64(cuda, dims, S, variant):
     assert fs.merge_fscan.variant_launches[variant] == before + 1
 
 
-@pytest.mark.parametrize("variant", ["staged", "base"])
+@pytest.mark.parametrize("variant", ["staged", "base", "cluster"])
 def test_merge_f_kernels_f32_bench_shape(cuda, variant):
     _assert_close(*_merge_case(64, 15, 10, 10, 2, 2, 10, 14, torch.float32,
                                cuda, variant), 1e-4)
@@ -130,7 +139,31 @@ def test_merge_f_staged_f32_sketch_shapes(cuda, D):
     _assert_close(*_merge_case(32, 6, **_sketch_dims(D), dtype=torch.float32,
                                dev=cuda), 1e-4)
     assert fs.merge_fscan.variant_launches == {
-        "staged": before["staged"] + 1, "base": before["base"]}
+        **before, "staged": before["staged"] + 1}
+
+
+@pytest.mark.parametrize("dims", MERGE_F32_CLUSTER,
+                         ids=lambda d: f"{d['DL']}x{d['DB']}")
+def test_merge_f_cluster_f32_sketch_shapes(cuda, dims):
+    assert fs.merge_f_geometry(*dims.values(), torch.float32)[0] == "cluster"
+    before = dict(fs.merge_fscan.variant_launches)
+    _assert_close(*_merge_case(32, 6, **dims, dtype=torch.float32, dev=cuda),
+                  1e-4)
+    assert fs.merge_fscan.variant_launches == {
+        **before, "cluster": before["cluster"] + 1}
+
+
+def test_merge_f_cluster_refuses_another_shape(cuda):
+    """As the staged library: built for one shape, it refuses any other."""
+    from matrixproductbp_tpu_torch.ops import build
+    lib = build.library("merge_f_cluster", fs.merge_f_cluster_macros(
+        *_sketch_dims(20).values(), torch.float32))
+    strides = fs._strides(torch.empty(1, 1, 8, 8, 2, 2))
+    rc = lib.merge_f_cluster(0, strides, 0, strides, 0, 0, 0, 0, 0, 0, 1, 1,
+                             8, 8, 2, 2, 8, 12, 1024, 0)
+    assert rc == 1
+    assert lib.merge_f_cluster_occupancy(fs.merge_f_geometry(
+        *_sketch_dims(20).values(), torch.float32)[2]) >= 1
 
 
 def test_merge_f_staged_refuses_another_shape(cuda):
@@ -146,12 +179,12 @@ def test_merge_f_staged_refuses_another_shape(cuda):
     assert rc == 1
 
 
-def test_merge_f_d20_takes_the_base_kernel(cuda):
+def test_merge_f_d20_takes_the_cluster_kernel(cuda):
     before = dict(fs.merge_fscan.variant_launches)
     _assert_close(*_merge_case(16, 15, 20, 20, 2, 2, 20, 24, torch.float32,
                                cuda), 1e-4)
     assert fs.merge_fscan.variant_launches == {
-        "staged": before["staged"], "base": before["base"] + 1}
+        **before, "cluster": before["cluster"] + 1}
 
 
 @pytest.mark.parametrize("dims", [dict(Db=4, qi=2, qj=2, sr=5, sl=8),

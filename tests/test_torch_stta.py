@@ -49,8 +49,19 @@ def _lanes_first(x, B):
     return np.moveaxis(np.asarray(x), -1, 0)[:B]
 
 
-@pytest.mark.parametrize("DL,DB,Y,q,Dout", [(4, 3, 2, 2, 5), (3, 3, 3, 2, 4)])
-def test_merge_scans_match_pallas_and_xla(DL, DB, Y, q, Dout):
+@pytest.mark.parametrize("DL,DB,Y,q,Dout,lean", [
+    pytest.param(4, 3, 2, 2, 5, False, id="4-3-2-2-5"),
+    pytest.param(3, 3, 3, 2, 4, False, id="3-3-3-2-4"),
+    # the lean Pallas F body, the one the TPU ran at D=20 (sl > DL, DB)
+    pytest.param(4, 3, 2, 2, 5, True, id="lean-4-3-2-2-5"),
+    pytest.param(3, 4, 2, 2, 6, True, id="lean-3-4-2-2-6"),
+])
+def test_merge_scans_match_pallas_and_xla(DL, DB, Y, q, Dout, lean,
+                                          monkeypatch):
+    monkeypatch.setattr(jfs, "_FORCE_LEAN", lean)
+    assert jfs._f_variant(DL, DB, Y, q, min(Dout, DL * DB),
+                          min(Dout + 4, DL * DB)) == ("lean" if lean
+                                                      else "orig")
     rng = np.random.default_rng(0)
     B, T1 = 5, 5
     S = T1 - 1
