@@ -211,20 +211,33 @@ def run_merge(fs, L1, B1, Th, Pyy, Phi, S_init, plain=False, variant=None):
                                         _variant=variant))
 
 
+def _fitting(geometry, shape, dtype, variants):
+    out = []
+    for v in variants:
+        try:
+            geometry(*shape, dtype, v)
+        except ValueError:
+            continue
+        out.append(v)
+    return tuple(out)
+
+
 def merge_f_variants(dims, dtype):
     """The merge F kernels whose buffers fit this shape, the one
     ``merge_f_geometry`` picks first: staged, cluster and base where all
     three fit; cluster and base at D=20."""
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     shape = tuple(dims[k] for k in ("DL", "DB", "Y", "q", "sr", "sl"))
-    out = []
-    for v in ("staged", "cluster", "base"):
-        try:
-            fs.merge_f_geometry(*shape, dtype, v)
-        except ValueError:
-            continue
-        out.append(v)
-    return tuple(out)
+    return _fitting(fs.merge_f_geometry, shape, dtype,
+                    ("staged", "cluster", "base"))
+
+
+def merge_w_variants(dims, dtype):
+    """The merge W kernels whose buffers fit this shape: staged and base at
+    every merge here (``merge_w_geometry`` picks staged in f32)."""
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    shape = tuple(dims[k] for k in ("DL", "DB", "Y", "q", "sr"))
+    return _fitting(fs.merge_w_geometry, shape, dtype, ("staged", "base"))
 
 
 def run_mpem3(fs, B1, Psi, Phi, S_init, plain=False):
@@ -251,12 +264,13 @@ def phase_device():
     return info
 
 
-def merge_f_builds():
-    """The per-shape merge F kernels' builds this script runs, one per
-    (kernel, shape): the staged and the cluster kernel at the D=10 sketch
-    merge in f32 (the main path, the accuracy tree and karate take the
-    staged one), the cluster kernel at the D=20 one (the D=20 sweep), and
-    both at phase_kernels' f64 merges."""
+def merge_builds():
+    """The per-shape merge kernels' builds this script runs, one per
+    (kernel, shape): the staged and the cluster merge F kernel and the
+    staged merge W kernel at the D=10 sketch merge in f32 (the main path,
+    the accuracy tree and karate take the staged ones), the cluster merge F
+    and the staged merge W kernel at the D=20 one (the D=20 sweep), and all
+    three at phase_kernels' f64 merges."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     shapes = [(*merge_dims(10).values(), torch.float32),
@@ -268,14 +282,16 @@ def merge_f_builds():
         dims = dict(zip(("DL", "DB", "Y", "q", "sr", "sl"), d[:6]))
         out += [fs._merge_f_target(v, d) for v in merge_f_variants(dims, d[6])
                 if v != "base"]
+        out.append(("merge_w_staged", fs.merge_w_staged_macros(*d[:5], d[6])))
     return out
 
 
 def phase_build():
-    """Every source, and the staged and cluster merge F kernels at each
-    shape the script runs, one nvcc each, all started together."""
+    """Every source, and the staged and cluster merge F kernels and the
+    staged merge W kernel at each shape the script runs, one nvcc each, all
+    started together."""
     from matrixproductbp_tpu_torch.ops import build
-    targets = list(build.SOURCES) + merge_f_builds()
+    targets = list(build.SOURCES) + merge_builds()
     t0 = time.perf_counter()
     build.build_all(targets)
     seconds = time.perf_counter() - t0
@@ -295,7 +311,7 @@ def phase_kernels():
     shapes, f32 at the bench shapes for D=10 and D=20.  Each merge case
     runs every merge F kernel whose buffers fit its shape (all three at
     D=10 and the f64 shapes, the cluster kernel and ``merge_f_kernel`` at
-    D=20) and names it."""
+    D=20) and both merge W kernels, and names each."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
@@ -319,25 +335,27 @@ def phase_kernels():
                 args = merge_inputs(Bn, S, **dims, dtype=dtype, device=dev,
                                     seed=i)
                 ref = run_merge(fs, *args, plain=True)
-                outs = [(v, run_merge(fs, *args, variant=v))
+                outs = [({"merge_f_kernel": v}, run_merge(fs, *args,
+                                                          variant=v), ref)
                         for v in merge_f_variants(dims, dtype)]
+                outs += [({"merge_w_kernel": v}, fs.merge_wscan(
+                    *args[:3], _variant=v), ref[0])
+                         for v in merge_w_variants(dims, dtype)]
             else:
                 args = mpem3_inputs(Bn, S, **dims, dtype=dtype, device=dev,
                                     seed=i)
                 ref = run_mpem3(fs, *args, plain=True)
-                outs = [(None, run_mpem3(fs, *args))]
+                outs = [({}, run_mpem3(fs, *args), ref)]
             torch.cuda.synchronize()
-            for variant, out in outs:
-                err, scale = max_err(out, ref)
+            for variant, out, want in outs:
+                err, scale = max_err(out, want)
                 if dtype == torch.float64:
                     tol = TOL_F64 * max(1.0, scale)
                 else:
                     tol = TOL_F32_REL * scale
                 results.append({"kind": kind, "dtype": str(dtype)[6:],
                                 **dims, "B": Bn, "S": S, "max_abs_err": err,
-                                "ref_max_abs": scale, "tol": tol,
-                                **({"merge_f_kernel": variant}
-                                   if variant else {})})
+                                "ref_max_abs": scale, "tol": tol, **variant})
                 check(err <= tol, f"{kind} kernels disagree with their "
                                   f"plain versions: {results[-1]}")
     results += cholqr_vs_plain(dev) + eigh_vs_plain(dev)
@@ -469,21 +487,37 @@ def reset_counts():
     for w in _wrappers().values():
         w.launches = 0
     fs.merge_fscan.variant_launches.update(staged=0, cluster=0, base=0)
+    fs.merge_wscan.variant_launches.update(staged=0, base=0)
 
 
 def read_counts():
-    """Launches by kernel: merge F's wrapper counts its three kernels apart,
+    """Launches by kernel: the merge wrappers count their kernels apart,
     ``merge_f`` (``merge_f_kernel``), ``merge_f_staged`` and
-    ``merge_f_cluster``."""
+    ``merge_f_cluster``; ``merge_w`` (``merge_w_kernel``) and
+    ``merge_w_staged``."""
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     counts = {name: w.launches for name, w in _wrappers().items()}
-    by_kernel = fs.merge_fscan.variant_launches
-    check(sum(by_kernel.values()) == counts["merge_f"],
-          f"merge F launches {counts['merge_f']} != {by_kernel}")
-    counts.update(merge_f=by_kernel["base"],
-                  merge_f_staged=by_kernel["staged"],
-                  merge_f_cluster=by_kernel["cluster"])
+    by_f = fs.merge_fscan.variant_launches
+    by_w = fs.merge_wscan.variant_launches
+    check(sum(by_f.values()) == counts["merge_f"],
+          f"merge F launches {counts['merge_f']} != {by_f}")
+    check(sum(by_w.values()) == counts["merge_w"],
+          f"merge W launches {counts['merge_w']} != {by_w}")
+    counts.update(merge_f=by_f["base"], merge_f_staged=by_f["staged"],
+                  merge_f_cluster=by_f["cluster"], merge_w=by_w["base"],
+                  merge_w_staged=by_w["staged"])
     return counts
+
+
+def merge_w_wants(D):
+    """Merge W launches a sketch sweep at bond D: 3 on the kernel
+    ``merge_w_geometry`` picks for its merges, 0 on the other."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    md = merge_dims(D)
+    picked = fs.merge_w_geometry(*list(md.values())[:5], torch.float32)[0]
+    return {"merge_w": 3 * (picked == "base"),
+            "merge_w_staged": 3 * (picked == "staged")}
 
 
 def phase_accuracy():
@@ -562,7 +596,7 @@ def phase_main_d10():
     import torch
     import matrixproductbp_tpu_torch as tp
     bp0, bp1, res = timed_main_path(10, TIMED_SWEEPS_D10)
-    want = {"merge_w": 3, "merge_f": 0, "merge_f_staged": 3,
+    want = {**merge_w_wants(10), "merge_f": 0, "merge_f_staged": 3,
             "merge_f_cluster": 0, "mpem3_w": 2, "mpem3_f": 2, "cholqr": 0,
             "jacobi_eigh": 0}
     per_sweep = {k: v / TIMED_SWEEPS_D10 for k, v in res["launches"].items()}
@@ -579,8 +613,9 @@ def phase_main_d10():
 
 
 def phase_profile(bp, method="sketch"):
-    """One D=10 sweep under torch.profiler: device time by kernel name and
-    the device's busy share of the (profiled) wall time."""
+    """One sweep of the bench state ``bp`` (D=10, or D=20 for the sketch
+    path) under torch.profiler: device time by kernel name and the
+    device's busy share of the (profiled) wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import matrixproductbp_tpu_torch as tp
@@ -603,14 +638,15 @@ def phase_profile(bp, method="sketch"):
         hit = [(us, c) for us, c, k in rows if any(p in k for p in parts)]
         return sum(us for us, _ in hit) / 1e6, sum(c for _, c in hit)
 
-    ours_s, _ = named("merge_w_kernel<", "merge_f_kernel<",
+    ours_s, _ = named("merge_w_kernel<", "merge_w_staged_kernel(",
+                      "merge_f_kernel<",
                       "merge_f_staged_kernel(", "merge_f_cluster_kernel(",
                       "mpem3_w_kernel<", "mpem3_f_kernel<", "cholqr_kernel<",
                       "jacobi_eigh_kernel")
     svd_s, svd_n = named("jacobi_eigh_kernel", "gesvd", "syevj", "syevd")
     qr_s, qr_n = named("cholqr_kernel<", "geqrf", "orgqr", "ormqr",
                        "householder")
-    emit(f"profile_{method}_d10", wall_s=wall, device_busy_s=busy,
+    emit(f"profile_{method}_d{bp.D}", wall_s=wall, device_busy_s=busy,
          busy_share=busy / wall, hand_kernels_s=ours_s,
          svd_launches=svd_n, svd_device_s=svd_s, qr_launches=qr_n,
          qr_device_s=qr_s, kernels_named=len(rows),
@@ -620,17 +656,18 @@ def phase_profile(bp, method="sketch"):
 
 def phase_main_d20():
     """The D=20 sketch sweep: all 3 merge F launches a sweep take the
-    cluster kernel (the staged kernel's buffers do not fit)."""
-    res = timed_main_path(20, TIMED_SWEEPS_D20)[2]
+    cluster kernel (the staged kernel's buffers do not fit), all 3 merge W
+    launches the kernel merge_w_geometry picks."""
+    _, bp1, res = timed_main_path(20, TIMED_SWEEPS_D20)
     per_sweep = {k: v / TIMED_SWEEPS_D20 for k, v in res["launches"].items()}
-    want = {"merge_w": 3, "merge_f": 0, "merge_f_staged": 0,
+    want = {**merge_w_wants(20), "merge_f": 0, "merge_f_staged": 0,
             "merge_f_cluster": 3, "mpem3_w": 2, "mpem3_f": 2, "cholqr": 0,
             "jacobi_eigh": 0}
     res.update(launches_per_sweep=per_sweep)
     emit("main_d20", **res)
     check(per_sweep == want, f"D=20: launches per sweep {per_sweep}, want "
                              f"{want}")
-    return res["launches"]
+    return res["launches"], bp1
 
 
 def phase_main_randomized(D, sweeps):
@@ -641,9 +678,10 @@ def phase_main_randomized(D, sweeps):
     import matrixproductbp_tpu_torch as tp
     bp0, bp1, res = timed_main_path(D, sweeps, method="randomized")
     per_sweep = {k: v / sweeps for k, v in res["launches"].items()}
-    want = {"merge_w": 0, "merge_f": 0, "merge_f_staged": 0,
-            "merge_f_cluster": 0, "mpem3_w": 0, "mpem3_f": 0,
-            "cholqr": CHOLQR_PER_SWEEP, "jacobi_eigh": SVD_PER_SWEEP}
+    want = {"merge_w": 0, "merge_w_staged": 0, "merge_f": 0,
+            "merge_f_staged": 0, "merge_f_cluster": 0, "mpem3_w": 0,
+            "mpem3_f": 0, "cholqr": CHOLQR_PER_SWEEP,
+            "jacobi_eigh": SVD_PER_SWEEP}
     res.update(launches_per_sweep=per_sweep)
     if D == 10:
         with plain_linalg():
@@ -706,13 +744,26 @@ def time_cuda(fn, n):
     return a.elapsed_time(b) / n
 
 
-#: each merge F kernel's name in the ``kernels`` record, its source and the
-#: TPU body it stands for (the TPU ran the lean body at D=20)
+#: each merge kernel's name in the ``kernels`` record, its source and the
+#: TPU body it stands for (the TPU ran the lean merge F body at D=20)
 MERGE_F_ROWS = {
     "staged": ("merge_f_staged", "merge_f_staged.cu", ":281"),
     "cluster": ("merge_f_cluster", "merge_f_cluster.cu", ":382"),
     "base": ("merge_f", "stta_scans.cu", ":281"),
 }
+MERGE_W_ROWS = {
+    "staged": ("merge_w_staged", "merge_w_staged.cu", ":231"),
+    "base": ("merge_w", "stta_scans.cu", ":231"),
+}
+
+
+def in_turns(kernels, reps):
+    """{variant: [ms, ms]}: the kernels {variant: fn} timed in turns (a, b,
+    b, a) on the same inputs."""
+    turns = {v: [] for v in kernels}
+    for v in list(kernels) + list(kernels)[::-1]:
+        turns[v].append(time_cuda(kernels[v], reps))
+    return turns
 
 
 def phase_kernel_times(launches, D=10, reps=10):
@@ -721,7 +772,8 @@ def phase_kernel_times(launches, D=10, reps=10):
     launches, beside its bound and its plain version's time; ``launches``
     are those of the sketch sweep at that D.  ``merge_f_kernel`` and the
     merge F kernel the sweep takes (staged at D=10, cluster at D=20) run on
-    the same inputs, timed in turns (picked, base, base, picked)."""
+    the same inputs, timed in turns (picked, base, base, picked); so do
+    ``merge_w_kernel`` and the merge W kernel the sweep takes."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
@@ -734,11 +786,14 @@ def phase_kernel_times(launches, D=10, reps=10):
         seed=12)
     Ws = fs.merge_wscan(L1, B1, Th)
     WsM = fs.mpem3_wscan(Bm, Psi)
+    shape = tuple(md.values())
+    w_picked = fs.merge_w_geometry(*shape[:5], torch.float32)[0]
+    merge_w = {v: (lambda v=v: fs.merge_wscan(L1, B1, Th, _variant=v))
+               for v in dict.fromkeys((w_picked, "base"))}
     cases = [
-        ("merge_w", lambda: fs.merge_wscan(L1, B1, Th),
-         lambda: fs.merge_wscan_plain(L1, B1, Th),
-         work_merge_w(2 * BENCH_N, S, **md, esize=4), "stta_scans.cu",
-         ":231"),
+        (MERGE_W_ROWS[v][0], kern, lambda: fs.merge_wscan_plain(L1, B1, Th),
+         work_merge_w(2 * BENCH_N, S, **md, esize=4), MERGE_W_ROWS[v][1],
+         MERGE_W_ROWS[v][2]) for v, kern in merge_w.items()] + [
         ("mpem3_w", lambda: fs.mpem3_wscan(Bm, Psi),
          lambda: fs.mpem3_wscan_plain(Bm, Psi),
          work_mpem3_w(BENCH_N * BENCH_DEG, S, **pd, esize=4),
@@ -748,20 +803,19 @@ def phase_kernel_times(launches, D=10, reps=10):
          work_mpem3_f(BENCH_N * BENCH_DEG, S, **pd, esize=4),
          "stta_scans.cu", ":545"),
     ]
-    picked = fs.merge_f_geometry(*md.values(), torch.float32)[0]
+    picked = fs.merge_f_geometry(*shape, torch.float32)[0]
     merge_f = {v: (lambda v=v: fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S_init,
                                               _variant=v))
                for v in (picked, "base")}
-    turns = {v: [] for v in merge_f}
-    for v in (picked, "base", "base", picked):
-        turns[v].append(time_cuda(merge_f[v], reps))
-    turns = {MERGE_F_ROWS[v][0]: t for v, t in turns.items()}
-    cases[1:1] = [(MERGE_F_ROWS[v][0], kern,
-                   lambda: fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws,
-                                                S_init),
-                   work_merge_f(2 * BENCH_N, S, **md, esize=4),
-                   MERGE_F_ROWS[v][1], MERGE_F_ROWS[v][2])
-                  for v, kern in merge_f.items()]
+    turns = {MERGE_F_ROWS[v][0]: t
+             for v, t in in_turns(merge_f, reps).items()}
+    turns.update({MERGE_W_ROWS[v][0]: t
+                  for v, t in in_turns(merge_w, reps).items()})
+    cases[len(merge_w):len(merge_w)] = [
+        (MERGE_F_ROWS[v][0], kern,
+         lambda: fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init),
+         work_merge_f(2 * BENCH_N, S, **md, esize=4), MERGE_F_ROWS[v][1],
+         MERGE_F_ROWS[v][2]) for v, kern in merge_f.items()]
     rows = []
     for name, kern, plain, (flops, nbytes), src, line in cases:
         out, ref = kern(), plain()
@@ -852,7 +906,9 @@ def main():
     launches, bp_d10 = phase_main_d10()
     phase_profile(bp_d10)
     del bp_d10
-    launches_d20 = phase_main_d20()
+    launches_d20, bp_d20 = phase_main_d20()
+    phase_profile(bp_d20)
+    del bp_d20
     rlaunches, bp_r10 = phase_main_randomized(10, TIMED_RANDOMIZED_D10)
     phase_profile(bp_r10, method="randomized")
     del bp_r10
@@ -863,8 +919,13 @@ def main():
     # no main path takes any more, is timed in its phase lines alone)
     rows = [r for r in phase_kernel_times(launches) if r["launches"] > 0]
     rows += phase_linalg_kernel_times(rlaunches)
-    rows += [r for r in phase_kernel_times(launches_d20, D=20, reps=3)
-             if r["name"] == "merge_f_cluster"]
+    # at D=20, the merge kernels the D=20 sweep takes (a second merge W
+    # row, named apart from the D=10 one)
+    for r in phase_kernel_times(launches_d20, D=20, reps=3):
+        if r["name"] == "merge_f_cluster":
+            rows.append(r)
+        elif r["name"].startswith("merge_w") and r["launches"] > 0:
+            rows.append({**r, "name": r["name"] + "_d20"})
     phase_linalg_kernel_times(rlaunches, D=20, reps=3)
     emit("done", seconds=time.perf_counter() - t0)
     print(info["nvidia_smi"], flush=True)

@@ -64,9 +64,12 @@ _SIGNATURES = {
                             + [_I] * 8 + [_L, _P]),
         "merge_f_cluster_occupancy": [_L],
     },
+    "merge_w_staged": {
+        "merge_w_staged": [_P, _LP, _P, _LP, _P, _P] + [_I] * 7 + [_L, _P],
+    },
 }
 #: sources built once per shape, with their sizes as macros
-PER_SHAPE = ("merge_f_staged", "merge_f_cluster")
+PER_SHAPE = ("merge_f_staged", "merge_f_cluster", "merge_w_staged")
 #: sources built once, without macros
 SOURCES = tuple(n for n in _SIGNATURES if n not in PER_SHAPE)
 

@@ -6,9 +6,9 @@ Counterpart of ``matrixproductbp_tpu/ops/fused_stta.py``.  Each scan wrapper
 :func:`mpem3_fscan`) runs its plain PyTorch version (``ops/stta.py``,
 re-exported here as ``*_plain``) when its tensors lie on the CPU, and
 launches its CUDA kernel (``csrc/stta_scans.cu``, ``csrc/merge_f_staged.cu``,
-``csrc/merge_f_cluster.cu``) when they lie on a CUDA device; there is no
-fallback between the two.  ``<wrapper>.launches`` counts
-kernel launches.
+``csrc/merge_f_cluster.cu``, ``csrc/merge_w_staged.cu``) when they lie on a
+CUDA device; there is no fallback between the two.  ``<wrapper>.launches``
+counts kernel launches.
 
 The kernels replace, in order, ``_merge_wstep_kernel`` (``fused_stta.py:231``),
 ``_merge_fstep_kernel`` / ``_merge_fstep_kernel_lean`` (``:281``, ``:382``),
@@ -20,6 +20,10 @@ D=15); ``merge_f_cluster_kernel`` (``merge_f_cluster.cu``, built likewise: a
 cluster of two blocks per instance, which share the sketch rows through
 distributed shared memory) wherever its buffers fit (the f32 sketch merges
 from D=16 to D=20); and ``merge_f_kernel`` for the shapes neither takes.
+Merge W has two, picked in :func:`merge_w_geometry`:
+``merge_w_staged_kernel`` (``merge_w_staged.cu``, built once per shape) at
+the f32 sketch merges (Y = q = 2) where its buffers fit, all of which it
+ran faster than ``merge_w_kernel``, and ``merge_w_kernel`` for the rest.
 The TPU-only machinery around them (lane padding, instance chunking, the
 VMEM admission model) has no counterpart: one thread block (or one cluster)
 owns one instance, and the only admission rule is the 227 KB shared-memory
@@ -27,7 +31,9 @@ limit a block.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -40,7 +46,8 @@ __all__ = ["merge_stta_fused", "mpem3_stta_fused", "mpem3_stta_fused_tm",
            "merge_wscan", "merge_fscan", "mpem3_wscan", "mpem3_fscan",
            "merge_wscan_plain", "merge_fscan_plain", "mpem3_wscan_plain",
            "mpem3_fscan_plain", "merge_f_geometry", "merge_f_staged_macros",
-           "merge_f_cluster_macros", "build_merge_f", "SMEM_LIMIT"]
+           "merge_f_cluster_macros", "build_merge_f", "merge_w_geometry",
+           "merge_w_staged_macros", "build_merge_w", "SMEM_LIMIT"]
 
 #: dynamic shared memory a scan kernel's block may use: the card's limit
 #: less the kernels' static reduction scratch
@@ -210,6 +217,139 @@ def _cluster_library(macros, smem):
     return lib
 
 
+#: the staged merge W kernel's threads a block (``MW_NT``) by the blocks an
+#: SM holds (``MW_MINB``): 13 warps alone on an SM, fewer as more blocks
+#: share one, so that each thread may have 128 registers or more
+_MERGE_W_THREADS = {1: 416, 2: 256, 3: 160, 4: 128}
+
+
+def _smem_merge_w_staged(DL, DB, Y, q, sr, nc, esize):
+    """merge_w_staged_kernel's buffers (elements) with chunks of ``nc`` rows
+    n, each rounded up to 16 bytes: W (NP = nc x chunks rows); L_t, B_t and
+    Th_t (transposed) double-buffered; t1 and u of one chunk.  Rows are
+    padded against bank conflicts (t1's rows and x blocks and B_t's rows to
+    odd strides, W's and u's rows to even ones that are not multiples of 4
+    at the sketch merges, L_t's rows to 4 mod 8 words, for its 16-byte
+    loads)."""
+    P, v16 = Y * q, 16 // esize
+    NP = -(-DL // nc) * nc
+
+    def pad(n):
+        return -(-n // v16) * v16
+    wn = ((DB * sr) | 1) + 1
+    return (pad(NP * wn) + 2 * pad(DL * ((-(-NP * P // 4) * 4) | 4))
+            + 2 * pad(DB * ((DB * P) | 1)) + 2 * pad(q * Y * sr * Y * sr)
+            + pad(q * ((nc * DB * ((Y * sr) | 1)) | 1)) + pad(nc * P * wn))
+
+
+def _merge_w_chunk(DL, DB, Y, q, sr, esize):
+    """The rows n a chunk of the staged merge W kernel takes: the fewest
+    chunks whose buffers fit in ``SMEM_LIMIT``, or None."""
+    for chunks in range(1, DL + 1):
+        nc = -(-DL // chunks)
+        if (_smem_merge_w_staged(DL, DB, Y, q, sr, nc, esize) * esize
+                <= SMEM_LIMIT):
+            return nc
+    return None
+
+
+def _pick_tile(rows, cols, batches, threads, most, one_round=False):
+    """(TM, TN) register tile of one product ([rows x cols] per batch): the
+    least instructions a thread issues per K step (rounds of tasks times
+    FMAs and loads), at most ``most`` outputs; ``one_round`` asks for one
+    tile a thread at most.  A warp's lanes take neighbouring column tiles,
+    so the loads of a column operand row are charged the bank conflict of
+    up to 32 tiles TN words apart.  None if nothing fits."""
+    best = None
+    for tm in range(1, min(rows, 8) + 1):
+        for tn in range(1, min(cols, 10) + 1):
+            if tm * tn > most:
+                continue
+            tasks = -(-rows // tm) * -(-cols // tn) * batches
+            if one_round and tasks > threads:
+                continue
+            banks = collections.Counter(
+                tn * j % 32 for j in range(min(-(-cols // tn), 32)))
+            conflict = max(banks.values())
+            cost = -(-tasks // threads) * (tm * tn + tm + tn * conflict)
+            if best is None or (cost, -tm * tn) < best[0]:
+                best = ((cost, -tm * tn), (tm, tn))
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _merge_w_staged_plan(DL, DB, Y, q, sr, esize):
+    """(nc, blocks an SM, threads, (AM, AN, BM, BN, CM, CN), smem elements)
+    of the staged merge W kernel, or None where it does not fit: t1's
+    tiles over [DB x sr] per (n, v, x), u's over [DB x Y*sr] per (x, n),
+    W2's over [DL x DB*sr] with one tile a thread (it stays in registers);
+    up to 40 outputs a tile in f32 (20 for W2), half that in f64."""
+    nc = _merge_w_chunk(DL, DB, Y, q, sr, esize)
+    if nc is None:
+        return None
+    smem = _smem_merge_w_staged(DL, DB, Y, q, sr, nc, esize)
+    blocks = min(4, _SMEM_PER_SM // (smem * esize + _SMEM_RESERVED))
+    threads = _MERGE_W_THREADS[blocks]
+    most = 40 if esize == 4 else 20
+    a = _pick_tile(DB, sr, nc * Y * q, threads, most)
+    b = _pick_tile(DB, Y * sr, q * nc, threads, most)
+    c = _pick_tile(DL, DB * sr, 1, threads, most // 2, one_round=True)
+    if c is None:
+        return None
+    return nc, blocks, threads, a + b + c, smem
+
+
+def merge_w_geometry(DL, DB, Y, q, sr, dtype, variant=None):
+    """(variant, threads a block, shared-memory bytes a block) of the merge W
+    kernel for one shape: ``"staged"`` (``merge_w_staged_kernel``) at the
+    f32 sketch merges (Y = q = 2) where its buffers fit, the shapes where
+    ``tools/probe_merge_w.py`` timed it faster than ``merge_w_kernel``;
+    else ``"base"`` (``merge_w_kernel``: f64, Y=3 and the other shapes).
+    ``variant`` forces one of the two.  Raises ``ValueError`` where none
+    fits (or the forced one does not)."""
+    esize = 4 if dtype == torch.float32 else 8
+    timed = esize == 4 and (Y, q) == (2, 2)
+    names = (("staged", "base") if timed else ("base",)) \
+        if variant is None else (variant,)
+    for name in names:
+        if name == "staged":
+            plan = _merge_w_staged_plan(DL, DB, Y, q, sr, esize)
+            if plan is not None:
+                return name, plan[2], plan[4] * esize
+            nbytes = _smem_merge_w_staged(DL, DB, Y, q, sr, 1, esize) * esize
+        else:
+            nbytes = _smem_merge_w(DL, DB, Y, q, sr) * esize
+            if nbytes <= SMEM_LIMIT:
+                return name, _merge_threads(nbytes), nbytes
+    raise ValueError(f"merge W scan: needs {nbytes} bytes of shared memory "
+                     f"per block, over the {SMEM_LIMIT}-byte limit")
+
+
+def merge_w_staged_macros(DL, DB, Y, q, sr, dtype):
+    """The macros ``merge_w_staged.cu`` is built with for one shape: its
+    sizes, its element type, the chunk of rows n (``MW_NC``), the threads
+    (``MW_NT``), the blocks whose shared memory fits on one SM (``MW_MINB``,
+    at most 4; the register budget) and the three products' register
+    tiles.  Raises ``ValueError`` where its buffers do not fit."""
+    esize = 4 if dtype == torch.float32 else 8
+    plan = _merge_w_staged_plan(DL, DB, Y, q, sr, esize)
+    if plan is None:
+        merge_w_geometry(DL, DB, Y, q, sr, dtype, "staged")   # raises
+    nc, blocks, threads, tiles, _ = plan
+    return ((f"MW_T={'float' if esize == 4 else 'double'}", f"MW_DL={DL}",
+             f"MW_DB={DB}", f"MW_Y={Y}", f"MW_Q={q}", f"MW_SR={sr}",
+             f"MW_NC={nc}", f"MW_NT={threads}", f"MW_MINB={blocks}")
+            + tuple(f"MW_{k}={v}" for k, v in zip(
+                ("AM", "AN", "BM", "BN", "CM", "CN"), tiles)))
+
+
+def build_merge_w(shapes):
+    """Build, all at once, the staged merge W libraries of the shapes
+    ``(DL, DB, Y, q, sr, dtype)``."""
+    build.build_all([("merge_w_staged", merge_w_staged_macros(*shape))
+                     for shape in shapes])
+
+
 def _smem_mpem3_w(Db, qi, qj, sr):
     return (2 * Db * qi * sr + Db * Db * qi * qj * qi + sr * sr * qi * qj
             + Db * qi * qj * sr)
@@ -271,9 +411,11 @@ def _raise_on(rc, what):
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
 
 
-def merge_wscan(L1, B1, Th):
+def merge_wscan(L1, B1, Th, _variant=None):
     """Reverse merge scan; arguments and result as
-    :func:`merge_wscan_plain`.  L1/B1 may be strided views."""
+    :func:`merge_wscan_plain`.  L1/B1 may be strided views.  On the card it
+    launches the kernel :func:`merge_w_geometry` picks (``_variant`` forces
+    one, for tests)."""
     if _on_cpu(L1, B1, Th):
         return merge_wscan_plain(L1, B1, Th)
     code = _dtype_code(L1, B1, Th)
@@ -282,17 +424,23 @@ def merge_wscan(L1, B1, Th):
     _check_shape("B1", B1, (Bn, S, DB, DB, Y, q))
     _check_shape("Th", Th, (S, sr, sr, Y, Y, q))
     _check_contiguous(Th=Th)
-    smem = _smem_bytes(_smem_merge_w(DL, DB, Y, q, sr), L1.dtype,
-                       "merge W scan")
+    variant, threads, smem = merge_w_geometry(DL, DB, Y, q, sr, L1.dtype,
+                                              _variant)
     Ws = L1.new_empty((Bn, S, DL, DB, sr))
     if Bn == 0 or S == 0:
         return Ws
-    rc = build.library("stta_scans").stta_merge_w(
-        code, L1.data_ptr(), _strides(L1), B1.data_ptr(), _strides(B1),
-        Th.data_ptr(), Ws.data_ptr(), Bn, S, DL, DB, Y, q, sr,
-        _merge_threads(smem), smem, _stream(L1))
+    args = (L1.data_ptr(), _strides(L1), B1.data_ptr(), _strides(B1),
+            Th.data_ptr(), Ws.data_ptr(), Bn, S, DL, DB, Y, q, sr)
+    if variant == "staged":
+        lib = build.library("merge_w_staged", merge_w_staged_macros(
+            DL, DB, Y, q, sr, L1.dtype))
+        rc = lib.merge_w_staged(*args, smem, _stream(L1))
+    else:
+        rc = build.library("stta_scans").stta_merge_w(
+            code, *args, threads, smem, _stream(L1))
     _raise_on(rc, "merge W scan")
     merge_wscan.launches += 1
+    merge_wscan.variant_launches[variant] += 1
     return Ws
 
 
@@ -393,6 +541,8 @@ for _w in (merge_wscan, merge_fscan, mpem3_wscan, mpem3_fscan):
 #: merge F launches by kernel: "staged", "cluster" and "base" (see
 #: merge_f_geometry)
 merge_fscan.variant_launches = {"staged": 0, "cluster": 0, "base": 0}
+#: merge W launches by kernel: "staged" and "base" (see merge_w_geometry)
+merge_wscan.variant_launches = {"staged": 0, "base": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -111,11 +111,12 @@ def _body(text, kernel):
     return m.start(), len(text) if end < 0 else end
 
 
-def variant_sources(texts):
-    """{variant: source} from {kernel: the source that holds it}; raises if
-    a line to replace is not in its kernel's body exactly once."""
+def variant_sources(texts, variants=None):
+    """{variant: source} from {kernel: the source that holds it}, for
+    ``variants`` (``VARIANTS`` unless given); raises if a line to replace
+    is not in its kernel's body exactly once."""
     out = {}
-    for name, (kernel, edits) in VARIANTS.items():
+    for name, (kernel, edits) in (variants or VARIANTS).items():
         text = texts[kernel]
         a, b = _body(text, kernel)
         body = text[a:b]

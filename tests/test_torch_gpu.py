@@ -3,7 +3,9 @@
 f32 at the bench shape and, for the staged merge F kernel, at the sketch
 merges of D = 4 to 15 (one to three blocks an SM), for the cluster one at
 D = 16, 17 (odd sl), 20 and one DL != DB, 1e-4 of the plain output's
-max-abs; D=20 takes the cluster merge F kernel), the CholQR kernel (f64 1e-10; f32 at the D=10 and D=20
+max-abs; D=20 takes the cluster merge F kernel; both merge W kernels at
+the f64 edge shapes and at the f32 sketch merges of D = 4, 10, 16, 20 and
+20 x 16), the CholQR kernel (f64 1e-10; f32 at the D=10 and D=20
 sketch shapes, 1e-5 of max-abs: both factor in f64 and round once) and the
 Jacobi eigen kernel (f64, 1e-10 relative in eigenvalues and in the
 reconstruction, V orthonormal to 1e-10; Gaussian, degenerate, zero and
@@ -185,6 +187,73 @@ def test_merge_f_d20_takes_the_cluster_kernel(cuda):
                                cuda), 1e-4)
     assert fs.merge_fscan.variant_launches == {
         **before, "cluster": before["cluster"] + 1}
+
+
+# merge W in f64 (1e-10): the two small shapes, S=1 (the one-hot W_{T1}
+# only), S=2, ragged DL != DB both ways, Y=3, q=1 and the D=10 shape --
+# each through both merge W kernels
+MERGE_W64 = [(dict(DL=4, DB=3, Y=2, q=2, sr=5), 4),
+             (dict(DL=3, DB=3, Y=3, q=2, sr=4), 4),
+             (dict(DL=4, DB=3, Y=2, q=2, sr=5), 1),
+             (dict(DL=4, DB=3, Y=2, q=2, sr=5), 2),
+             (dict(DL=3, DB=5, Y=2, q=2, sr=7), 3),
+             (dict(DL=5, DB=2, Y=2, q=2, sr=6), 3),
+             (dict(DL=4, DB=4, Y=2, q=1, sr=5), 3),
+             (dict(DL=10, DB=10, Y=2, q=2, sr=10), 3)]
+# merge W in f32 (1e-4 of max-abs): the sketch merges at D = 4, 10, 16, 20
+# (one chunk of rows n up to D=17, two at D=20) and 20 x 16
+MERGE_W32 = [dict(DL=D, DB=D, Y=2, q=2, sr=D) for D in (4, 10, 16, 20)] + [
+    dict(DL=20, DB=16, Y=2, q=2, sr=20)]
+
+
+@pytest.fixture(scope="module")
+def merge_w_builds():
+    """The staged merge W kernel at every shape below, built at once."""
+    if torch.cuda.is_available():
+        fs.build_merge_w([(*d.values(), torch.float64) for d, _ in MERGE_W64]
+                         + [(*d.values(), torch.float32) for d in MERGE_W32])
+
+
+def _merge_w_case(Bn, S, DL, DB, Y, q, sr, dtype, dev, variant):
+    """(kernel Ws, plain Ws) on L1/B1 strided views; checks that exactly
+    ``variant``'s launch was counted."""
+    g = torch.Generator().manual_seed(4)
+    L = _randn(g, Bn, S + 1, DL, DL, Y, q).to(dev, dtype)
+    B = _randn(g, Bn, S + 1, DB, DB, Y, q).to(dev, dtype)
+    Th = _randn(g, S, sr, sr, Y, Y, q).to(dev, dtype)
+    before = dict(fs.merge_wscan.variant_launches)
+    Ws = fs.merge_wscan(L[:, 1:], B[:, 1:], Th, _variant=variant)
+    assert fs.merge_wscan.variant_launches == {
+        **before, variant: before[variant] + 1}
+    return [Ws], [fs.merge_wscan_plain(L[:, 1:], B[:, 1:], Th)]
+
+
+@pytest.mark.parametrize("variant", ["staged", "base"])
+@pytest.mark.parametrize("dims,S", MERGE_W64)
+def test_merge_w_kernels_f64(cuda, merge_w_builds, dims, S, variant):
+    _assert_close(*_merge_w_case(7, S, **dims, dtype=torch.float64,
+                                 dev=cuda, variant=variant), None)
+
+
+@pytest.mark.parametrize("variant", ["staged", "base"])
+@pytest.mark.parametrize("dims", MERGE_W32,
+                         ids=lambda d: f"{d['DL']}x{d['DB']}")
+def test_merge_w_kernels_f32_sketch_shapes(cuda, merge_w_builds, dims,
+                                           variant):
+    _assert_close(*_merge_w_case(32, 15, **dims, dtype=torch.float32,
+                                 dev=cuda, variant=variant), 1e-4)
+
+
+def test_merge_w_staged_refuses_another_shape(cuda, merge_w_builds):
+    """A staged merge W library is built for one shape; its launcher
+    refuses any other (cudaErrorInvalidValue) and launches nothing."""
+    from matrixproductbp_tpu_torch.ops import build
+    lib = build.library("merge_w_staged", fs.merge_w_staged_macros(
+        20, 20, 2, 2, 20, torch.float32))
+    strides = fs._strides(torch.empty(1, 1, 8, 8, 2, 2))
+    rc = lib.merge_w_staged(0, strides, 0, strides, 0, 0, 1, 1, 8, 8, 2, 2,
+                            8, 1024, 0)
+    assert rc == 1
 
 
 @pytest.mark.parametrize("dims", [dict(Db=4, qi=2, qj=2, sr=5, sl=8),
