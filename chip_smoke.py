@@ -7,9 +7,10 @@ Builds the port's CUDA kernels from the checkout (one ``nvcc`` per source,
 all at once), holds each against its plain PyTorch version on the card,
 drives the main paths (SIS on a random 3-regular graph, N=4096, T=15, f32:
 ``bp_sweep(method="sketch")`` and ``bp_sweep(method="randomized")`` at D=10
-and D=20; a 4-node tree against enumeration, with ``iterate(polish=2)``;
-the karate-club graph with two ``qr`` polish sweeps), checks the results,
-and times each kernel beside its bound.  Each path runs with the launch
+and D=20; the same at N=128 and D=20, one randomized sweep against its
+plain version; a 4-node tree against enumeration, with
+``iterate(polish=2)``; the karate-club graph with two ``qr`` polish
+sweeps), checks the results, and times each kernel beside its bound.  Each path runs with the launch
 counts set to 0 just before it and read just after.  One JSON line per
 phase; any failed phase raises.
 The second-to-last line is the ``kernels`` record, the line before it the
@@ -37,6 +38,9 @@ FP64_FLOP_PER_S = 67e12
 BENCH_N, BENCH_DEG, BENCH_T = 4096, 3, 15
 TIMED_SWEEPS_D10, TIMED_SWEEPS_D20 = 3, 2
 TIMED_RANDOMIZED_D10, TIMED_RANDOMIZED_D20 = 2, 1
+# the D=20 randomized sweep held to its plain version (the plain Jacobi
+# runs one matrix per launch at k=40, ~7 min at N=4096)
+CHECK_N_D20 = 128
 KARATE_ITERS, POLISH_SWEEPS = 20, 2
 # one randomized sweep at the bench shape: 3 merge calls (one bucket, K=3,
 # the direct all-pairs cavity), each with one CholQR per time step 0..T-1
@@ -264,15 +268,23 @@ def phase_device():
     return info
 
 
-def merge_builds():
-    """The per-shape merge kernels' builds this script runs, one per
-    (kernel, shape): the staged and the cluster merge F kernel and the
-    staged merge W kernel at the D=10 sketch merge in f32 (the main path,
-    the accuracy tree and karate take the staged ones), the cluster merge F
-    and the staged merge W kernel at the D=20 one (the D=20 sweep), and all
-    three at phase_kernels' f64 merges."""
+def cholqr_shapes():
+    """The randomized merge's CholQR shapes [4s, s], s = 2D, at D=10 and
+    D=20: the only ones the randomized sweeps here launch."""
+    return [(8 * D, 2 * D) for D in (10, 20)]
+
+
+def per_shape_builds():
+    """The per-shape kernels' builds this script runs, one per (kernel,
+    shape): the staged and the cluster merge F kernel and the staged merge
+    W kernel at the D=10 sketch merge in f32 (the main path, the accuracy
+    tree and karate take the staged ones), the cluster merge F and the
+    staged merge W kernel at the D=20 one (the D=20 sweep), all three at
+    phase_kernels' f64 merges, and the staged CholQR kernel at
+    ``cholqr_shapes``."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    from matrixproductbp_tpu_torch.ops import kernels
     shapes = [(*merge_dims(10).values(), torch.float32),
               (*merge_dims(20).values(), torch.float32),
               (4, 3, 2, 2, 5, 9, torch.float64),
@@ -283,15 +295,16 @@ def merge_builds():
         out += [fs._merge_f_target(v, d) for v in merge_f_variants(dims, d[6])
                 if v != "base"]
         out.append(("merge_w_staged", fs.merge_w_staged_macros(*d[:5], d[6])))
-    return out
+    return out + [("cholqr_staged", kernels.cholqr_staged_macros(m, n))
+                  for m, n in cholqr_shapes()]
 
 
 def phase_build():
-    """Every source, and the staged and cluster merge F kernels and the
-    staged merge W kernel at each shape the script runs, one nvcc each, all
-    started together."""
+    """Every source, and the staged and cluster merge F kernels, the staged
+    merge W kernel and the staged CholQR kernel at each shape the script
+    runs, one nvcc each, all started together."""
     from matrixproductbp_tpu_torch.ops import build
-    targets = list(build.SOURCES) + merge_builds()
+    targets = list(build.SOURCES) + per_shape_builds()
     t0 = time.perf_counter()
     build.build_all(targets)
     seconds = time.perf_counter() - t0
@@ -362,10 +375,20 @@ def phase_kernels():
     emit("kernels_vs_plain", cases=results)
 
 
+def cholqr_variants(shape, dtype):
+    """The CholQR kernels whose buffers fit this shape: staged and base at
+    the f32 sketch shapes (``cholqr_geometry`` picks staged), base in
+    f64."""
+    from matrixproductbp_tpu_torch.ops import kernels
+    return _fitting(kernels.cholqr_geometry, shape, dtype, ("staged", "base"))
+
+
 def cholqr_vs_plain(dev):
-    """CholQR kernel against its plain version: f64 at small shapes, f32 at
-    the D=10 and D=20 sketch shapes ([s*Y*q, s] = [80, 20], [160, 40]) and
-    the bench batch, on Gaussian A; Q^T Q against I and Q R against A."""
+    """The CholQR kernels against their plain version: f64 at small shapes
+    (``cholqr_kernel``), f32 at the D=10 and D=20 sketch shapes ([s*Y*q, s]
+    = [80, 20], [160, 40]) and the bench batch through both kernels, every
+    third instance rank 1 (the sweeps' early steps); Q finite, and on the
+    Gaussian instances Q^T Q against I and Q R against A."""
     import torch
     from matrixproductbp_tpu_torch.ops import kernels
     from matrixproductbp_tpu_torch.ops.smallalg import cholqr_unrolled
@@ -375,29 +398,36 @@ def cholqr_vs_plain(dev):
                          (torch.float64, (5, 80, 20)),
                          (torch.float32, (2 * BENCH_N, 80, 20)),
                          (torch.float32, (2 * BENCH_N, 160, 40))):
-        A = torch.randn(shape, generator=g, dtype=torch.float64) \
-            .to(dev, dtype)
-        Q, R = kernels.cholqr(A)
+        A = torch.randn(shape, generator=g, dtype=torch.float64)
+        A[::3] = A[::3, :, :1] * A[::3, :1, :]
+        A = A.to(dev, dtype)
         Qp, Rp = cholqr_unrolled(A)
-        torch.cuda.synchronize()
-        err, scale = max_err((Q, R), (Qp, Rp))
-        n = shape[-1]
-        Qd = Q.double()
-        orth = float((Qd.transpose(1, 2) @ Qd - torch.eye(
-            n, dtype=torch.float64, device=dev)).abs().max())
-        recon = float((Qd @ R.double() - A.double()).abs().max()
-                      / A.abs().max())
-        f64 = dtype == torch.float64
-        tol = TOL_F64 * max(1.0, scale) if f64 else TOL_F32_CHOLQR_REL * scale
-        rows.append({"kind": "cholqr", "dtype": str(dtype)[6:],
-                     "shape": list(shape), "max_abs_err": err,
-                     "ref_max_abs": scale, "tol": tol, "orth_err": orth,
-                     "recon_rel_err": recon})
-        check(err <= tol, f"CholQR kernel vs plain: {rows[-1]}")
-        check(orth <= (1e-8 if f64 else TOL_F32_ORTH),
-              f"CholQR Q not orthonormal: {rows[-1]}")
-        check(recon <= (1e-12 if f64 else 1e-5),
-              f"CholQR Q R != A: {rows[-1]}")
+        gauss = torch.arange(shape[0], device=dev) % 3 != 0
+        for variant in cholqr_variants(shape[1:], dtype):
+            Q, R = kernels.cholqr(A, _variant=variant)
+            torch.cuda.synchronize()
+            err, scale = max_err((Q, R), (Qp, Rp))
+            n = shape[-1]
+            Qd = Q[gauss].double()
+            orth = float((Qd.transpose(1, 2) @ Qd - torch.eye(
+                n, dtype=torch.float64, device=dev)).abs().max())
+            recon = float((Qd @ R[gauss].double() - A[gauss].double())
+                          .abs().max() / A[gauss].abs().max())
+            f64 = dtype == torch.float64
+            tol = (TOL_F64 * max(1.0, scale) if f64
+                   else TOL_F32_CHOLQR_REL * scale)
+            rows.append({"kind": "cholqr", "cholqr_kernel": variant,
+                         "dtype": str(dtype)[6:], "shape": list(shape),
+                         "rank1_every": 3, "max_abs_err": err,
+                         "ref_max_abs": scale, "tol": tol, "orth_err": orth,
+                         "recon_rel_err": recon,
+                         "finite": bool(torch.isfinite(Q).all())})
+            check(err <= tol, f"CholQR kernel vs plain: {rows[-1]}")
+            check(rows[-1]["finite"], f"CholQR Q not finite: {rows[-1]}")
+            check(orth <= (1e-8 if f64 else TOL_F32_ORTH),
+                  f"CholQR Q not orthonormal: {rows[-1]}")
+            check(recon <= (1e-12 if f64 else 1e-5),
+                  f"CholQR Q R != A: {rows[-1]}")
     return rows
 
 
@@ -466,7 +496,8 @@ def plain_linalg():
     from matrixproductbp_tpu_torch.ops.smallalg import cholqr_unrolled
     saved = kernels.batched_cholqr, smallsvd.eigh_desc
     try:
-        kernels.batched_cholqr = cholqr_unrolled
+        kernels.batched_cholqr = (
+            lambda A, eps, _variant=None: cholqr_unrolled(A, eps))
         smallsvd.eigh_desc = smallsvd.eigh_desc_plain
         yield
     finally:
@@ -488,24 +519,32 @@ def reset_counts():
         w.launches = 0
     fs.merge_fscan.variant_launches.update(staged=0, cluster=0, base=0)
     fs.merge_wscan.variant_launches.update(staged=0, base=0)
+    from matrixproductbp_tpu_torch.ops import kernels
+    kernels.batched_cholqr.variant_launches.update(staged=0, base=0)
 
 
 def read_counts():
     """Launches by kernel: the merge wrappers count their kernels apart,
     ``merge_f`` (``merge_f_kernel``), ``merge_f_staged`` and
     ``merge_f_cluster``; ``merge_w`` (``merge_w_kernel``) and
-    ``merge_w_staged``."""
+    ``merge_w_staged``; the CholQR wrapper likewise, ``cholqr``
+    (``cholqr_kernel``) and ``cholqr_staged``."""
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    from matrixproductbp_tpu_torch.ops import kernels
     counts = {name: w.launches for name, w in _wrappers().items()}
     by_f = fs.merge_fscan.variant_launches
     by_w = fs.merge_wscan.variant_launches
+    by_q = kernels.batched_cholqr.variant_launches
+    check(sum(by_q.values()) == counts["cholqr"],
+          f"CholQR launches {counts['cholqr']} != {by_q}")
     check(sum(by_f.values()) == counts["merge_f"],
           f"merge F launches {counts['merge_f']} != {by_f}")
     check(sum(by_w.values()) == counts["merge_w"],
           f"merge W launches {counts['merge_w']} != {by_w}")
     counts.update(merge_f=by_f["base"], merge_f_staged=by_f["staged"],
                   merge_f_cluster=by_f["cluster"], merge_w=by_w["base"],
-                  merge_w_staged=by_w["staged"])
+                  merge_w_staged=by_w["staged"], cholqr=by_q["base"],
+                  cholqr_staged=by_q["staged"])
     return counts
 
 
@@ -555,10 +594,10 @@ def phase_accuracy():
           f"polished or randomized beliefs off the oracle: {errs}")
 
 
-def bench_state(D, dtype):
+def bench_state(D, dtype, N=BENCH_N):
     import matrixproductbp_tpu_torch as tp
     from matrixproductbp_tpu_torch.models import SIS, mpbp_sis
-    g = tp.random_regular_graph(BENCH_N, BENCH_DEG, np.random.default_rng(0))
+    g = tp.random_regular_graph(N, BENCH_DEG, np.random.default_rng(0))
     sis = SIS(g, lam=0.2, rho=0.1, T=BENCH_T, gamma=0.3)
     return mpbp_sis(sis, D=D, dtype=dtype, device="cuda")
 
@@ -598,7 +637,7 @@ def phase_main_d10():
     bp0, bp1, res = timed_main_path(10, TIMED_SWEEPS_D10)
     want = {**merge_w_wants(10), "merge_f": 0, "merge_f_staged": 3,
             "merge_f_cluster": 0, "mpem3_w": 2, "mpem3_f": 2, "cholqr": 0,
-            "jacobi_eigh": 0}
+            "cholqr_staged": 0, "jacobi_eigh": 0}
     per_sweep = {k: v / TIMED_SWEEPS_D10 for k, v in res["launches"].items()}
     check(per_sweep == want, f"launches per sweep {per_sweep}, want {want}")
     with plain_scans():
@@ -642,10 +681,10 @@ def phase_profile(bp, method="sketch"):
                       "merge_f_kernel<",
                       "merge_f_staged_kernel(", "merge_f_cluster_kernel(",
                       "mpem3_w_kernel<", "mpem3_f_kernel<", "cholqr_kernel<",
-                      "jacobi_eigh_kernel")
+                      "cholqr_staged_kernel(", "jacobi_eigh_kernel")
     svd_s, svd_n = named("jacobi_eigh_kernel", "gesvd", "syevj", "syevd")
-    qr_s, qr_n = named("cholqr_kernel<", "geqrf", "orgqr", "ormqr",
-                       "householder")
+    qr_s, qr_n = named("cholqr_kernel<", "cholqr_staged_kernel(", "geqrf",
+                       "orgqr", "ormqr", "householder")
     emit(f"profile_{method}_d{bp.D}", wall_s=wall, device_busy_s=busy,
          busy_share=busy / wall, hand_kernels_s=ours_s,
          svd_launches=svd_n, svd_device_s=svd_s, qr_launches=qr_n,
@@ -662,7 +701,7 @@ def phase_main_d20():
     per_sweep = {k: v / TIMED_SWEEPS_D20 for k, v in res["launches"].items()}
     want = {**merge_w_wants(20), "merge_f": 0, "merge_f_staged": 0,
             "merge_f_cluster": 3, "mpem3_w": 2, "mpem3_f": 2, "cholqr": 0,
-            "jacobi_eigh": 0}
+            "cholqr_staged": 0, "jacobi_eigh": 0}
     res.update(launches_per_sweep=per_sweep)
     emit("main_d20", **res)
     check(per_sweep == want, f"D=20: launches per sweep {per_sweep}, want "
@@ -672,15 +711,16 @@ def phase_main_d20():
 
 def phase_main_randomized(D, sweeps):
     """The randomized path at the bench shape: exact CholQR and SVD launch
-    counts per sweep, finite beliefs; at D=10 also one sweep through the
-    kernels against the same sweep through their plain versions."""
+    counts per sweep (every CholQR on the staged kernel), finite beliefs;
+    at D=10 also one sweep through the kernels against the same sweep
+    through their plain versions."""
     import torch
     import matrixproductbp_tpu_torch as tp
     bp0, bp1, res = timed_main_path(D, sweeps, method="randomized")
     per_sweep = {k: v / sweeps for k, v in res["launches"].items()}
     want = {"merge_w": 0, "merge_w_staged": 0, "merge_f": 0,
             "merge_f_staged": 0, "merge_f_cluster": 0, "mpem3_w": 0,
-            "mpem3_f": 0, "cholqr": CHOLQR_PER_SWEEP,
+            "mpem3_f": 0, "cholqr": 0, "cholqr_staged": CHOLQR_PER_SWEEP,
             "jacobi_eigh": SVD_PER_SWEEP}
     res.update(launches_per_sweep=per_sweep)
     if D == 10:
@@ -697,6 +737,44 @@ def phase_main_randomized(D, sweeps):
         check(res["one_sweep_belief_diff_vs_plain"] <= TOL_SWEEP_BELIEFS,
               f"randomized kernel sweep vs plain sweep: {res}")
     return res["launches"], bp1
+
+
+def phase_randomized_vs_plain_d20():
+    """One randomized D=20 sweep of SIS on ``random_regular_graph(128, 3)``
+    (T=15, f32) through the kernels against the same sweep through the
+    plain CholQR and Jacobi (``plain_linalg``), beliefs within
+    ``TOL_SWEEP_BELIEFS``; its launches: 45 on the staged CholQR kernel,
+    105 Jacobi batches."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    bp0 = bench_state(20, torch.float32, N=CHECK_N_D20)
+    trunc = tp.TruncBond(20)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    bp1 = tp.bp_sweep(bp0, trunc, method="randomized")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    t0 = time.perf_counter()
+    with plain_linalg():
+        bp1p = tp.bp_sweep(bp0, trunc, method="randomized")
+    torch.cuda.synchronize()
+    plain_seconds = time.perf_counter() - t0
+    b, bpl = tp.beliefs(bp1), tp.beliefs(bp1p)
+    diff = float((b - bpl).abs().max())
+    want = {"cholqr": 0, "cholqr_staged": CHOLQR_PER_SWEEP,
+            "jacobi_eigh": SVD_PER_SWEEP}
+    emit("randomized_vs_plain_d20", N=CHECK_N_D20, D=20, T=BENCH_T,
+         seconds=seconds, plain_seconds=plain_seconds,
+         one_sweep_belief_diff_vs_plain=diff, tol=TOL_SWEEP_BELIEFS,
+         launches={k: counts[k] for k in want})
+    check(bool(torch.isfinite(b).all()), "randomized D=20 check: beliefs "
+                                         "not finite")
+    check({k: counts[k] for k in want} == want,
+          f"randomized D=20 check: launches {counts}, want {want}")
+    check(diff <= TOL_SWEEP_BELIEFS,
+          f"randomized D=20 kernel sweep vs plain sweep: {diff}")
 
 
 def phase_karate():
@@ -846,7 +924,12 @@ def phase_linalg_kernel_times(launches, D=10, reps=10):
     k], k = 2D, the Gram of a Gaussian [2k, k] half of them rank-deficient),
     CUDA events over ``reps`` launches, beside the bound, the plain
     version's time and one PyTorch call's (torch.linalg.qr: the same thin QR
-    up to column signs; torch.linalg.eigh: the same eigendecomposition)."""
+    up to column signs; torch.linalg.eigh: the same eigendecomposition).
+    The staged CholQR kernel (the sweep's) and ``cholqr_kernel`` are timed
+    in turns on the same inputs (staged, base, base, staged), and beside
+    them the composed library route ``kernels.cholqr_reference`` (several
+    calls: a batched GEMM, ``torch.linalg.cholesky`` and
+    ``solve_triangular``)."""
     import torch
     from matrixproductbp_tpu_torch.ops import kernels, smallsvd
     from matrixproductbp_tpu_torch.ops.smallalg import cholqr_unrolled
@@ -856,14 +939,23 @@ def phase_linalg_kernel_times(launches, D=10, reps=10):
     A = torch.randn((2 * BENCH_N, 4 * s, s), generator=g).to(dev)
     Bm = BENCH_N * BENCH_DEG
     G = gram_inputs(Bm, s, dev, 14)
+    cq = {v: (lambda v=v: kernels.cholqr(A, _variant=v))
+          for v in ("staged", "base")}
+    turns = in_turns(cq, reps)
     rows = []
     cases = [
-        ("cholqr", lambda: kernels.cholqr(A), lambda: cholqr_unrolled(A),
+        ("cholqr_staged", cq["staged"], lambda: cholqr_unrolled(A),
          lambda: torch.linalg.qr(A),
          bound_ms(*work_cholqr(2 * BENCH_N, 4 * s, s, 4), FP64_FLOP_PER_S),
-         "matrixproductbp_tpu_torch/csrc/cholqr.cu",
+         "matrixproductbp_tpu_torch/csrc/cholqr_staged.cu",
          "matrixproductbp_tpu/ops/kernels.py:61",
-         {"shape": list(A.shape), "dtype": "float32"}),
+         {"shape": list(A.shape), "dtype": "float32",
+          "ms_turns": turns["staged"],
+          "base_ms": sum(turns["base"]) / len(turns["base"]),
+          "base_ms_turns": turns["base"],
+          "base_source": "matrixproductbp_tpu_torch/csrc/cholqr.cu",
+          "composed_ms": time_cuda(
+              lambda: kernels.cholqr_reference(A, eps=1e-6), 2)}),
         ("jacobi_eigh", lambda: smallsvd.eigh_desc(G),
          lambda: smallsvd.eigh_desc_plain(G), lambda: torch.linalg.eigh(G),
          bound_ms(*work_eigh(Bm, s), FP64_FLOP_PER_S),
@@ -874,15 +966,16 @@ def phase_linalg_kernel_times(launches, D=10, reps=10):
     for name, kern, plain, lib, (bms, by), src, line, extra in cases:
         out, ref = kern(), plain()
         torch.cuda.synchronize()
-        if name == "cholqr":
+        if name == "cholqr_staged":
             err, _ = max_err(tuple(out), tuple(ref))
+            ms = sum(extra["ms_turns"]) / len(extra["ms_turns"])
         else:   # eigenvectors are fixed up to sign: compare eigenvalues
             err, _ = max_err(out[0], ref[0])
+            ms = time_cuda(kern, reps)
         slow = D > 10 and name == "jacobi_eigh"   # k > 32: one per launch
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": line,
-            "launches": launches[name], "max_abs_err": err,
-            "ms": time_cuda(kern, reps),
+            "launches": launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": time_cuda(plain, 1 if slow else 2),
             "bound_ms": bms, "bound_by": by,
             "library_ms": time_cuda(lib, 1 if slow else 2), **extra})
@@ -912,7 +1005,10 @@ def main():
     rlaunches, bp_r10 = phase_main_randomized(10, TIMED_RANDOMIZED_D10)
     phase_profile(bp_r10, method="randomized")
     del bp_r10
-    phase_main_randomized(20, TIMED_RANDOMIZED_D20)
+    rlaunches_d20, bp_r20 = phase_main_randomized(20, TIMED_RANDOMIZED_D20)
+    phase_profile(bp_r20, method="randomized")
+    del bp_r20
+    phase_randomized_vs_plain_d20()
     phase_karate()
     # the kernels record: every kernel that a main path launches, each at
     # the bench shape of the sweep that launches it (merge_f_kernel, which
@@ -926,7 +1022,10 @@ def main():
             rows.append(r)
         elif r["name"].startswith("merge_w") and r["launches"] > 0:
             rows.append({**r, "name": r["name"] + "_d20"})
-    phase_linalg_kernel_times(rlaunches, D=20, reps=3)
+    # at D=20, the staged CholQR kernel (a second row)
+    rows += [{**r, "name": r["name"] + "_d20"}
+             for r in phase_linalg_kernel_times(rlaunches_d20, D=20, reps=3)
+             if r["name"] == "cholqr_staged"]
     emit("done", seconds=time.perf_counter() - t0)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

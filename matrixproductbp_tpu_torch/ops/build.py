@@ -67,9 +67,13 @@ _SIGNATURES = {
     "merge_w_staged": {
         "merge_w_staged": [_P, _LP, _P, _LP, _P, _P] + [_I] * 7 + [_L, _P],
     },
+    "cholqr_staged": {
+        "cholqr_staged": [_P, _P, _P, _I, _I, _I, _D, _L, _P],
+    },
 }
 #: sources built once per shape, with their sizes as macros
-PER_SHAPE = ("merge_f_staged", "merge_f_cluster", "merge_w_staged")
+PER_SHAPE = ("merge_f_staged", "merge_f_cluster", "merge_w_staged",
+             "cholqr_staged")
 #: sources built once, without macros
 SOURCES = tuple(n for n in _SIGNATURES if n not in PER_SHAPE)
 

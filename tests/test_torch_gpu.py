@@ -299,6 +299,98 @@ def test_cholqr_kernel(cuda, dtype, shape):
     assert bool(torch.isfinite(Q).all())
 
 
+# the staged CholQR kernel: the randomized merge's projection [4s, s], s =
+# 2D, for D = 4 to 20; n = 1; odd m and n (4-byte copies, padded rows,
+# single stores); a batch of 13 at a shape with two instances a block
+CHOLQR_SKETCH = [(8 * D, 2 * D) for D in range(4, 21)]
+CHOLQR_EDGE = [(4, 1), (80, 1), (37, 13)]
+
+
+@pytest.fixture(scope="module")
+def cholqr_builds():
+    """The staged CholQR kernel at every shape below, built at once."""
+    if torch.cuda.is_available():
+        kernels.build_cholqr(CHOLQR_SKETCH + CHOLQR_EDGE)
+
+
+def _cholqr_case(Bn, m, n, dev, variant, seed=6):
+    """Gaussian float32 A with every third instance rank 1, through the
+    forced kernel (its launch counted alone) and cholqr_unrolled: max-abs
+    error within 1e-5 of max-abs, Q finite, and on the Gaussian instances
+    Q^T Q - I <= 1e-4 and Q R - A <= 1e-5 of max |A|."""
+    g = torch.Generator().manual_seed(seed)
+    A = _randn(g, Bn, m, n)
+    A[::3] = A[::3, :, :1] * A[::3, :1, :]
+    A = A.to(dev, torch.float32)
+    before = dict(kernels.batched_cholqr.variant_launches)
+    Q, R = kernels.cholqr(A, _variant=variant)
+    assert kernels.batched_cholqr.variant_launches == {
+        **before, variant: before[variant] + 1}
+    _assert_close((Q, R), cholqr_unrolled(A), 1e-5)
+    assert bool(torch.isfinite(Q).all())
+    keep = torch.arange(Bn, device=dev) % 3 != 0
+    if bool(keep.any()):
+        Qd, Rd, Ad = Q[keep].double(), R[keep].double(), A[keep].double()
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+        assert float((Qd.transpose(1, 2) @ Qd - eye).abs().max()) <= 1e-4
+        assert float((Qd @ Rd - Ad).abs().max()) <= 1e-5 * float(
+            Ad.abs().max())
+    assert bool((torch.tril(R, -1) == 0).all())
+
+
+@pytest.mark.parametrize("m,n", CHOLQR_SKETCH + CHOLQR_EDGE,
+                         ids=lambda x: str(x))
+def test_cholqr_staged_kernel(cuda, cholqr_builds, m, n):
+    _cholqr_case(64, m, n, cuda, "staged")
+
+
+@pytest.mark.parametrize("variant", ["staged", "base"])
+@pytest.mark.parametrize("m,n", [(80, 20), (160, 40)])
+def test_cholqr_kernels_bench_shapes(cuda, cholqr_builds, m, n, variant):
+    _cholqr_case(4096, m, n, cuda, variant)
+
+
+def test_cholqr_staged_ragged_batch(cuda, cholqr_builds):
+    """13 instances, two a block: the last block holds one."""
+    assert kernels._cholqr_staged_plan(80, 20)[0] == 2
+    _cholqr_case(13, 80, 20, cuda, "staged")
+    _cholqr_case(1, 37, 13, cuda, "staged")
+
+
+def test_cholqr_f32_takes_the_staged_kernel(cuda, cholqr_builds):
+    A = torch.randn(8, 80, 20, device=cuda)
+    before = dict(kernels.batched_cholqr.variant_launches)
+    kernels.cholqr(A)
+    kernels.cholqr(A.double())
+    assert kernels.batched_cholqr.variant_launches == {
+        "staged": before["staged"] + 1, "base": before["base"] + 1}
+
+
+def test_cholqr_forced_kernel_that_does_not_fit_raises(cuda, cholqr_builds):
+    with pytest.raises(ValueError, match="float32"):
+        kernels.cholqr(torch.zeros(2, 80, 20, device=cuda,
+                                   dtype=torch.float64), _variant="staged")
+    with pytest.raises(ValueError, match="n <= 40"):
+        kernels.cholqr(torch.zeros(2, 96, 48, device=cuda),
+                       _variant="staged")
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.cholqr(torch.zeros(2, 1000, 40, device=cuda),
+                       _variant="base")
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.cholqr(torch.zeros(2 * 80 * 20 + 1, device=cuda)[1:]
+                       .view(2, 80, 20))
+
+
+def test_cholqr_staged_refuses_another_shape(cuda, cholqr_builds):
+    """A staged CholQR library is built for one shape; its launcher
+    refuses any other (cudaErrorInvalidValue) and launches nothing."""
+    from matrixproductbp_tpu_torch.ops import build
+    lib = build.library("cholqr_staged", kernels.cholqr_staged_macros(80, 20))
+    smem = kernels.cholqr_geometry(80, 20, torch.float32)[2]
+    assert lib.cholqr_staged(0, 0, 0, 1, 160, 40, 1e-6, smem, 0) == 1
+    assert lib.cholqr_staged(0, 0, 0, 1, 80, 20, 1e-6, smem + 16, 0) == 1
+
+
 def _eigh_inputs(kind, B, k, seed):
     """[B, k, k] float64: Gram matrices of Gaussian [2k, k] matrices with
     the first half rank-deficient, multiples of the identity, a 5-fold
