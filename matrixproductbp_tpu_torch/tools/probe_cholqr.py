@@ -2,7 +2,7 @@
 call, side by side on the same inputs.
 
     python3 -m matrixproductbp_tpu_torch.tools.probe_cholqr [--attribute]
-        [--bonds=10,20]
+        [--bonds=10,20] [--minb=3,4,5,6] [--dmma]
 
 One JSON line per reading.  Builds ``cholqr`` (``cholqr_kernel``) and
 ``cholqr_staged`` at every shape of ``SHAPES`` (``--bonds`` keeps the
@@ -18,7 +18,13 @@ D = 4 to 20.  Their agreement with the plain version is
 staged source with one phase left out (wrong results, same control flow
 and barriers; ``VARIANTS``, applied by ``probe_merge_f.variant_sources``;
 ``tests/test_torch_cholqr_geometry.py`` checks that every line still
-exists) and times each beside the whole kernel.  Needs a CUDA card.
+exists) and times each beside the whole kernel.  ``--minb`` builds the
+staged kernel at the bench shapes with each other register budget given
+(``CQ_MINB``, the blocks an SM ``__launch_bounds__`` asks for) and times
+each in turns with the one ``cholqr_geometry`` picks, beside its ptxas
+report.  ``--dmma`` times the float64 tensor-core shapes the kernel can
+use (``mma.m8n8k4`` and ``mma.m16n8k8``, independent accumulators, every
+SM busy) and reports their TFLOP/s.  Needs a CUDA card.
 """
 import ctypes
 import os
@@ -157,6 +163,93 @@ def attribute(shape, A, reps=20):
     emit(**row)
 
 
+def other_minb(shape, values, A, reps=20):
+    """The staged kernel at ``shape`` built with each register budget in
+    ``values`` and with the picked one, timed in turns; one JSON line."""
+    picked = kernels.cholqr_staged_macros(*shape)
+    builds = {int(m.split("=")[1]): ("cholqr_staged", picked)
+              for m in picked if m.startswith("CQ_MINB=")}
+    for v in values:
+        builds.setdefault(v, ("cholqr_staged", tuple(
+            m if not m.startswith("CQ_MINB=") else f"CQ_MINB={v}"
+            for m in picked)))
+    build.build_all(list(builds.values()))
+    Bn, (m, n) = A.shape[0], shape
+    Q, R = torch.empty_like(A), A.new_empty((Bn, n, n))
+    smem = kernels.cholqr_geometry(m, n, torch.float32, "staged")[2]
+    st = torch.cuda.current_stream().cuda_stream
+    runs, row = {}, {"m": m, "n": n, "Bn": Bn, "picked": picked}
+    fns = {v: (lambda lib=build.library(*t): lib.cholqr_staged(
+        A.data_ptr(), Q.data_ptr(), R.data_ptr(), Bn, m, n, 1e-6, smem, st))
+        for v, t in builds.items()}
+    for v in list(fns) + list(fns)[::-1]:
+        runs.setdefault(v, []).append(tcuda(fns[v], reps))
+    for v, t in builds.items():
+        log = build.build_log(*t)
+        row[f"minb_{v}"] = {
+            "ms": sum(runs[v]) / len(runs[v]), "ms_runs": runs[v],
+            "ptxas": " | ".join(x.strip() for x in log.splitlines()
+                                if "Used" in x or "spill" in x)}
+    emit(**row)
+
+
+#: the float64 tensor-core rate of two mma shapes: each warp keeps 8
+#: independent accumulators and issues 2048 rounds of them
+DMMA_SOURCE = r"""
+#include <cuda_runtime.h>
+template <int SHAPE>
+__global__ void rate(double* out) {
+  const double a = threadIdx.x * 1e-3, b = 1.0 + threadIdx.x * 1e-4;
+  double d[8][4] = {};
+  for (int it = 0; it < 2048; ++it)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (SHAPE == 0)
+        asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+                     "{%0,%1}, {%2}, {%3}, {%0,%1};"
+                     : "+d"(d[q][0]), "+d"(d[q][1]) : "d"(a), "d"(b));
+      else
+        asm volatile("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+                     "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                     : "+d"(d[q][0]), "+d"(d[q][1]), "+d"(d[q][2]),
+                       "+d"(d[q][3])
+                     : "d"(a), "d"(b), "d"(a), "d"(b), "d"(a), "d"(b));
+    }
+  double s = 0;
+  for (int q = 0; q < 8; ++q) s += d[q][0] + d[q][1] + d[q][2] + d[q][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int dmma_rate(int shape, double* out, int blocks) {
+  if (shape == 0) rate<0><<<blocks, 128>>>(out);
+  else rate<1><<<blocks, 128>>>(out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def dmma_rates():
+    """TFLOP/s of mma.m8n8k4.f64 and mma.m16n8k8.f64 with every SM busy
+    (four blocks of four warps an SM); one JSON line."""
+    out_dir = os.path.join(build.BUILD_DIR, "probe_cholqr")
+    os.makedirs(out_dir, exist_ok=True)
+    cu = os.path.join(out_dir, "dmma_rate.cu")
+    with open(cu, "w") as fh:
+        fh.write(DMMA_SOURCE)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", cu[:-3] + ".so",
+                    cu], check=True, capture_output=True)
+    lib = ctypes.CDLL(cu[:-3] + ".so")
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(blocks * 128, dtype=torch.float64, device="cuda")
+    row = {}
+    for shape, name, fma in ((0, "m8n8k4", 8 * 8 * 4), (1, "m16n8k8",
+                                                        16 * 8 * 8)):
+        ms = tcuda(lambda: lib.dmma_rate(shape, ctypes.c_void_p(
+            out.data_ptr()), blocks), 5)
+        mmas = blocks * 4 * 2048 * 8
+        row[name] = {"ms": ms, "tflops": 2 * fma * mmas / ms / 1e9}
+    emit(dmma=row)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("probe_cholqr: no CUDA device")
@@ -176,11 +269,16 @@ def main():
     for name, m in targets:
         print(" ".join(m), end=" ", flush=True)
         _ptxas(build.build_log(name, m), _STAGED)
+    minb = [a[len("--minb="):] for a in sys.argv if a.startswith("--minb=")]
     for s in shapes:
         A = time_both(s, dev)
         if "--attribute" in sys.argv and s in BENCH:
             attribute(s, A)
+        if minb and s in BENCH:
+            other_minb(s, [int(v) for v in minb[0].split(",")], A)
         del A
+    if "--dmma" in sys.argv:
+        dmma_rates()
 
 
 if __name__ == "__main__":

@@ -5,8 +5,11 @@ merges of D = 4 to 15 (one to three blocks an SM), for the cluster one at
 D = 16, 17 (odd sl), 20 and one DL != DB, 1e-4 of the plain output's
 max-abs; D=20 takes the cluster merge F kernel; both merge W kernels at
 the f64 edge shapes and at the f32 sketch merges of D = 4, 10, 16, 20 and
-20 x 16), the CholQR kernel (f64 1e-10; f32 at the D=10 and D=20
-sketch shapes, 1e-5 of max-abs: both factor in f64 and round once) and the
+20 x 16), the CholQR kernels (f64 1e-10; f32 at the D=10 and D=20
+sketch shapes, 1e-5 of max-abs: both factor in f64 and round once; the
+staged one at every [4s, s] from D=4 to D=20, n=1, odd m and n and a
+ragged batch, every third instance rank 1, with Q finite, Q^T Q - I <=
+1e-4 and Q R - A <= 1e-5 of max |A| on the Gaussian ones) and the
 Jacobi eigen kernel (f64, 1e-10 relative in eigenvalues and in the
 reconstruction, V orthonormal to 1e-10; Gaussian, degenerate, zero and
 diagonal inputs at k = 1..64 and ragged batches).  Marked ``gpu``; skips
