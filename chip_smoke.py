@@ -10,9 +10,9 @@ drives the main paths (SIS on a random 3-regular graph, N=4096, T=15, f32:
 and D=20; the same at N=128 and D=20, one randomized sweep against its
 plain version; a 4-node tree against enumeration, with
 ``iterate(polish=2)``; the karate-club graph with two ``qr`` polish
-sweeps), checks the results, and times each kernel beside its bound.  Each path runs with the launch
-counts set to 0 just before it and read just after.  One JSON line per
-phase; any failed phase raises.
+sweeps), checks the results, and times each kernel beside its bound.
+Each path runs with the launch counts set to 0 just before it and read
+just after.  One JSON line per phase; any failed phase raises.
 The second-to-last line is the ``kernels`` record, the line before it the
 card's name and power limit from ``nvidia-smi``, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -268,20 +268,15 @@ def phase_device():
     return info
 
 
-def cholqr_shapes():
-    """The randomized merge's CholQR shapes [4s, s], s = 2D, at D=10 and
-    D=20: the only ones the randomized sweeps here launch."""
-    return [(8 * D, 2 * D) for D in (10, 20)]
-
-
 def per_shape_builds():
     """The per-shape kernels' builds this script runs, one per (kernel,
     shape): the staged and the cluster merge F kernel and the staged merge
     W kernel at the D=10 sketch merge in f32 (the main path, the accuracy
     tree and karate take the staged ones), the cluster merge F and the
     staged merge W kernel at the D=20 one (the D=20 sweep), all three at
-    phase_kernels' f64 merges, and the staged CholQR kernel at
-    ``cholqr_shapes``."""
+    phase_kernels' f64 merges, and the staged CholQR kernel at the
+    randomized merge's [4s, s], s = 2D, at D=10 and D=20 (the only shapes
+    the randomized sweeps here launch)."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     from matrixproductbp_tpu_torch.ops import kernels
@@ -296,7 +291,7 @@ def per_shape_builds():
                 if v != "base"]
         out.append(("merge_w_staged", fs.merge_w_staged_macros(*d[:5], d[6])))
     return out + [("cholqr_staged", kernels.cholqr_staged_macros(m, n))
-                  for m, n in cholqr_shapes()]
+                  for m, n in ((80, 20), (160, 40))]
 
 
 def phase_build():

@@ -30,18 +30,20 @@
 //   - the sizes are compile-time constants (one build per shape), so every
 //     loop unrolls and no index is divided by a run-time n;
 //   - A is staged once by cp.async at its storage width (float32; 28 KB at
-//     [160, 40], so four instances share an SM) and converted to float64 in
+//     [160, 40] against 51 KB as float64) and converted to float64 in
 //     registers;
 //   - both products run on the float64 tensor cores (DMMA,
-//     mma.m8n8k4.f64): the Gram's upper 8x8 tiles with its K = m sum split
+//     mma.m16n8k8.f64; m8n8k4 runs at half its rate on the H100): the
+//     Gram's 16x8 tiles on and above the diagonal with its K = m sum split
 //     over the instance's warps (two partial Grams, summed where the
 //     Cholesky loads them), and Q = A L^{-T} as A times the explicit
 //     inverse, skipping L^{-1}'s zero tiles;
 //   - the factorisation is right-looking, with one group barrier a column:
 //     thread i of the first half keeps row i of G in registers, writes its
-//     entry of the pivot column (unscaled) to shared memory, and after the
-//     barrier every row updates itself from that column (n independent FMAs
-//     a step, no dependent chain of n^2/2).  The second half computes
+//     entry of the pivot column (unscaled) to shared memory (the pivot's
+//     row also its 1/sqrt, once), and after the barrier every row updates
+//     itself from that column (n independent FMAs a step, no dependent
+//     chain of n^2/2).  The second half computes
 //     L^{-1} in the same loop, one step behind, by forward substitution:
 //     thread k keeps column k of L^{-1} in registers, reads the column of L
 //     the first half wrote a step before, and stores each entry as soon as
@@ -55,7 +57,7 @@
 //
 // An instance (NTI = 2 x 32 x ceil(n/32) threads, NW warps):
 //   cp.async A -> As (float32, rows padded to LDA, pads zeroed)   | barrier
-//   Gram partials by warps (DMMA), summed into Gs and Xs in turns | NW/2 barriers
+//   Gram partials by warps (DMMA), summed into Gs and Xs      | NW/2 barriers
 //   rows of G to registers, partial traces                        | barrier
 //   n + 1 steps: column j of L to Gs (first half)                 | barrier
 //                update rows (first half), step j-1 of L^{-1} (second half,
@@ -70,14 +72,15 @@
 // passes to nvcc at the shape's first use.
 //
 // Shared memory per instance (ops/kernels.py::_smem_cholqr_staged computes
-// the same sum), with n8 = n and mp = m rounded up to 8: Gs [n][LDG] and
-// Xs [n8][LDX] float64 (the two partial Grams; then L^T, unscaled, and
-// L^{-1}), two partial traces, As [mp][LDA] float32.  LDA is 4 mod 8 (the
-// Gram's fragments read 4 rows 2 apart, Q's 8 rows 1 apart: neither has a
-// bank conflict), LDG 8 mod 16 (the Gram's 16-byte fragment stores) and LDX
-// 4 mod 8 (Q's fragment loads of L^{-1}).  [160, 40]: 55,056 bytes, four
-// blocks of 128 threads an SM; [80, 20]: 18,192 bytes, two instances a
-// block, six blocks an SM.
+// the same sum), with n8 = n rounded up to 8 and mp = m to 16: Gs [n][LDG]
+// and Xs [n8][LDX] float64 (the two partial Grams; then L^T, unscaled, and
+// L^{-1}), the pivots' 1/sqrt [n8] and two partial traces, As [mp][LDA]
+// float32.  LDA is 4 mod 8 (the Gram's fragments read 4 rows 2 apart, Q's
+// 8 rows 1 apart: neither has a bank conflict), LDG 8 mod 16 (the Gram's
+// 16-byte fragment stores) and LDX 4 mod 8 (Q's fragment loads of
+// L^{-1}).  [160, 40]: 55,376 bytes, three blocks of 128 threads an SM
+// (the registers: 168 a thread); [80, 20]: 18,384 bytes, two instances a
+// block, five blocks an SM.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -98,7 +101,7 @@ constexpr int MP = (M + 15) / 16 * 16;             // rows, padded to 16
 constexpr int MB8 = MP / 8, MB16 = MP / 16;        // row blocks of 8, 16
 constexpr int NP = (NJ + 1) / 2;                   // the Gram's 16-row tiles
 constexpr int HALF = 32 * ((N + 31) / 32);         // threads a role
-constexpr int NTI = 2 * HALF, NW = NTI / 32;       // threads, warps an instance
+constexpr int NTI = 2 * HALF, NW = NTI / 32;       // an instance's threads
 constexpr int NT = IPB * NTI;
 constexpr int stride(int least, int mod, int rem) {
   return least + ((rem - least) % mod + mod) % mod;

@@ -31,6 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: dynamic shared memory one H100 block may use (232,448 bytes); the
 #: wrappers refuse shapes that need more
 SMEM_PER_BLOCK = 232448
+#: shared memory of one H100 SM, and what each resident block reserves
+SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -55,8 +55,6 @@ SMEM_LIMIT = build.SMEM_PER_BLOCK - 1024
 _MPEM3_THREADS = 128
 #: the staged merge F kernel's block (``NT`` in ``merge_f_staged.cu``)
 _STAGED_THREADS = 256
-#: shared memory of one H100 SM, and what each resident block reserves
-_SMEM_PER_SM, _SMEM_RESERVED = 233472, 1024
 #: the most staged blocks an SM is built for: 3 x 256 threads x 80 registers
 #: fill its 65,536 registers
 _STAGED_MAX_BLOCKS = 3
@@ -150,7 +148,7 @@ def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
 
 def _merge_f_macros(variant, most, DL, DB, Y, q, sr, sl, dtype):
     _, _, smem = merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant)
-    minb = min(most, _SMEM_PER_SM // (smem + _SMEM_RESERVED))
+    minb = min(most, build.SMEM_PER_SM // (smem + build.SMEM_RESERVED))
     return (f"MF_T={'float' if dtype == torch.float32 else 'double'}",
             f"MF_DL={DL}", f"MF_DB={DB}", f"MF_Y={Y}", f"MF_Q={q}",
             f"MF_SR={sr}", f"MF_SL={sl}", f"MF_MINB={minb}")
@@ -288,7 +286,8 @@ def _merge_w_staged_plan(DL, DB, Y, q, sr, esize):
     if nc is None:
         return None
     smem = _smem_merge_w_staged(DL, DB, Y, q, sr, nc, esize)
-    blocks = min(4, _SMEM_PER_SM // (smem * esize + _SMEM_RESERVED))
+    blocks = min(4, build.SMEM_PER_SM // (smem * esize
+                                        + build.SMEM_RESERVED))
     threads = _MERGE_W_THREADS[blocks]
     most = 40 if esize == 4 else 20
     a = _pick_tile(DB, sr, nc * Y * q, threads, most)

@@ -36,8 +36,6 @@ MAX_N = 64
 #: widest A the staged kernel takes: each thread keeps a row of G (or a
 #: column of L^{-1}) of n doubles in registers
 STAGED_MAX_N = 40
-#: shared memory of one H100 SM, and what each resident block reserves
-_SMEM_PER_SM, _SMEM_RESERVED = 233472, 1024
 
 
 def _smem_cholqr(m: int, n: int) -> int:
@@ -57,11 +55,11 @@ def _stride(least: int, mod: int, rem: int) -> int:
 
 def _staged_strides(m: int, n: int):
     """(n8, mp, LDA, LDG, LDX) of ``cholqr_staged.cu``: n rounded up to 8
-    and m to 16 (a DMMA tile's columns and rows), and the row strides of A (floats; 4 mod 8,
-    so that both products' fragment loads are free of bank conflicts), of
-    the Gram / L^T buffer (doubles; 8 mod 16, for the 16-byte stores of the
-    Gram's fragments) and of L^{-1} (doubles; 4 mod 8, for its fragment
-    loads)."""
+    and m to 16 (a DMMA tile's columns and rows), and the row strides of A
+    (floats; 4 mod 8, so that both products' fragment loads are free of
+    bank conflicts), of the Gram / L^T buffer (doubles; 8 mod 16, for the
+    16-byte stores of the Gram's fragments) and of L^{-1} (doubles; 4 mod
+    8, for its fragment loads)."""
     n8, mp = -(-n // 8) * 8, -(-m // 16) * 16
     return (n8, mp, _stride(n8, 8, 4), _stride(n8, 16, 8),
             _stride(n8, 8, 4))
@@ -83,8 +81,9 @@ def _cholqr_staged_plan(m: int, n: int):
     Cholesky's rows and the inverse's columns); two instances share a block
     of 128 threads where n <= 32.  Blocks an SM: as many as shared memory,
     2048 threads and the registers allow, at 4n + 8 registers a thread
-    (the row of n doubles and the pivot column's loads; ptxas used 95 at
-    n = 20 and 168 at n = 40 where allowed), at least 64."""
+    (the row of n doubles and the pivot column's loads), at least 64: the
+    budget ``tools/probe_cholqr.py --minb`` timed fastest at n = 20 and
+    n = 40 (PERF.md)."""
     if not 1 <= n <= STAGED_MAX_N or m < 1:
         return None
     per = _smem_cholqr_staged(m, n)
@@ -94,11 +93,13 @@ def _cholqr_staged_plan(m: int, n: int):
     if smem > build.SMEM_PER_BLOCK:
         return None
     regs = max(64, 4 * n + 8)
-    blocks = min(_SMEM_PER_SM // (smem + _SMEM_RESERVED), 2048 // threads,
+    blocks = min(build.SMEM_PER_SM // (smem + build.SMEM_RESERVED),
+                 2048 // threads,
                  65536 // (threads * regs), 32)
     # Q's row tiles of 16 rows a warp, taken in balanced passes of at most
     # 15 / ceil(n/8) tiles (<= 60 float64 accumulators a thread)
-    per_warp = -(-(-(-m // 16)) // (nti // 32))     # ceil(ceil(m/16) / warps)
+    tiles = -(-m // 16)
+    per_warp = -(-tiles // (nti // 32))
     passes = -(-per_warp // max(1, min(per_warp, 15 // -(-n // 8))))
     return ipb, blocks, -(-per_warp // passes), threads, smem
 
@@ -134,12 +135,12 @@ def cholqr_geometry(m: int, n: int, dtype, variant=None):
     raise ValueError(f"CholQR [{m}, {n}] ({name} kernel): {why}")
 
 
-def cholqr_staged_macros(m: int, n: int, dtype=torch.float32):
+def cholqr_staged_macros(m: int, n: int):
     """The macros ``cholqr_staged.cu`` is built with for A [m, n]: its
     sizes, the instances a block (``CQ_IPB``), the blocks an SM should hold
     (``CQ_MINB``, the register budget) and Q's row tiles a pass
     (``CQ_QR``).  Raises ``ValueError`` where its buffers do not fit."""
-    cholqr_geometry(m, n, dtype, "staged")                  # raises
+    cholqr_geometry(m, n, torch.float32, "staged")          # raises
     ipb, blocks, qr, _, _ = _cholqr_staged_plan(m, n)
     return (f"CQ_M={m}", f"CQ_N={n}", f"CQ_IPB={ipb}", f"CQ_MINB={blocks}",
             f"CQ_QR={qr}")

@@ -69,7 +69,8 @@ VARIANTS = {
     "staged_without_stores": (_STAGED, [
         ("rr[e] = out;", ""),
         ("store_q(q + row * N + col, acc[a][J][2 * h],\n"
-         "                    acc[a][J][2 * h + 1], col + 1 < N);", "(void)0;")]),
+         "                    acc[a][J][2 * h + 1], col + 1 < N);",
+         "(void)0;")]),
 }
 
 
