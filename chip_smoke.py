@@ -117,15 +117,27 @@ def merge_inputs(Bn, S, DL, DB, Y, q, sr, sl, dtype, device, seed):
     return L[:, 1:], B[:, 1:], Th, Pyy, Phi, S_init
 
 
+def mpem3_layout_of(qj):
+    """The B_t layout a sketch sweep hands each conversion: the message
+    conversion (qj = 2) the time-major rows ``(i, j, r, m, n)``, the belief
+    conversion (qj = 1) the contiguous ``(m, n, i, j, r)``."""
+    return "ijrmn" if qj == 2 else "mnijr"
+
+
 def mpem3_inputs(Bn, S, Db, qi, qj, sr, sl, dtype, device, seed):
-    """Random MPEM3-scan inputs; B1 is the permuted time-major view the
-    message path hands over."""
+    """Random MPEM3-scan inputs; B1 is the view the sweep hands over
+    (:func:`mpem3_layout_of`): the permuted time-major one of the message
+    path or the contiguous one of the belief path, without its first
+    step."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
     r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64)  # noqa
-    B3f = r(S + 1, Bn, qi * qj * qi * Db * Db).to(device, dtype)
-    B1 = B3f.reshape(S + 1, Bn, qi, qj, qi, Db, Db) \
-        .permute(1, 0, 5, 6, 2, 3, 4)[:, 1:]
+    if mpem3_layout_of(qj) == "ijrmn":
+        B3f = r(S + 1, Bn, qi * qj * qi * Db * Db).to(device, dtype)
+        B1 = B3f.reshape(S + 1, Bn, qi, qj, qi, Db, Db) \
+            .permute(1, 0, 5, 6, 2, 3, 4)[:, 1:]
+    else:
+        B1 = r(Bn, S + 1, Db, Db, qi, qj, qi).to(device, dtype)[:, 1:]
     Psi = r(S, sr, sr, qi, qj).to(device, dtype)
     Phi = r(S, sl, sl, qi, qj).to(device, dtype)
     S_init = r(Bn, sl, Db, qi).to(device, dtype)
@@ -244,11 +256,22 @@ def merge_w_variants(dims, dtype):
     return _fitting(fs.merge_w_geometry, shape, dtype, ("staged", "base"))
 
 
-def run_mpem3(fs, B1, Psi, Phi, S_init, plain=False):
-    w = fs.mpem3_wscan_plain if plain else fs.mpem3_wscan
-    f = fs.mpem3_fscan_plain if plain else fs.mpem3_fscan
-    Ws = w(B1, Psi)
-    return (Ws,) + tuple(f(B1, Phi, Ws, S_init))
+def run_mpem3(fs, B1, Psi, Phi, S_init, plain=False, variant=None):
+    """Ws, Ns, Ms through the kernels (``variant`` forces both) or through
+    the plain versions."""
+    if plain:
+        Ws = fs.mpem3_wscan_plain(B1, Psi)
+        return (Ws,) + tuple(fs.mpem3_fscan_plain(B1, Phi, Ws, S_init))
+    Ws = fs.mpem3_wscan(B1, Psi, _variant=variant)
+    return (Ws,) + tuple(fs.mpem3_fscan(B1, Phi, Ws, S_init,
+                                        _variant=variant))
+
+
+def mpem3_variants(dims, dtype):
+    """The MPEM3 kernels that take this shape: staged and base in f32
+    (``mpem3_geometry`` picks staged), base in f64."""
+    import torch
+    return ("staged", "base") if dtype == torch.float32 else ("base",)
 
 
 # ---------------------------------------------------------------------------
@@ -274,9 +297,10 @@ def per_shape_builds():
     W kernel at the D=10 sketch merge in f32 (the main path, the accuracy
     tree and karate take the staged ones), the cluster merge F and the
     staged merge W kernel at the D=20 one (the D=20 sweep), all three at
-    phase_kernels' f64 merges, and the staged CholQR kernel at the
+    phase_kernels' f64 merges, the staged CholQR kernel at the
     randomized merge's [4s, s], s = 2D, at D=10 and D=20 (the only shapes
-    the randomized sweeps here launch)."""
+    the randomized sweeps here launch), and the staged MPEM3 W and F
+    kernels at both conversions of the D=10 and D=20 sketch sweeps."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     from matrixproductbp_tpu_torch.ops import kernels
@@ -290,14 +314,21 @@ def per_shape_builds():
         out += [fs._merge_f_target(v, d) for v in merge_f_variants(dims, d[6])
                 if v != "base"]
         out.append(("merge_w_staged", fs.merge_w_staged_macros(*d[:5], d[6])))
-    return out + [("cholqr_staged", kernels.cholqr_staged_macros(m, n))
-                  for m, n in ((80, 20), (160, 40))]
+    out += [("cholqr_staged", kernels.cholqr_staged_macros(m, n))
+            for m, n in ((80, 20), (160, 40))]
+    for D in (10, 20):
+        for qj in (2, 1):
+            d = mpem3_dims(D, qj=qj)
+            out += [("mpem3_staged", fs.mpem3_staged_macros(
+                d["Db"], d["qi"], qj, d["sr"], sl, torch.float32,
+                mpem3_layout_of(qj))) for sl in (None, d["sl"])]
+    return out
 
 
 def phase_build():
     """Every source, and the staged and cluster merge F kernels, the staged
-    merge W kernel and the staged CholQR kernel at each shape the script
-    runs, one nvcc each, all started together."""
+    merge W kernel, the staged CholQR kernel and the staged MPEM3 kernels
+    at each shape the script runs, one nvcc each, all started together."""
     from matrixproductbp_tpu_torch.ops import build
     targets = list(build.SOURCES) + per_shape_builds()
     t0 = time.perf_counter()
@@ -353,7 +384,9 @@ def phase_kernels():
                 args = mpem3_inputs(Bn, S, **dims, dtype=dtype, device=dev,
                                     seed=i)
                 ref = run_mpem3(fs, *args, plain=True)
-                outs = [({}, run_mpem3(fs, *args), ref)]
+                outs = [({"mpem3_kernel": v}, run_mpem3(fs, *args,
+                                                        variant=v), ref)
+                        for v in mpem3_variants(dims, dtype)]
             torch.cuda.synchronize()
             for variant, out, want in outs:
                 err, scale = max_err(out, want)
@@ -366,8 +399,50 @@ def phase_kernels():
                                 "ref_max_abs": scale, "tol": tol, **variant})
                 check(err <= tol, f"{kind} kernels disagree with their "
                                   f"plain versions: {results[-1]}")
+    results += mpem3_bench_vs_plain(dev)
     results += cholqr_vs_plain(dev) + eigh_vs_plain(dev)
     emit("kernels_vs_plain", cases=results)
+
+
+def mpem3_bench_vs_plain(dev):
+    """The staged MPEM3 W and F kernels at the sketch sweeps' shapes, D=10
+    and D=20: the message conversion [12288, 15, D, D, 2, 2, 2] in its
+    time-major view and the belief conversion [4096, 15, D, D, 2, 1, 2]
+    contiguous, each against the plain scans at Ws, Ns and Ms, 1e-4 of
+    the plain output's max-abs; the launches counted on the staged
+    kernels."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    rows = []
+    for D in (10, 20):
+        for Bn, qj in ((BENCH_N * BENCH_DEG, 2), (BENCH_N, 1)):
+            dims = mpem3_dims(D, qj=qj)
+            args = mpem3_inputs(Bn, BENCH_T, **dims, dtype=torch.float32,
+                                device=dev, seed=20 + D + qj)
+            check(fs.mpem3_layout(*args[:3]) == mpem3_layout_of(qj),
+                  f"MPEM3 inputs not in the sweep's layout: {dims}")
+            before = (dict(fs.mpem3_wscan.variant_launches),
+                      dict(fs.mpem3_fscan.variant_launches))
+            out = run_mpem3(fs, *args)
+            after = (fs.mpem3_wscan.variant_launches,
+                     fs.mpem3_fscan.variant_launches)
+            ref = run_mpem3(fs, *args, plain=True)
+            torch.cuda.synchronize()
+            err, scale = max_err(out, ref)
+            rows.append({"kind": "mpem3", "dtype": "float32", **dims,
+                         "B": Bn, "S": BENCH_T,
+                         "layout": mpem3_layout_of(qj),
+                         "mpem3_kernel": "staged", "max_abs_err": err,
+                         "ref_max_abs": scale, "tol": TOL_F32_REL * scale})
+            check(all(a["staged"] == b["staged"] + 1 and a["base"] == b["base"]
+                      for a, b in zip(after, before)),
+                  f"MPEM3 at the sweep's shape not on the staged kernels: "
+                  f"{rows[-1]}")
+            check(err <= TOL_F32_REL * scale,
+                  f"staged MPEM3 kernels disagree with the plain scans: "
+                  f"{rows[-1]}")
+            del args, out, ref
+    return rows
 
 
 def cholqr_variants(shape, dtype):
@@ -514,6 +589,8 @@ def reset_counts():
         w.launches = 0
     fs.merge_fscan.variant_launches.update(staged=0, cluster=0, base=0)
     fs.merge_wscan.variant_launches.update(staged=0, base=0)
+    fs.mpem3_wscan.variant_launches.update(staged=0, base=0)
+    fs.mpem3_fscan.variant_launches.update(staged=0, base=0)
     from matrixproductbp_tpu_torch.ops import kernels
     kernels.batched_cholqr.variant_launches.update(staged=0, base=0)
 
@@ -522,8 +599,10 @@ def read_counts():
     """Launches by kernel: the merge wrappers count their kernels apart,
     ``merge_f`` (``merge_f_kernel``), ``merge_f_staged`` and
     ``merge_f_cluster``; ``merge_w`` (``merge_w_kernel``) and
-    ``merge_w_staged``; the CholQR wrapper likewise, ``cholqr``
-    (``cholqr_kernel``) and ``cholqr_staged``."""
+    ``merge_w_staged``; the MPEM3 and CholQR wrappers likewise,
+    ``mpem3_w`` (``mpem3_w_kernel``) and ``mpem3_w_staged``, ``mpem3_f``
+    and ``mpem3_f_staged``, ``cholqr`` (``cholqr_kernel``) and
+    ``cholqr_staged``."""
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     from matrixproductbp_tpu_torch.ops import kernels
     counts = {name: w.launches for name, w in _wrappers().items()}
@@ -536,11 +615,25 @@ def read_counts():
           f"merge F launches {counts['merge_f']} != {by_f}")
     check(sum(by_w.values()) == counts["merge_w"],
           f"merge W launches {counts['merge_w']} != {by_w}")
+    by_mw = fs.mpem3_wscan.variant_launches
+    by_mf = fs.mpem3_fscan.variant_launches
+    check(sum(by_mw.values()) == counts["mpem3_w"],
+          f"MPEM3 W launches {counts['mpem3_w']} != {by_mw}")
+    check(sum(by_mf.values()) == counts["mpem3_f"],
+          f"MPEM3 F launches {counts['mpem3_f']} != {by_mf}")
     counts.update(merge_f=by_f["base"], merge_f_staged=by_f["staged"],
                   merge_f_cluster=by_f["cluster"], merge_w=by_w["base"],
-                  merge_w_staged=by_w["staged"], cholqr=by_q["base"],
+                  merge_w_staged=by_w["staged"], mpem3_w=by_mw["base"],
+                  mpem3_w_staged=by_mw["staged"], mpem3_f=by_mf["base"],
+                  mpem3_f_staged=by_mf["staged"], cholqr=by_q["base"],
                   cholqr_staged=by_q["staged"])
     return counts
+
+
+#: MPEM3 launches a sketch sweep (the message and the belief conversion),
+#: all on the staged kernels
+MPEM3_WANTS = {"mpem3_w": 0, "mpem3_w_staged": 2, "mpem3_f": 0,
+               "mpem3_f_staged": 2}
 
 
 def merge_w_wants(D):
@@ -631,7 +724,7 @@ def phase_main_d10():
     import matrixproductbp_tpu_torch as tp
     bp0, bp1, res = timed_main_path(10, TIMED_SWEEPS_D10)
     want = {**merge_w_wants(10), "merge_f": 0, "merge_f_staged": 3,
-            "merge_f_cluster": 0, "mpem3_w": 2, "mpem3_f": 2, "cholqr": 0,
+            "merge_f_cluster": 0, **MPEM3_WANTS, "cholqr": 0,
             "cholqr_staged": 0, "jacobi_eigh": 0}
     per_sweep = {k: v / TIMED_SWEEPS_D10 for k, v in res["launches"].items()}
     check(per_sweep == want, f"launches per sweep {per_sweep}, want {want}")
@@ -675,7 +768,9 @@ def phase_profile(bp, method="sketch"):
     ours_s, _ = named("merge_w_kernel<", "merge_w_staged_kernel(",
                       "merge_f_kernel<",
                       "merge_f_staged_kernel(", "merge_f_cluster_kernel(",
-                      "mpem3_w_kernel<", "mpem3_f_kernel<", "cholqr_kernel<",
+                      "mpem3_w_kernel<", "mpem3_f_kernel<",
+                      "mpem3_w_staged_kernel(", "mpem3_f_staged_kernel(",
+                      "cholqr_kernel<",
                       "cholqr_staged_kernel(", "jacobi_eigh_kernel")
     svd_s, svd_n = named("jacobi_eigh_kernel", "gesvd", "syevj", "syevd")
     qr_s, qr_n = named("cholqr_kernel<", "cholqr_staged_kernel(", "geqrf",
@@ -695,7 +790,7 @@ def phase_main_d20():
     _, bp1, res = timed_main_path(20, TIMED_SWEEPS_D20)
     per_sweep = {k: v / TIMED_SWEEPS_D20 for k, v in res["launches"].items()}
     want = {**merge_w_wants(20), "merge_f": 0, "merge_f_staged": 0,
-            "merge_f_cluster": 3, "mpem3_w": 2, "mpem3_f": 2, "cholqr": 0,
+            "merge_f_cluster": 3, **MPEM3_WANTS, "cholqr": 0,
             "cholqr_staged": 0, "jacobi_eigh": 0}
     res.update(launches_per_sweep=per_sweep)
     emit("main_d20", **res)
@@ -715,7 +810,8 @@ def phase_main_randomized(D, sweeps):
     per_sweep = {k: v / sweeps for k, v in res["launches"].items()}
     want = {"merge_w": 0, "merge_w_staged": 0, "merge_f": 0,
             "merge_f_staged": 0, "merge_f_cluster": 0, "mpem3_w": 0,
-            "mpem3_f": 0, "cholqr": 0, "cholqr_staged": CHOLQR_PER_SWEEP,
+            "mpem3_w_staged": 0, "mpem3_f": 0, "mpem3_f_staged": 0,
+            "cholqr": 0, "cholqr_staged": CHOLQR_PER_SWEEP,
             "jacobi_eigh": SVD_PER_SWEEP}
     res.update(launches_per_sweep=per_sweep)
     if D == 10:
@@ -840,25 +936,22 @@ def in_turns(kernels, reps):
 
 
 def phase_kernel_times(launches, D=10, reps=10):
-    """Each scan kernel at the bench shape of bond D (the 8192-instance merge
-    and the 12288-instance message conversion), CUDA events over ``reps``
-    launches, beside its bound and its plain version's time; ``launches``
-    are those of the sketch sweep at that D.  ``merge_f_kernel`` and the
-    merge F kernel the sweep takes (staged at D=10, cluster at D=20) run on
-    the same inputs, timed in turns (picked, base, base, picked); so do
-    ``merge_w_kernel`` and the merge W kernel the sweep takes."""
+    """Each scan kernel at the bench shape of bond D (the 8192-instance merge;
+    the MPEM3 kernels by :func:`mpem3_kernel_times`), CUDA events over
+    ``reps`` launches, beside its bound and its plain version's time;
+    ``launches`` are those of the sketch sweep at that D.
+    ``merge_f_kernel`` and the merge F kernel the sweep takes (staged at
+    D=10, cluster at D=20) run on the same inputs, timed in turns (picked,
+    base, base, picked); so do ``merge_w_kernel`` and the merge W kernel
+    the sweep takes."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
     S = BENCH_T
-    md, pd = merge_dims(D), mpem3_dims(D)
+    md = merge_dims(D)
     L1, B1, Th, Pyy, Phi, S_init = merge_inputs(
         2 * BENCH_N, S, **md, dtype=torch.float32, device=dev, seed=11)
-    Bm, Psi, PhiM, SiM = mpem3_inputs(
-        BENCH_N * BENCH_DEG, S, **pd, dtype=torch.float32, device=dev,
-        seed=12)
     Ws = fs.merge_wscan(L1, B1, Th)
-    WsM = fs.mpem3_wscan(Bm, Psi)
     shape = tuple(md.values())
     w_picked = fs.merge_w_geometry(*shape[:5], torch.float32)[0]
     merge_w = {v: (lambda v=v: fs.merge_wscan(L1, B1, Th, _variant=v))
@@ -866,16 +959,7 @@ def phase_kernel_times(launches, D=10, reps=10):
     cases = [
         (MERGE_W_ROWS[v][0], kern, lambda: fs.merge_wscan_plain(L1, B1, Th),
          work_merge_w(2 * BENCH_N, S, **md, esize=4), MERGE_W_ROWS[v][1],
-         MERGE_W_ROWS[v][2]) for v, kern in merge_w.items()] + [
-        ("mpem3_w", lambda: fs.mpem3_wscan(Bm, Psi),
-         lambda: fs.mpem3_wscan_plain(Bm, Psi),
-         work_mpem3_w(BENCH_N * BENCH_DEG, S, **pd, esize=4),
-         "stta_scans.cu", ":508"),
-        ("mpem3_f", lambda: fs.mpem3_fscan(Bm, PhiM, WsM, SiM),
-         lambda: fs.mpem3_fscan_plain(Bm, PhiM, WsM, SiM),
-         work_mpem3_f(BENCH_N * BENCH_DEG, S, **pd, esize=4),
-         "stta_scans.cu", ":545"),
-    ]
+         MERGE_W_ROWS[v][2]) for v, kern in merge_w.items()]
     picked = fs.merge_f_geometry(*shape, torch.float32)[0]
     merge_f = {v: (lambda v=v: fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S_init,
                                               _variant=v))
@@ -910,7 +994,77 @@ def phase_kernel_times(launches, D=10, reps=10):
             **({"ms_turns": ms_runs} if name in turns else {})})
         emit(f"kernel_time_d{D}", **rows[-1])
         del out, ref
-    return rows
+    return rows + mpem3_kernel_times(launches, D, reps)
+
+
+#: the TPU body each MPEM3 scan stands for
+MPEM3_LINES = {"w": ":508", "f": ":545"}
+
+
+def mpem3_kernel_times(launches, D, reps):
+    """The staged MPEM3 W and F kernels (the sweep's) and the first designs
+    (``mpem3_w_kernel``, ``mpem3_f_kernel``) at both conversions of the
+    sketch sweep at bond D, on the same inputs, timed in turns (staged,
+    base, base, staged): the message conversion [12288, 15] (the row's own
+    numbers) and the belief conversion [4096, 15] (under ``beliefs``); each
+    beside its bound and its plain version's time.  One row a scan, named
+    after the staged kernel; the first design's times as ``base_ms``."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    dev = torch.device("cuda")
+    S = BENCH_T
+    rows = {}
+    for Bn, qj, key in ((BENCH_N * BENCH_DEG, 2, None), (BENCH_N, 1,
+                                                         "beliefs")):
+        pd = mpem3_dims(D, qj=qj)
+        Bm, Psi, PhiM, SiM = mpem3_inputs(Bn, S, **pd, dtype=torch.float32,
+                                          device=dev, seed=12 + qj)
+        WsM = fs.mpem3_wscan_plain(Bm, Psi)
+        scans = {
+            "w": ({v: (lambda v=v: fs.mpem3_wscan(Bm, Psi, _variant=v))
+                   for v in ("staged", "base")},
+                  lambda: fs.mpem3_wscan_plain(Bm, Psi),
+                  work_mpem3_w(Bn, S, **pd, esize=4)),
+            "f": ({v: (lambda v=v: fs.mpem3_fscan(Bm, PhiM, WsM, SiM,
+                                                  _variant=v))
+                   for v in ("staged", "base")},
+                  lambda: fs.mpem3_fscan_plain(Bm, PhiM, WsM, SiM),
+                  work_mpem3_f(Bn, S, **pd, esize=4))}
+        for kern, (runs, plain, (flops, nbytes)) in scans.items():
+            turns = in_turns(runs, reps)
+            out, ref = runs["staged"](), plain()
+            base_out = runs["base"]()
+            torch.cuda.synchronize()
+            err, _ = max_err(out, ref)
+            base_err, _ = max_err(base_out, ref)
+            bms, by = bound_ms(flops, nbytes)
+            ms = {v: sum(t) / len(t) for v, t in turns.items()}
+            rec = {"B": Bn, "qj": qj, "layout": mpem3_layout_of(qj),
+                   "max_abs_err": err, "ms": ms["staged"],
+                   "ms_turns": turns["staged"],
+                   "plain_ms": time_cuda(plain, 2), "bound_ms": bms,
+                   "bound_by": by, "base_ms": ms["base"],
+                   "base_ms_turns": turns["base"],
+                   "base_max_abs_err": base_err, "flops": flops,
+                   "bytes": nbytes}
+            if key is None:
+                rows[kern] = {
+                    "name": f"mpem3_{kern}_staged", "route": "cuda",
+                    "source": "matrixproductbp_tpu_torch/csrc/mpem3_staged.cu",
+                    "replaces": "matrixproductbp_tpu/ops/fused_stta.py"
+                                + MPEM3_LINES[kern],
+                    "launches": launches[f"mpem3_{kern}_staged"],
+                    "library_ms": None, **rec,
+                    "base_source": "matrixproductbp_tpu_torch/csrc/"
+                                   "stta_scans.cu",
+                    "D": D, "launches_from": f"main_d{D}"}
+            else:
+                rows[kern][key] = rec
+            del out, ref, base_out
+        del Bm, Psi, PhiM, SiM, WsM
+    for r in rows.values():
+        emit(f"kernel_time_d{D}", **r)
+    return list(rows.values())
 
 
 def phase_linalg_kernel_times(launches, D=10, reps=10):
@@ -1011,11 +1165,12 @@ def main():
     rows = [r for r in phase_kernel_times(launches) if r["launches"] > 0]
     rows += phase_linalg_kernel_times(rlaunches)
     # at D=20, the merge kernels the D=20 sweep takes (a second merge W
-    # row, named apart from the D=10 one)
+    # row, named apart from the D=10 one) and the staged MPEM3 kernels (a
+    # second row each)
     for r in phase_kernel_times(launches_d20, D=20, reps=3):
         if r["name"] == "merge_f_cluster":
             rows.append(r)
-        elif r["name"].startswith("merge_w") and r["launches"] > 0:
+        elif r["name"].startswith(("merge_w", "mpem3")) and r["launches"] > 0:
             rows.append({**r, "name": r["name"] + "_d20"})
     # at D=20, the staged CholQR kernel (a second row)
     rows += [{**r, "name": r["name"] + "_d20"}

@@ -1,6 +1,8 @@
-// Declarations shared by the STTA scan sources: stta_scans.cu (the four
-// scan kernels but two), merge_f_staged.cu and merge_f_cluster.cu (the
-// staged and the cluster merge F kernels, each built once per shape).
+// Declarations shared by the STTA scan sources: stta_scans.cu (the first
+// designs of the four scan kernels), merge_f_staged.cu and
+// merge_f_cluster.cu (the staged and the cluster merge F kernels),
+// merge_w_staged.cu and mpem3_staged.cu (the staged merge W and MPEM3 W
+// and F kernels), the last four each built once per shape.
 
 #pragma once
 

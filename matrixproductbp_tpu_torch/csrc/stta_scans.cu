@@ -1,6 +1,8 @@
 // STTA sketch scans for Hopper (sm_90a): the time-scan kernels of the
 // sketch sweep, written by hand in CUDA C++.  Two more merge F kernels,
-// merge_f_staged.cu and merge_f_cluster.cu, are built once per shape.
+// merge_f_staged.cu and merge_f_cluster.cu, a merge W kernel,
+// merge_w_staged.cu, and the MPEM3 W and F kernels of mpem3_staged.cu are
+// built once per shape.
 //
 // Replaces the Pallas TPU kernels of matrixproductbp_tpu/ops/fused_stta.py:
 //   merge_w_kernel  <- _merge_wstep_kernel (fused_stta.py:231, grid wrapper _merge_wscan :359)
@@ -12,6 +14,9 @@
 //                      (from D=16 to D=20) fits
 //   mpem3_w_kernel  <- _mpem3_wstep_kernel (:508, grid wrapper _mpem3_wscan :605)
 //   mpem3_f_kernel  <- _mpem3_fstep_kernel (:545, grid wrapper _mpem3_fscan :628)
+//                      The wrappers (fused_stta.py::mpem3_geometry) run these
+//                      two only where mpem3_staged.cu's kernels do not take
+//                      the shape: f64, strided B_t and misfits
 // Their plain versions are matrixproductbp_tpu_torch/ops/stta.py::*_plain.
 //
 // What bounds them.  Each kernel is a sequential loop over S = T1-1 time
@@ -64,7 +69,13 @@
 //   merge F, staged: in merge_f_staged.cu; 73.7 KiB at D=10, f32.
 //   merge F, cluster: in merge_f_cluster.cu; 217.5 KiB a block (two blocks
 //             an instance) at D=20, f32.
-//   MPEM3 W/F: under 10 KiB at D=20.
+//   MPEM3 W : 2*Db*qi*sr + Db^2*qi*qj*qi + sr^2*qi*qj + Db*qi*qj*sr
+//             (fused_stta.py::_smem_mpem3_w); D=20, f32, qj=2: 31.25 KiB
+//             (18.75 KiB at qj=1).
+//   MPEM3 F : 2*sl*Db*qi + Db^2*qi*qj*qi + sl^2*qi*qj + sl*Db*qi*qj*qi
+//             (_smem_mpem3_f); D=20, f32, qj=2, sl=24: 44 KiB (25.75 KiB at
+//             qj=1).  W_t and W_{t+1} are read from global memory.
+//   MPEM3 W/F, staged: in mpem3_staged.cu.
 // f64 instantiations exist so that tests hold each kernel to its plain version
 // at 1e-10; they fit only at small shapes.
 

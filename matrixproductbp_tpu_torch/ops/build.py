@@ -72,10 +72,18 @@ _SIGNATURES = {
     "cholqr_staged": {
         "cholqr_staged": [_P, _P, _P, _I, _I, _I, _D, _L, _P],
     },
+    # one of the two launchers a build (M3_SL > 0: F, else W); the clock
+    # counters with M3_CLOCKS=1 only
+    "mpem3_staged": {
+        "mpem3_f_staged": [_P, _LP, _P, _P, _P, _P, _P] + [_I] * 7
+                          + [_L, _P],
+        "mpem3_w_staged": [_P, _LP, _P, _P] + [_I] * 6 + [_L, _P],
+        "mpem3_staged_clocks": [_P],
+    },
 }
 #: sources built once per shape, with their sizes as macros
 PER_SHAPE = ("merge_f_staged", "merge_f_cluster", "merge_w_staged",
-             "cholqr_staged")
+             "cholqr_staged", "mpem3_staged")
 #: sources built once, without macros
 SOURCES = tuple(n for n in _SIGNATURES if n not in PER_SHAPE)
 
@@ -166,11 +174,13 @@ def build_log(name: str, defines=()) -> str:
 @functools.lru_cache(maxsize=None)
 def library(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Build (at first use) and load one source's library, with ``argtypes``
-    and ``restype`` declared for every launcher; ``defines`` are the
-    macros of a source built per shape."""
+    and ``restype`` declared for every launcher it exports; ``defines``
+    are the macros of a source built per shape."""
     t = (name, defines) if defines else name
     lib = ctypes.CDLL(build_all((t,))[t])
     for fn, argtypes in _SIGNATURES[name].items():
+        if not hasattr(lib, fn):
+            continue
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int

@@ -6,8 +6,9 @@ Counterpart of ``matrixproductbp_tpu/ops/fused_stta.py``.  Each scan wrapper
 :func:`mpem3_fscan`) runs its plain PyTorch version (``ops/stta.py``,
 re-exported here as ``*_plain``) when its tensors lie on the CPU, and
 launches its CUDA kernel (``csrc/stta_scans.cu``, ``csrc/merge_f_staged.cu``,
-``csrc/merge_f_cluster.cu``, ``csrc/merge_w_staged.cu``) when they lie on a
-CUDA device; there is no fallback between the two.  ``<wrapper>.launches``
+``csrc/merge_f_cluster.cu``, ``csrc/merge_w_staged.cu``,
+``csrc/mpem3_staged.cu``) when they lie on a CUDA device; there is no
+fallback between the two.  ``<wrapper>.launches``
 counts kernel launches.
 
 The kernels replace, in order, ``_merge_wstep_kernel`` (``fused_stta.py:231``),
@@ -24,6 +25,12 @@ Merge W has two, picked in :func:`merge_w_geometry`:
 ``merge_w_staged_kernel`` (``merge_w_staged.cu``, built once per shape) at
 the f32 sketch merges (Y = q = 2) where its buffers fit, all of which it
 ran faster than ``merge_w_kernel``, and ``merge_w_kernel`` for the rest.
+MPEM3 W and F have two each, picked in :func:`mpem3_geometry`: the staged
+``mpem3_w_staged_kernel`` / ``mpem3_f_staged_kernel`` (``mpem3_staged.cu``,
+built once per shape and B_t layout) for f32 where B_t is one dense,
+16-byte-aligned run an instance-step and the buffers fit (both conversions
+of the sketch sweep), and ``mpem3_w_kernel`` / ``mpem3_f_kernel`` for f64,
+strided views and the rest.
 The TPU-only machinery around them (lane padding, instance chunking, the
 VMEM admission model) has no counterpart: one thread block (or one cluster)
 owns one instance, and the only admission rule is the 227 KB shared-memory
@@ -47,7 +54,9 @@ __all__ = ["merge_stta_fused", "mpem3_stta_fused", "mpem3_stta_fused_tm",
            "merge_wscan_plain", "merge_fscan_plain", "mpem3_wscan_plain",
            "mpem3_fscan_plain", "merge_f_geometry", "merge_f_staged_macros",
            "merge_f_cluster_macros", "build_merge_f", "merge_w_geometry",
-           "merge_w_staged_macros", "build_merge_w", "SMEM_LIMIT"]
+           "merge_w_staged_macros", "build_merge_w", "mpem3_geometry",
+           "mpem3_staged_macros", "mpem3_layout", "build_mpem3",
+           "MPEM3_LAYOUTS", "SMEM_LIMIT"]
 
 #: dynamic shared memory a scan kernel's block may use: the card's limit
 #: less the kernels' static reduction scratch
@@ -251,6 +260,19 @@ def _merge_w_chunk(DL, DB, Y, q, sr, esize):
     return None
 
 
+def _tile_tasks(rows, cols, batches, tm, tn):
+    return -(-rows // tm) * -(-cols // tn) * batches
+
+
+def _tile_step_cost(cols, tm, tn):
+    """Instructions one tile issues a K step: its FMAs and loads, the loads
+    of a column operand row charged the bank conflict of up to 32
+    neighbouring column tiles TN words apart."""
+    banks = collections.Counter(
+        tn * j % 32 for j in range(min(-(-cols // tn), 32)))
+    return tm * tn + tm + tn * max(banks.values())
+
+
 def _pick_tile(rows, cols, batches, threads, most, one_round=False):
     """(TM, TN) register tile of one product ([rows x cols] per batch): the
     least instructions a thread issues per K step (rounds of tasks times
@@ -263,16 +285,35 @@ def _pick_tile(rows, cols, batches, threads, most, one_round=False):
         for tn in range(1, min(cols, 10) + 1):
             if tm * tn > most:
                 continue
-            tasks = -(-rows // tm) * -(-cols // tn) * batches
+            tasks = _tile_tasks(rows, cols, batches, tm, tn)
             if one_round and tasks > threads:
                 continue
-            banks = collections.Counter(
-                tn * j % 32 for j in range(min(-(-cols // tn), 32)))
-            conflict = max(banks.values())
-            cost = -(-tasks // threads) * (tm * tn + tm + tn * conflict)
+            cost = -(-tasks // threads) * _tile_step_cost(cols, tm, tn)
             if best is None or (cost, -tm * tn) < best[0]:
                 best = ((cost, -tm * tn), (tm, tn))
     return None if best is None else best[1]
+
+
+def _pick_tile_split(rows, cols, batches, k1, k2, threads, most):
+    """(TM, TN, KS) of one product of the staged MPEM3 kernels: K = k1 x k2
+    steps, the k1 ones split over KS neighbouring lanes (a power of two,
+    reduced by warp shuffles, the tasks padded to whole warps) where that
+    costs fewer instructions a thread than one lane a tile; the tile for
+    each KS from :func:`_pick_tile` over ``threads // KS`` lanes."""
+    best = None
+    ks = 1
+    while ks <= min(k1, 32, threads):
+        tm, tn = _pick_tile(rows, cols, batches, threads // ks, most)
+        tasks = _tile_tasks(rows, cols, batches, tm, tn) * ks
+        if ks > 1:
+            tasks = -(-tasks // 32) * 32
+        rounds = -(-tasks // threads)
+        cost = rounds * (-(-k1 // ks) * k2 * _tile_step_cost(cols, tm, tn)
+                         + 2 * tm * tn * (ks.bit_length() - 1))
+        if best is None or cost < best[0]:
+            best = (cost, (tm, tn, ks))
+        ks *= 2
+    return best[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -359,6 +400,174 @@ def _smem_mpem3_f(Db, qi, qj, sr, sl):
             + sl * Db * qi * qj * qi)
 
 
+#: the staged MPEM3 kernels' B_t element orders (``M3_LAYOUT`` 0 and 1): the
+#: message conversion's time-major rows ``(i, j, r, m, n)`` and the belief
+#: conversion's contiguous ``(m, n, i, j, r)``
+MPEM3_LAYOUTS = ("ijrmn", "mnijr")
+#: the FMAs an instance-step above which a staged MPEM3 instance takes two
+#: warps, not one: ``tools/probe_mpem3.py --gt`` timed 32, 64 and 128
+#: threads an instance at D = 8 to 20; one warp was fastest, or within 2%,
+#: at every step of up to 82k FMAs, two at the D=20 steps of 96k to 265k,
+#: four at none; between, one and two came within 8% of each other
+_MPEM3_TWO_WARPS_FMA = 90_000
+#: the most threads of staged MPEM3 blocks an SM holds, so that each may
+#: keep 64 registers: with up to 2,048 (32 registers) ptxas spilled at the
+#: small shapes, which ran up to 30% slower (``tools/probe_mpem3.py``)
+_MPEM3_THREADS_AN_SM = 1024
+
+
+def _smem_mpem3_staged(Db, qi, qj, sr, sl, esize):
+    """(a block's shared elements, an instance's) of the staged MPEM3 F
+    kernel (``sl`` given) or W kernel (``sl`` None), each buffer rounded up
+    to 16 bytes.  F, a block: Phi_t for two steps; an instance: S and S2
+    (rows padded to the odd MI|1), B_t for two steps, W_t, W_{t+1} and
+    W_{t+2}, t1 (rows MI|1), and M and N where they do not fit over the
+    step's B_t buffer.  W, a block: Psi_t for two steps; an instance: W,
+    B_t for two steps, t1 (rows (qj*sr)|1)."""
+    P, MI, v16 = qi * qj, Db * qi, 16 // esize
+
+    def pad(n):
+        return -(-n // v16) * v16
+    nB, nW = pad(Db * Db * P * qi), pad(MI * sr)
+    if sl is None:
+        return 2 * pad(sr * sr * P), nW + 2 * nB + pad(MI * ((qj * sr) | 1))
+    ob = pad(sl * sr) + sl * P * sr
+    return 2 * pad(sl * sl * P), (2 * pad(sl * (MI | 1)) + 2 * nB + 3 * nW
+                                  + pad(sl * P * (MI | 1))
+                                  + (0 if ob <= nB else pad(ob)))
+
+
+def _mpem3_products(Db, qi, qj, sr, sl, layout):
+    """(rows, cols, batches, k1, k2) of each product of the staged F kernel
+    (t1, M, N, S2) or W kernel (t1, W2; ``sl`` None), in the order of
+    their tile macros ``M3_P0_*``, ``M3_P1_*``, ..."""
+    P, MI = qi * qj, Db * qi
+    if sl is None:
+        k = (qi, Db) if layout == "ijrmn" else (Db, qi)
+        return [(Db, sr, P) + k, (Db, sr, qi, qj, sr)]
+    return [(sl, MI, P, Db, 1), (sl, sr, 1, MI, 1), (sl * P, sr, 1, MI, 1),
+            (sl, MI, 1, sl, P)]
+
+
+@functools.lru_cache(maxsize=None)
+def _mpem3_staged_plan(Db, qi, qj, sr, sl, esize, layout, gt=None):
+    """(threads an instance, instances a block, blocks an SM, tiles, shared
+    elements a block) of the staged MPEM3 F kernel (``sl`` given) or W
+    kernel (``sl`` None), or None where one instance's buffers do not fit.
+    An instance takes one warp, or two where its step does more than
+    ``_MPEM3_TWO_WARPS_FMA`` FMAs, unless ``gt`` (threads) is given; a
+    block takes the instances (at most 8) that put the most on an SM, then
+    the most blocks, with at most ``_MPEM3_THREADS_AN_SM`` threads an SM;
+    each product's tile from :func:`_pick_tile_split` (up to 32 outputs in
+    f32, 16 in f64)."""
+    shared, inst = _smem_mpem3_staged(Db, qi, qj, sr, sl, esize)
+    if (shared + inst) * esize > SMEM_LIMIT:
+        return None
+    products = _mpem3_products(Db, qi, qj, sr, sl, layout)
+    if gt is None:
+        fma = sum(r * c * b * k1 * k2 for r, c, b, k1, k2 in products)
+        gt = 64 if fma > _MPEM3_TWO_WARPS_FMA else 32
+    best = None
+    for ipb in range(1, min(8, 1024 // gt) + 1):
+        smem = (shared + ipb * inst) * esize
+        if smem > SMEM_LIMIT:
+            break
+        blocks = min(build.SMEM_PER_SM // (smem + build.SMEM_RESERVED),
+                     _MPEM3_THREADS_AN_SM // (ipb * gt))
+        key = (blocks * ipb, blocks)
+        if best is None or key > best[0]:
+            best = (key, ipb, blocks, smem)
+    _, ipb, blocks, smem = best
+    most = 32 if esize == 4 else 16
+    tiles = tuple(_pick_tile_split(*p, gt, most) for p in products)
+    return gt, ipb, blocks, tiles, smem // esize
+
+
+def mpem3_geometry(Db, qi, qj, sr, sl, dtype, layout, variant=None):
+    """(variant, threads a block, shared-memory bytes a block) of the MPEM3
+    F kernel (``sl`` given) or W kernel (``sl`` None) for one shape:
+    ``"staged"`` (``mpem3_f_staged_kernel`` / ``mpem3_w_staged_kernel``,
+    built per shape) for f32 where B_t is one dense, 16-byte-aligned run an
+    instance-step (``layout`` one of :data:`MPEM3_LAYOUTS`, not None) and
+    the buffers fit; else ``"base"`` (``mpem3_f_kernel`` /
+    ``mpem3_w_kernel``: f64, strided views and the rest).  ``variant``
+    forces one of the two.  Raises ``ValueError`` where the kernel does not
+    fit (or the forced staged one cannot read B_t)."""
+    esize = 4 if dtype == torch.float32 else 8
+    what = "MPEM3 W scan" if sl is None else "MPEM3 F scan"
+    if variant is None:
+        variant = "staged" if esize == 4 and layout is not None else "base"
+        if variant == "staged" and _mpem3_staged_plan(
+                Db, qi, qj, sr, sl, esize, layout) is None:
+            variant = "base"
+    if variant == "staged":
+        if layout not in MPEM3_LAYOUTS:
+            raise ValueError(f"{what}: the staged kernel needs B_t as one "
+                             "dense, 16-byte-aligned run an instance-step "
+                             f"in one of {MPEM3_LAYOUTS}")
+        plan = _mpem3_staged_plan(Db, qi, qj, sr, sl, esize, layout)
+        if plan is None:
+            shared, inst = _smem_mpem3_staged(Db, qi, qj, sr, sl, esize)
+            nbytes = (shared + inst) * esize
+        else:
+            return "staged", plan[0] * plan[1], plan[4] * esize
+    else:
+        nbytes = esize * (_smem_mpem3_w(Db, qi, qj, sr) if sl is None
+                          else _smem_mpem3_f(Db, qi, qj, sr, sl))
+        if nbytes <= SMEM_LIMIT:
+            return "base", _MPEM3_THREADS, nbytes
+    raise ValueError(f"{what}: needs {nbytes} bytes of shared memory per "
+                     f"block, over the {SMEM_LIMIT}-byte limit")
+
+
+def mpem3_staged_macros(Db, qi, qj, sr, sl, dtype, layout, gt=None):
+    """The macros ``mpem3_staged.cu`` is built with for one shape: the
+    staged F kernel's (``sl`` given) or W kernel's (``sl`` None, built as
+    ``M3_SL=0``): its sizes, its element type, B_t's element order
+    (``M3_LAYOUT``), the threads an instance (``M3_GT``; ``gt`` overrides
+    the plan's, for the probe), the instances a block (``M3_IPB``), the
+    blocks an SM (``M3_MINB``, the register budget) and each product's tile
+    and K split.  Raises ``ValueError`` where it does not fit."""
+    esize = 4 if dtype == torch.float32 else 8
+    mpem3_geometry(Db, qi, qj, sr, sl, dtype, layout, "staged")  # raises
+    gt, ipb, blocks, tiles, _ = _mpem3_staged_plan(Db, qi, qj, sr, sl,
+                                                   esize, layout, gt)
+    out = [f"M3_T={'float' if esize == 4 else 'double'}", f"M3_DB={Db}",
+           f"M3_QI={qi}", f"M3_QJ={qj}", f"M3_SR={sr}", f"M3_SL={sl or 0}",
+           f"M3_LAYOUT={MPEM3_LAYOUTS.index(layout)}", f"M3_GT={gt}",
+           f"M3_IPB={ipb}", f"M3_MINB={blocks}"]
+    for k, (tm, tn, ks) in enumerate(tiles):
+        out += [f"M3_P{k}_TM={tm}", f"M3_P{k}_TN={tn}", f"M3_P{k}_KS={ks}"]
+    return tuple(out)
+
+
+def build_mpem3(shapes):
+    """Build, all at once, the staged MPEM3 libraries of the shapes ``(Db,
+    qi, qj, sr, sl, dtype, layout)`` (``sl`` None for the W kernel)."""
+    build.build_all([("mpem3_staged", mpem3_staged_macros(*shape))
+                     for shape in shapes])
+
+
+def mpem3_layout(B1, *others):
+    """B1's B_t element order (one of :data:`MPEM3_LAYOUTS`) where each
+    instance-step [Db, Db, qi, qj, qi] is one dense run and every tensor of
+    B1 and ``others`` (the contiguous streamed operands) starts on 16
+    bytes, with B1's instance and time strides whole 16-byte chunks; else
+    None.  Axes of size one match any stride."""
+    Bn, S, Db, _, qi, qj, _ = B1.shape
+    esize = B1.element_size()
+    shape, st = B1.shape, B1.stride()
+    orders = {"ijrmn": (Db, 1, qj * qi * Db * Db, qi * Db * Db, Db * Db),
+              "mnijr": (Db * qi * qj * qi, qi * qj * qi, qj * qi, qi, 1)}
+    if any(t.data_ptr() % 16 for t in (B1,) + others) or any(
+            shape[a] > 1 and st[a] * esize % 16 for a in (0, 1)):
+        return None
+    for name, inner in orders.items():
+        if all(shape[2 + a] == 1 or st[2 + a] == inner[a] for a in range(5)):
+            return name
+    return None
+
+
 def _on_cpu(*ts) -> bool:
     devs = {t.device.type for t in ts}
     if devs == {"cpu"}:
@@ -391,14 +600,6 @@ def _check_contiguous(**ts):
 
 def _strides(t):
     return (ctypes.c_longlong * t.ndim)(*t.stride())
-
-
-def _smem_bytes(elems, dtype, what):
-    nbytes = elems * (4 if dtype == torch.float32 else 8)
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"{what}: needs {nbytes} bytes of shared memory per "
-                         f"block, over the {SMEM_LIMIT}-byte limit")
-    return nbytes
 
 
 def _stream(t):
@@ -483,9 +684,11 @@ def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init, _variant=None):
     return Ns, Ms
 
 
-def mpem3_wscan(B1, Psi):
+def mpem3_wscan(B1, Psi, _variant=None):
     """Reverse MPEM3 scan; arguments and result as
-    :func:`mpem3_wscan_plain`.  B1 may be a strided view."""
+    :func:`mpem3_wscan_plain`.  B1 may be a strided view.  On the card it
+    launches the kernel :func:`mpem3_geometry` picks (``_variant`` forces
+    one, for tests)."""
     if _on_cpu(B1, Psi):
         return mpem3_wscan_plain(B1, Psi)
     code = _dtype_code(B1, Psi)
@@ -494,22 +697,33 @@ def mpem3_wscan(B1, Psi):
     _check_shape("B1", B1, (Bn, S, Db, Db, qi, qj, qi))
     _check_shape("Psi", Psi, (S, sr, sr, qi, qj))
     _check_contiguous(Psi=Psi)
-    smem = _smem_bytes(_smem_mpem3_w(Db, qi, qj, sr), B1.dtype,
-                       "MPEM3 W scan")
+    layout = mpem3_layout(B1, Psi)
+    variant, threads, smem = mpem3_geometry(Db, qi, qj, sr, None, B1.dtype,
+                                            layout, _variant)
     Ws = B1.new_empty((Bn, S, Db, qi, sr))
     if Bn == 0 or S == 0:
         return Ws
-    rc = build.library("stta_scans").stta_mpem3_w(
-        code, B1.data_ptr(), _strides(B1), Psi.data_ptr(), Ws.data_ptr(),
-        Bn, S, Db, qi, qj, sr, _MPEM3_THREADS, smem, _stream(B1))
+    if variant == "staged":
+        lib = build.library("mpem3_staged", mpem3_staged_macros(
+            Db, qi, qj, sr, None, B1.dtype, layout))
+        rc = lib.mpem3_w_staged(B1.data_ptr(), _strides(B1), Psi.data_ptr(),
+                                Ws.data_ptr(), Bn, S, Db, qi, qj, sr, smem,
+                                _stream(B1))
+    else:
+        rc = build.library("stta_scans").stta_mpem3_w(
+            code, B1.data_ptr(), _strides(B1), Psi.data_ptr(),
+            Ws.data_ptr(), Bn, S, Db, qi, qj, sr, threads, smem,
+            _stream(B1))
     _raise_on(rc, "MPEM3 W scan")
     mpem3_wscan.launches += 1
+    mpem3_wscan.variant_launches[variant] += 1
     return Ws
 
 
-def mpem3_fscan(B1, Phi, Ws, S_init):
+def mpem3_fscan(B1, Phi, Ws, S_init, _variant=None):
     """Forward MPEM3 scan; arguments and results as
-    :func:`mpem3_fscan_plain`."""
+    :func:`mpem3_fscan_plain`.  On the card it launches the kernel
+    :func:`mpem3_geometry` picks (``_variant`` forces one, for tests)."""
     if _on_cpu(B1, Phi, Ws, S_init):
         return mpem3_fscan_plain(B1, Phi, Ws, S_init)
     code = _dtype_code(B1, Phi, Ws, S_init)
@@ -520,18 +734,26 @@ def mpem3_fscan(B1, Phi, Ws, S_init):
     _check_shape("Ws", Ws, (Bn, S, Db, qi, sr))
     _check_shape("S_init", S_init, (Bn, sl, Db, qi))
     _check_contiguous(Phi=Phi, Ws=Ws, S_init=S_init)
-    smem = _smem_bytes(_smem_mpem3_f(Db, qi, qj, sr, sl), B1.dtype,
-                       "MPEM3 F scan")
+    layout = mpem3_layout(B1, Phi, Ws)
+    variant, threads, smem = mpem3_geometry(Db, qi, qj, sr, sl, B1.dtype,
+                                            layout, _variant)
     Ns = B1.new_empty((Bn, S, sl, qi, qj, sr))
     Ms = B1.new_empty((Bn, S, sl, sr))
     if Bn == 0 or S == 0:
         return Ns, Ms
-    rc = build.library("stta_scans").stta_mpem3_f(
-        code, B1.data_ptr(), _strides(B1), Phi.data_ptr(), Ws.data_ptr(),
-        S_init.data_ptr(), Ns.data_ptr(), Ms.data_ptr(), Bn, S, Db, qi, qj,
-        sr, sl, _MPEM3_THREADS, smem, _stream(B1))
+    args = (B1.data_ptr(), _strides(B1), Phi.data_ptr(), Ws.data_ptr(),
+            S_init.data_ptr(), Ns.data_ptr(), Ms.data_ptr(), Bn, S, Db, qi,
+            qj, sr, sl)
+    if variant == "staged":
+        lib = build.library("mpem3_staged", mpem3_staged_macros(
+            Db, qi, qj, sr, sl, B1.dtype, layout))
+        rc = lib.mpem3_f_staged(*args, smem, _stream(B1))
+    else:
+        rc = build.library("stta_scans").stta_mpem3_f(
+            code, *args, threads, smem, _stream(B1))
     _raise_on(rc, "MPEM3 F scan")
     mpem3_fscan.launches += 1
+    mpem3_fscan.variant_launches[variant] += 1
     return Ns, Ms
 
 
@@ -542,6 +764,10 @@ for _w in (merge_wscan, merge_fscan, mpem3_wscan, mpem3_fscan):
 merge_fscan.variant_launches = {"staged": 0, "cluster": 0, "base": 0}
 #: merge W launches by kernel: "staged" and "base" (see merge_w_geometry)
 merge_wscan.variant_launches = {"staged": 0, "base": 0}
+#: MPEM3 W and F launches by kernel: "staged" and "base" (see
+#: mpem3_geometry)
+mpem3_wscan.variant_launches = {"staged": 0, "base": 0}
+mpem3_fscan.variant_launches = {"staged": 0, "base": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,11 @@ ragged batch, every third instance rank 1, with Q finite, Q^T Q - I <=
 1e-4 and Q R - A <= 1e-5 of max |A| on the Gaussian ones) and the
 Jacobi eigen kernel (f64, 1e-10 relative in eigenvalues and in the
 reconstruction, V orthonormal to 1e-10; Gaussian, degenerate, zero and
-diagonal inputs at k = 1..64 and ragged batches).  Marked ``gpu``; skips
+diagonal inputs at k = 1..64 and ragged batches), and the staged MPEM3
+W and F kernels (f32, 1e-4 of max-abs, against the plain scans at both
+launches of a sketch sweep at every D from 4 to 20, S = 1, a ragged batch,
+zero and non-finite instances; strided and f64 inputs taking the first
+designs).  Marked ``gpu``; skips
 from its fixture when no CUDA device is present.  Needs no JAX: on the
 card run it with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``.
@@ -284,6 +288,158 @@ def test_oversized_shape_raises(cuda):
     Th = torch.zeros(1, 40, 40, 2, 2, 2, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         fs.merge_wscan(L, L, Th)
+
+
+# the staged MPEM3 kernels: both launches of a sketch sweep at every bond D
+# from 4 to 20 (the message conversion, qj = 2, B_t in the time-major
+# (i, j, r, m, n) rows; the belief conversion, qj = 1, contiguous
+# (m, n, i, j, r)), and each layout with the other qj at D = 10
+MPEM3_STAGED = ([(D, 2, "ijrmn") for D in range(4, 21)]
+                + [(D, 1, "mnijr") for D in range(4, 21)]
+                + [(10, 1, "ijrmn"), (10, 2, "mnijr")])
+
+
+def _mpem3_dims(D, qj):
+    """(Db, qi, qj, sr, sl) of a sketch sweep's conversion to bond D."""
+    return D, 2, qj, D, D + 4
+
+
+@pytest.fixture(scope="module")
+def mpem3_builds():
+    """The staged MPEM3 W and F kernels at every shape below, built at
+    once."""
+    if torch.cuda.is_available():
+        shapes = []
+        for D, qj, layout in MPEM3_STAGED:
+            Db, qi, qj, sr, sl = _mpem3_dims(D, qj)
+            shapes += [(Db, qi, qj, sr, s, torch.float32, layout)
+                       for s in (None, sl)]
+        fs.build_mpem3(shapes)
+
+
+def _mpem3_inputs(Bn, S, Db, qi, qj, sr, sl, layout, dtype, dev, seed=2):
+    """B1 in ``layout`` (the sweep's strided views), Psi, Phi, S_init."""
+    g = torch.Generator().manual_seed(seed)
+    if layout == "ijrmn":
+        B1 = _randn(g, S + 1, Bn, qi * qj * qi * Db * Db).to(dev, dtype) \
+            .reshape(S + 1, Bn, qi, qj, qi, Db, Db) \
+            .permute(1, 0, 5, 6, 2, 3, 4)[:, 1:]
+    else:
+        B1 = _randn(g, Bn, S + 1, Db, Db, qi, qj, qi).to(dev, dtype)[:, 1:]
+    return (B1, _randn(g, S, sr, sr, qi, qj).to(dev, dtype),
+            _randn(g, S, sl, sl, qi, qj).to(dev, dtype),
+            _randn(g, Bn, sl, Db, qi).to(dev, dtype))
+
+
+def _mpem3_run(B1, Psi, Phi, S0, variant=None):
+    """Ws, Ns, Ms through the kernels, checking that each scan counted one
+    launch of ``variant`` (the picked kernel where None)."""
+    out = []
+    for w, args in ((fs.mpem3_wscan, (B1, Psi)), (fs.mpem3_fscan, None)):
+        before = dict(w.variant_launches)
+        res = w(*(args or (B1, Phi, out[0], S0)), _variant=variant)
+        v = variant or "staged"
+        assert w.variant_launches == {**before, v: before[v] + 1}
+        out += [res] if args else list(res)
+    return out
+
+
+def _mpem3_plain(B1, Psi, Phi, S0):
+    Wp = fs.mpem3_wscan_plain(B1, Psi)
+    return [Wp, *fs.mpem3_fscan_plain(B1, Phi, Wp, S0)]
+
+
+@pytest.mark.parametrize("D,qj,layout", MPEM3_STAGED,
+                         ids=lambda x: str(x))
+def test_mpem3_staged_f32_sketch_shapes(cuda, mpem3_builds, D, qj, layout):
+    """Both staged kernels (picked by default) against the plain scans,
+    1e-4 of max-abs; 37 instances leave the last block ragged."""
+    args = _mpem3_inputs(37, 15, *_mpem3_dims(D, qj), layout, torch.float32,
+                         cuda)
+    assert fs.mpem3_layout(args[0], args[1], args[2]) == layout
+    _assert_close(_mpem3_run(*args), _mpem3_plain(*args), 1e-4)
+
+
+@pytest.mark.parametrize("qj,layout", [(2, "ijrmn"), (1, "mnijr")])
+def test_mpem3_staged_one_step_and_ragged(cuda, mpem3_builds, qj, layout):
+    """S = 1 (only the one-hot W_{T1}, nothing to prefetch) and a batch of
+    one, then of five, at D = 10 and 20."""
+    for D in (10, 20):
+        for Bn, S in ((5, 1), (1, 4)):
+            args = _mpem3_inputs(Bn, S, *_mpem3_dims(D, qj), layout,
+                                 torch.float32, cuda)
+            _assert_close(_mpem3_run(*args), _mpem3_plain(*args), 1e-4)
+
+
+@pytest.mark.parametrize("qj,layout", [(2, "ijrmn"), (1, "mnijr")])
+def test_mpem3_staged_safe_scale(cuda, mpem3_builds, qj, layout):
+    """The _safe_scale guard: an instance whose B_t are all zero (every
+    max 0, scale 1) and one with an inf in its last step's B_t and a NaN in
+    its first (non-finite max, scale 1), among Gaussian ones.  The other
+    instances match the plain scans (1e-4 of their max-abs); the two
+    guarded ones match them wherever the plain scans are finite, and are
+    non-finite exactly where the first-design kernels are (both write N's
+    one-hot products at the last step as exact zeros where the plain
+    einsum multiplies a NaN by 0)."""
+    args = _mpem3_inputs(9, 6, *_mpem3_dims(10, qj), layout, torch.float32,
+                         cuda)
+    B1 = args[0]
+    B1[3] = 0.0
+    B1[5, -1, 0, 0, 0, 0, 0] = float("inf")
+    B1[5, 0, 1, 1, 0, 0, 1] = float("nan")
+    out, ref = _mpem3_run(*args), _mpem3_plain(*args)
+    base = _mpem3_run(*args, variant="base")
+    keep = torch.tensor([z not in (3, 5) for z in range(9)], device=cuda)
+    _assert_close([o[keep] for o in out], [r[keep] for r in ref], 1e-4)
+    for o, r, b in zip(out, ref, base):
+        assert torch.equal(torch.isfinite(o), torch.isfinite(b))
+        fin = torch.isfinite(r)
+        assert float((o[fin] - r[fin]).abs().max()) <= 1e-4 * float(
+            r[fin].abs().max())
+    assert bool(torch.isfinite(out[0][3]).all())
+
+
+def test_mpem3_strided_and_f64_take_the_base_kernels(cuda, mpem3_builds):
+    """A B1 whose instance-steps are not dense runs, and f64, take the
+    first-design kernels; forcing the staged one on the strided view
+    raises."""
+    args = _mpem3_inputs(6, 4, *_mpem3_dims(10, 2), "mnijr", torch.float32,
+                         cuda)
+    wide = torch.zeros(6, 4, 10, 10, 2, 2, 4, device=cuda)
+    wide[..., :2] = args[0]
+    strided = wide[..., :2]
+    assert fs.mpem3_layout(strided) is None
+    sargs = (strided,) + args[1:]
+    _assert_close(_mpem3_run(*sargs, variant="base"), _mpem3_plain(*sargs),
+                  1e-4)
+    before = dict(fs.mpem3_wscan.variant_launches)
+    fs.mpem3_wscan(strided, args[1])
+    assert fs.mpem3_wscan.variant_launches == {
+        **before, "base": before["base"] + 1}
+    with pytest.raises(ValueError, match="dense"):
+        fs.mpem3_wscan(strided, args[1], _variant="staged")
+    d64 = [a.double() for a in args]
+    before = dict(fs.mpem3_fscan.variant_launches)
+    Wp = fs.mpem3_wscan(d64[0], d64[1])
+    fs.mpem3_fscan(d64[0], d64[2], Wp, d64[3])
+    assert fs.mpem3_fscan.variant_launches == {
+        **before, "base": before["base"] + 1}
+
+
+def test_mpem3_staged_refuses_another_shape(cuda, mpem3_builds):
+    """A staged MPEM3 library is built for one shape and B_t layout; its
+    launcher refuses any other (cudaErrorInvalidValue) and launches
+    nothing."""
+    from matrixproductbp_tpu_torch.ops import build
+    lib = build.library("mpem3_staged", fs.mpem3_staged_macros(
+        10, 2, 2, 10, 14, torch.float32, "ijrmn"))
+    other = fs._strides(torch.empty(1, 1, 8, 8, 2, 2, 2))
+    assert lib.mpem3_f_staged(0, other, 0, 0, 0, 0, 0, 1, 1, 8, 2, 2, 8, 12,
+                              1024, 0) == 1
+    own = fs._strides(torch.empty(1, 1, 10, 10, 2, 2, 2))   # (m,n,i,j,r)
+    assert lib.mpem3_f_staged(0, own, 0, 0, 0, 0, 0, 1, 1, 10, 2, 2, 10, 14,
+                              1024, 0) == 1
+    assert not hasattr(lib, "mpem3_w_staged")
 
 
 @pytest.mark.parametrize("dtype,shape", [
