@@ -10,7 +10,10 @@ drives the main paths (SIS on a random 3-regular graph, N=4096, T=15, f32:
 and D=20; the same at N=128 and D=20, one randomized sweep against its
 plain version; a 4-node tree against enumeration, with
 ``iterate(polish=2)``; the karate-club graph with two ``qr`` polish
-sweeps), checks the results, and times each kernel beside its bound.
+sweeps; homogeneous Glauber dynamics on an Erdos-Renyi graph, N=5000,
+T=15, D=10, through the banded merge; SIRS on the 3-regular graph at D=10
+and D=20, through per-node tables), checks the results, and times each
+kernel beside its bound.
 Each path runs with the launch counts set to 0 just before it and read
 just after.  One JSON line per phase; any failed phase raises.
 The second-to-last line is the ``kernels`` record, the line before it the
@@ -36,6 +39,15 @@ FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 67e12
 
 BENCH_N, BENCH_DEG, BENCH_T = 4096, 3, 15
+# Glauber dynamics on Erdos-Renyi (examples/glauber_erdos_renyi.py's
+# constants; the reference's D=18 does not fit the merge kernels at the
+# graph's Y=10, so D=10)
+GLAUBER_N, GLAUBER_C, GLAUBER_T, GLAUBER_D = 5000, 2.5, 15, 10
+GLAUBER_J, GLAUBER_H, GLAUBER_BETA = 1.0, 0.1, 0.6
+TIMED_SWEEPS_GLAUBER = 3
+# SIRS on the bench's 3-regular graph, tables from build_tables
+SIRS_LAM, SIRS_RHO, SIRS_SIGMA = 0.2, 0.1, 0.05
+TIMED_SWEEPS_SIRS = {10: 3, 20: 2}
 TIMED_SWEEPS_D10, TIMED_SWEEPS_D20 = 3, 2
 TIMED_RANDOMIZED_D10, TIMED_RANDOMIZED_D20 = 2, 1
 # the D=20 randomized sweep held to its plain version (the plain Jacobi
@@ -102,6 +114,31 @@ def mpem3_dims(D, qi=2, qj=2):
     return dict(Db=D, qi=qi, qj=qj, sr=sr, sl=min(sr + 4, D * qi))
 
 
+def band_pairs(Y, off=0):
+    """The (y, v) pairs of the sum-type band ``0 <= y + off - v < Y``: the
+    entries of the band's dense Pyy that are not zero, for each x."""
+    return sum(1 for y in range(Y) for v in range(Y) if 0 <= y + off - v < Y)
+
+
+def banded_merge_inputs(Bn, S, DL, DB, Y, q, sr, sl, device, seed, off=0):
+    """Random f32 merge-scan inputs with the banded merge's Th (``y_expand``
+    of a Gaussian psi) and Pyy (the band indicator), as the sweep feeds a
+    Glauber bucket's merges; L1/B1 are strided views."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import sumy
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64)  # noqa
+    f32 = torch.float32
+    L = r(Bn, S + 1, DL, DL, Y, q).to(device, f32)
+    B = r(Bn, S + 1, DB, DB, Y, q).to(device, f32)
+    Th = sumy.y_expand(r(S, sr, sr, Y, q).to(device, f32), off, axis=3,
+                       mode="sum").contiguous()
+    Pyy = sumy.band_indicator(Y, off, q, f32, device)
+    Phi = r(S, sl, sl, Y, q).to(device, f32)
+    S_init = r(Bn, sl, DL, DB).to(device, f32)
+    return L[:, 1:], B[:, 1:], Th, Pyy, Phi, S_init
+
+
 def merge_inputs(Bn, S, DL, DB, Y, q, sr, sl, dtype, device, seed):
     """Random merge-scan inputs; L1/B1 are strided views as in the sweep."""
     import torch
@@ -119,9 +156,9 @@ def merge_inputs(Bn, S, DL, DB, Y, q, sr, sl, dtype, device, seed):
 
 def mpem3_layout_of(qj):
     """The B_t layout a sketch sweep hands each conversion: the message
-    conversion (qj = 2) the time-major rows ``(i, j, r, m, n)``, the belief
-    conversion (qj = 1) the contiguous ``(m, n, i, j, r)``."""
-    return "ijrmn" if qj == 2 else "mnijr"
+    conversion (qj = q > 1) the time-major rows ``(i, j, r, m, n)``, the
+    belief conversion (qj = 1) the contiguous ``(m, n, i, j, r)``."""
+    return "ijrmn" if qj > 1 else "mnijr"
 
 
 def mpem3_inputs(Bn, S, Db, qi, qj, sr, sl, dtype, device, seed):
@@ -144,19 +181,26 @@ def mpem3_inputs(Bn, S, Db, qi, qj, sr, sl, dtype, device, seed):
     return B1, Psi, Phi, S_init
 
 
-def work_merge_w(Bn, S, DL, DB, Y, q, sr, sl, esize):
-    fma = q * (DB * DL * Y * sr * DB + DB * DL * Y * sr * Y * sr
+def work_merge_w(Bn, S, DL, DB, Y, q, sr, sl, esize, band=None):
+    """FLOPs and bytes of the merge W scan; ``band`` (the band's (u, v)
+    pairs, :func:`band_pairs`) counts the banded Th's product by its pairs
+    alone, not all Y * Y."""
+    uv = Y * Y if band is None else band
+    fma = q * (DB * DL * Y * sr * DB + DB * DL * sr * uv * sr
                + DL * DB * sr * DL * Y)
     nbytes = esize * (2 * Bn * S * DL * DL * Y * q + S * sr * sr * Y * Y * q
                       + Bn * S * DL * DB * sr)
     return 2 * fma * Bn * S, nbytes
 
 
-def work_merge_f(Bn, S, DL, DB, Y, q, sr, sl, esize):
+def work_merge_f(Bn, S, DL, DB, Y, q, sr, sl, esize, band=None):
+    """FLOPs and bytes of the merge F scan; with ``band`` (the band
+    indicator's pairs) Bp is a relabelling of B_t (no operations) and t2
+    sums over the band's pairs alone."""
     nS = sl * DL * DB
-    per_step = (sl * sr * DL * DB
-                + q * (nS * Y * DL
-                       + Y * (DB * DB * Y * Y + nS * DB * Y + nS * sl)))
+    yy = (Y * (DB * DB * Y * Y + nS * DB * Y) if band is None
+          else nS * DB * band)
+    per_step = (sl * sr * DL * DB + q * (nS * Y * DL + yy + Y * nS * sl))
     n_fma = q * Y * sl * sr * DL * DB                       # N, not at s=S-1
     flops = 2 * Bn * (S * per_step + (S - 1) * n_fma)
     nbytes = esize * (2 * Bn * S * DL * DL * Y * q + Y * Y * Y * q
@@ -299,8 +343,11 @@ def per_shape_builds():
     staged merge W kernel at the D=20 one (the D=20 sweep), all three at
     phase_kernels' f64 merges, the staged CholQR kernel at the
     randomized merge's [4s, s], s = 2D, at D=10 and D=20 (the only shapes
-    the randomized sweeps here launch), and the staged MPEM3 W and F
-    kernels at both conversions of the D=10 and D=20 sketch sweeps."""
+    the randomized sweeps here launch), the staged MPEM3 W and F
+    kernels at both conversions of the D=10 and D=20 sketch sweeps, at
+    q = 2 and (SIRS) q = 3, and the merge F kernel ``merge_f_geometry``
+    picks for each bucket of the Glauber sweep (Y = 3, 5, 9, 10) and for
+    the SIRS merges at D=10."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     from matrixproductbp_tpu_torch.ops import kernels
@@ -317,12 +364,17 @@ def per_shape_builds():
     out += [("cholqr_staged", kernels.cholqr_staged_macros(m, n))
             for m, n in ((80, 20), (160, 40))]
     for D in (10, 20):
-        for qj in (2, 1):
-            d = mpem3_dims(D, qj=qj)
+        for qi, qj in ((2, 2), (2, 1), (3, 3), (3, 1)):
+            d = mpem3_dims(D, qi=qi, qj=qj)
             out += [("mpem3_staged", fs.mpem3_staged_macros(
-                d["Db"], d["qi"], qj, d["sr"], sl, torch.float32,
+                d["Db"], qi, qj, d["sr"], sl, torch.float32,
                 mpem3_layout_of(qj))) for sl in (None, d["sl"])]
-    return out
+    for Y, q in ((3, 2), (5, 2), (9, 2), (10, 2), (2, 3)):
+        shape = (*merge_dims(GLAUBER_D, Y, q).values(), torch.float32)
+        picked = fs.merge_f_geometry(*shape)[0]
+        if picked != "base":
+            out.append(fs._merge_f_target(picked, shape))
+    return list(dict.fromkeys(out))
 
 
 def phase_build():
@@ -739,10 +791,11 @@ def phase_main_d10():
     return res["launches"], bp1
 
 
-def phase_profile(bp, method="sketch"):
-    """One sweep of the bench state ``bp`` (D=10, or D=20 for the sketch
-    path) under torch.profiler: device time by kernel name and the
-    device's busy share of the (profiled) wall time."""
+def phase_profile(bp, method="sketch", label=None):
+    """One sweep of the state ``bp`` (the bench state at D=10, or D=20 for
+    the sketch path; the Glauber and SIRS states, named by ``label``) under
+    torch.profiler: device time by kernel name and the device's busy share
+    of the (profiled) wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import matrixproductbp_tpu_torch as tp
@@ -775,7 +828,8 @@ def phase_profile(bp, method="sketch"):
     svd_s, svd_n = named("jacobi_eigh_kernel", "gesvd", "syevj", "syevd")
     qr_s, qr_n = named("cholqr_kernel<", "cholqr_staged_kernel(", "geqrf",
                        "orgqr", "ormqr", "householder")
-    emit(f"profile_{method}_d{bp.D}", wall_s=wall, device_busy_s=busy,
+    emit(label or f"profile_{method}_d{bp.D}", wall_s=wall,
+         device_busy_s=busy,
          busy_share=busy / wall, hand_kernels_s=ours_s,
          svd_launches=svd_n, svd_device_s=svd_s, qr_launches=qr_n,
          qr_device_s=qr_s, kernels_named=len(rows),
@@ -899,6 +953,289 @@ def phase_karate():
          buckets=[int(k) for _, k in tp.bp._degree_buckets(g)])
 
 
+_PLAIN_SCANS = ("merge_wscan_plain", "merge_fscan_plain",
+                "mpem3_wscan_plain", "mpem3_fscan_plain")
+
+
+@contextlib.contextmanager
+def count_plain_scans():
+    """Count the calls of the four plain scans (in ``fused_stta`` and
+    ``stta``, the modules that call them) while the block runs: a sweep on
+    the card must make none."""
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    from matrixproductbp_tpu_torch.ops import stta
+    calls = dict.fromkeys(_PLAIN_SCANS, 0)
+    saved = [(m, n, getattr(m, n)) for m in (fs, stta) for n in _PLAIN_SCANS]
+
+    def counted(name, fn):
+        def run(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return run
+    try:
+        for m, n, fn in saved:
+            setattr(m, n, counted(n, fn))
+        yield calls
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def count_by_bucket():
+    """Launches by kernel and by degree bucket while the block runs:
+    {"K<slots>_Y<y-axis>": {"updates": groups updated, "nodes": ...,
+    kernel: launches}}, read around each call of the sweep's per-group
+    update (``bp._update_nodes``)."""
+    from matrixproductbp_tpu_torch import bp as tbp
+    update = tbp._update_nodes
+    rec = {}
+
+    def counted(bp, idx, Kb, Yb, *a, **k):
+        before = read_counts()
+        update(bp, idx, Kb, Yb, *a, **k)
+        after = read_counts()
+        r = rec.setdefault(f"K{Kb}_Y{Yb}", {"updates": 0, "nodes": 0})
+        r["updates"] += 1
+        r["nodes"] += len(idx)
+        for name, n in after.items():
+            if n != before[name]:
+                r[name] = r.get(name, 0) + n - before[name]
+    try:
+        tbp._update_nodes = counted
+        yield rec
+    finally:
+        tbp._update_nodes = update
+
+
+def merges_per_update(Kb):
+    """Merge calls one bucket update makes: none at one slot, the full fold
+    at two, the direct all-pairs cavity's three at three, and above that
+    K-1 prefix, K-2 suffix and K-2 interior merges."""
+    return {1: 0, 2: 1, 3: 3}.get(Kb, 3 * Kb - 5)
+
+
+def bucket_wants(Kb, Yb, q, D, updates):
+    """The launches a bucket's ``updates`` group updates must make: its
+    merges on the merge W and F kernels the geometry picks for (Y, q, D),
+    and both conversions on the staged MPEM3 kernels."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    shape = (*merge_dims(D, Yb, q).values(), torch.float32)
+    w = fs.merge_w_geometry(*shape[:5], shape[6])[0]
+    f = fs.merge_f_geometry(*shape)[0]
+    m = merges_per_update(Kb) * updates
+    want = {"mpem3_w_staged": 2 * updates, "mpem3_f_staged": 2 * updates}
+    if m:
+        want.update({"merge_w" + ("_staged" if w == "staged" else ""): m,
+                     "merge_f" + ("" if f == "base" else "_" + f): m})
+    return want
+
+
+def timed_model_sweeps(bp0, sweeps, check_plain=True):
+    """Warm-up sweep, then ``sweeps`` timed sketch sweeps of ``bp0`` (at its
+    bond) with the launch counts set to 0 just before and read just after,
+    by kernel and by bucket, and the plain scans' calls counted (none
+    allowed); then one sweep from ``bp0`` through the plain scans held to
+    the warm-up sweep."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    torch.cuda.empty_cache()       # the cached blocks of earlier phases
+    trunc = tp.TruncBond(bp0.D)
+    bp1 = tp.bp_sweep(bp0, trunc, method="sketch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with count_plain_scans() as plain, count_by_bucket() as buckets:
+        t0 = time.perf_counter()
+        cur = bp1
+        for _ in range(sweeps):
+            cur = tp.bp_sweep(cur, trunc, method="sketch")
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / sweeps
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    b = tp.beliefs(cur)
+    check(bool(torch.isfinite(b).all()) and bool(torch.isfinite(cur.f).all()),
+          "beliefs or f not finite")
+    E = bp0.graph.E
+    res = {"N": bp0.N, "E": E, "T": bp0.T, "D": bp0.D, "q": bp0.q,
+           "sweeps": sweeps, "s_per_sweep": dt, "edge_updates_per_s": E / dt,
+           "peak_bytes": peak, "launches": counts, "by_bucket": buckets,
+           "plain_scan_calls": plain}
+    if check_plain:
+        t0 = time.perf_counter()
+        with plain_scans():
+            bp1p = tp.bp_sweep(bp0, trunc, method="sketch")
+        torch.cuda.synchronize()
+        res.update(plain_sweep_s=time.perf_counter() - t0,
+                   one_sweep_belief_diff_vs_plain=float(
+                       (tp.beliefs(bp1) - tp.beliefs(bp1p)).abs().max()),
+                   tol=TOL_SWEEP_BELIEFS)
+    return cur, res
+
+
+def check_buckets(res, q, what):
+    """Every bucket's launches are the ones :func:`bucket_wants` names, no
+    plain scan ran, and the totals add up."""
+    check(not any(res["plain_scan_calls"].values()),
+          f"{what}: plain scans ran on the card: {res['plain_scan_calls']}")
+    total = {}
+    for key, got in res["by_bucket"].items():
+        Kb, Yb = (int(v[1:]) for v in key.split("_"))
+        want = bucket_wants(Kb, Yb, q, res["D"], got["updates"])
+        seen = {k: v for k, v in got.items() if k not in ("updates", "nodes")}
+        check(seen == want, f"{what}: bucket {key} launched {seen}, want "
+                            f"{want}")
+        for k, v in seen.items():
+            total[k] = total.get(k, 0) + v
+    check(total == {k: v for k, v in res["launches"].items() if v},
+          f"{what}: bucket launches {total} != {res['launches']}")
+
+
+def glauber_state(N=GLAUBER_N, D=GLAUBER_D):
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.models import Glauber, Ising, mpbp_glauber
+    g = tp.erdos_renyi_graph(N, GLAUBER_C, np.random.default_rng(0))
+    ising = Ising(g, np.full(g.E // 2, GLAUBER_J), np.full(N, GLAUBER_H),
+                  GLAUBER_BETA)
+    return mpbp_glauber(Glauber(ising, GLAUBER_T), D=D, dtype=torch.float32,
+                        device="cuda")
+
+
+def isolated_spin_err(bp):
+    """Max-abs difference between the isolated nodes' beliefs and their
+    exact marginals: a lone spin flips by the field alone, P(+1) =
+    1 / (1 + exp(-2 beta h)) at every step after the uniform start."""
+    import matrixproductbp_tpu_torch as tp
+    iso = np.nonzero(bp.graph.degree == 0)[0]
+    b = tp.beliefs(bp).double().cpu().numpy()[iso]
+    up = 1.0 / (1.0 + np.exp(-2.0 * GLAUBER_BETA * GLAUBER_H))
+    want = np.tile([up, 1.0 - up], (bp.T + 1, 1))
+    want[0] = 0.5
+    return len(iso), float(np.abs(b - want[None]).max())
+
+
+def phase_glauber_er():
+    """Homogeneous Glauber on ``erdos_renyi_graph(5000, 2.5)``, T=15, D=10,
+    f32, sketch: the banded merge in every bucket (K = 1, 2, 4, 8, 9 slots,
+    Y = 2, 3, 5, 9, 10).  Timed sweeps; launches by kernel and by bucket,
+    every merge and conversion on a hand kernel and no plain scan; one
+    sweep held to the same sweep through the plain scans; the isolated
+    spins' beliefs held to their exact marginals; the banded merge scans
+    at the K=4 and K=9 buckets' shapes held to the plain scans."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    bp0 = glauber_state()
+    cur, res = timed_model_sweeps(bp0, TIMED_SWEEPS_GLAUBER)
+    phase_profile(cur, label="profile_glauber_er")
+    n_iso, iso_err = isolated_spin_err(cur)
+    res.update(isolated_nodes=n_iso, isolated_belief_err=iso_err,
+               tol_isolated=1e-5, yy_off=bp0.tables.yy_off)
+    scans = []
+    for key in ("K4_Y5", "K9_Y10"):
+        Y = int(key.split("_Y")[1])
+        md = merge_dims(GLAUBER_D, Y)
+        Bn = res["by_bucket"][key]["nodes"] // res["by_bucket"][key]["updates"]
+        args = banded_merge_inputs(Bn, GLAUBER_T, **md, device="cuda",
+                                   seed=30 + Y)
+        out, ref = run_merge(fs, *args), run_merge(fs, *args, plain=True)
+        torch.cuda.synchronize()
+        err, scale = max_err(out, ref)
+        scans.append({"bucket": key, "B": Bn, **md, "max_abs_err": err,
+                      "ref_max_abs": scale, "tol": TOL_F32_REL * scale})
+        del args, out, ref
+    res["banded_scans_vs_plain"] = scans
+    emit("glauber_er", **res)
+    check_buckets(res, 2, "glauber_er")
+    check(res["one_sweep_belief_diff_vs_plain"] <= TOL_SWEEP_BELIEFS,
+          f"glauber_er: kernel sweep vs plain sweep: {res}")
+    check(iso_err <= 1e-5, f"glauber_er: isolated spins off: {iso_err}")
+    for r in scans:
+        check(r["max_abs_err"] <= r["tol"],
+              f"glauber_er: banded merge scans vs plain: {r}")
+    return res
+
+
+def sirs_state(D):
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.models import SIRS, mpbp_sirs
+    g = tp.random_regular_graph(BENCH_N, BENCH_DEG, np.random.default_rng(0))
+    sirs = SIRS(g, SIRS_LAM, SIRS_RHO, SIRS_SIGMA, T=BENCH_T, gamma=0.3)
+    return mpbp_sirs(sirs, D=D, dtype=torch.float32, device="cuda")
+
+
+def phase_sirs_rrg(D):
+    """SIRS (q=3) on the bench graph, T=15, f32, sketch, tables from
+    build_tables (per-node dense Pyy: one group, the whole bucket): timed
+    sweeps, launches by kernel and bucket, no plain scan, one sweep held to
+    its plain version."""
+    bp0 = sirs_state(D)
+    cur, res = timed_model_sweeps(bp0, TIMED_SWEEPS_SIRS[D])
+    res.update(per_node_pyy=tuple(bp0.tables.Pyy.shape))
+    del bp0
+    phase_profile(cur, label=f"profile_sirs_rrg_d{D}")
+    emit(f"sirs_rrg_d{D}", **res)
+    check_buckets(res, 3, f"sirs_rrg D={D}")
+    check(all(r["updates"] == TIMED_SWEEPS_SIRS[D]
+              for r in res["by_bucket"].values()),
+          f"sirs_rrg D={D}: not one Pyy group a bucket: {res['by_bucket']}")
+    check(res["one_sweep_belief_diff_vs_plain"] <= TOL_SWEEP_BELIEFS,
+          f"sirs_rrg D={D}: kernel sweep vs plain sweep: {res}")
+    return res
+
+
+def glauber_kernel_times(gres, reps=10):
+    """The merge kernels at the Glauber sweep's K=8 bucket (Y=9, D=10, its
+    merge batch): the merge F kernel it takes (the cluster kernel) and
+    merge W's first design, on banded inputs, CUDA events over ``reps``
+    launches, beside the bound (the band's pairs counted, not Y^2) and the
+    plain version's time; launches from the Glauber sweeps at that
+    bucket."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    key, Y = "K8_Y9", 9
+    bk = gres["by_bucket"][key]
+    Bn, S, md = bk["nodes"] // bk["updates"], GLAUBER_T, merge_dims(GLAUBER_D,
+                                                                     Y)
+    L1, B1, Th, Pyy, Phi, S_init = banded_merge_inputs(Bn, S, **md,
+                                                       device="cuda", seed=40)
+    Ws = fs.merge_wscan(L1, B1, Th)
+    band = band_pairs(Y)
+    f_name = fs.merge_f_geometry(*md.values(), torch.float32)[0]
+    cases = [
+        (MERGE_W_ROWS["base"], "merge_w",
+         lambda: fs.merge_wscan(L1, B1, Th),
+         lambda: fs.merge_wscan_plain(L1, B1, Th),
+         work_merge_w(Bn, S, **md, esize=4, band=band)),
+        (MERGE_F_ROWS[f_name], f"merge_f_{f_name}",
+         lambda: fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S_init),
+         lambda: fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init),
+         work_merge_f(Bn, S, **md, esize=4, band=band))]
+    rows = []
+    for (name, src, line), count, kern, plain, (flops, nbytes) in cases:
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, _ = max_err(tuple(out) if isinstance(out, tuple) else out,
+                         tuple(ref) if isinstance(ref, tuple) else ref)
+        bms, by = bound_ms(flops, nbytes)
+        rows.append({
+            "name": f"{name}_glauber_y{Y}", "route": "cuda",
+            "source": "matrixproductbp_tpu_torch/csrc/" + src,
+            "replaces": "matrixproductbp_tpu/ops/fused_stta.py" + line,
+            "launches": bk.get(count, 0), "max_abs_err": err,
+            "ms": time_cuda(kern, reps), "plain_ms": time_cuda(plain, 2),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "flops": flops, "bytes": nbytes, "D": GLAUBER_D, "Y": Y,
+            "B": Bn, "band_pairs": band,
+            "launches_from": f"glauber_er, bucket {key}"})
+        emit("kernel_time_glauber", **rows[-1])
+        del out, ref
+    return rows
+
+
 def time_cuda(fn, n):
     import torch
     fn()
@@ -1001,22 +1338,23 @@ def phase_kernel_times(launches, D=10, reps=10):
 MPEM3_LINES = {"w": ":508", "f": ":545"}
 
 
-def mpem3_kernel_times(launches, D, reps):
+def mpem3_kernel_times(launches, D, reps, qi=2, launches_from=None):
     """The staged MPEM3 W and F kernels (the sweep's) and the first designs
     (``mpem3_w_kernel``, ``mpem3_f_kernel``) at both conversions of the
-    sketch sweep at bond D, on the same inputs, timed in turns (staged,
-    base, base, staged): the message conversion [12288, 15] (the row's own
-    numbers) and the belief conversion [4096, 15] (under ``beliefs``); each
-    beside its bound and its plain version's time.  One row a scan, named
-    after the staged kernel; the first design's times as ``base_ms``."""
+    sketch sweep at bond D and q = ``qi`` (2: SIS, 3: SIRS), on the same
+    inputs, timed in turns (staged, base, base, staged): the message
+    conversion [12288, 15] (the row's own numbers) and the belief
+    conversion [4096, 15] (under ``beliefs``); each beside its bound and
+    its plain version's time.  One row a scan, named after the staged
+    kernel; the first design's times as ``base_ms``."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
     S = BENCH_T
     rows = {}
-    for Bn, qj, key in ((BENCH_N * BENCH_DEG, 2, None), (BENCH_N, 1,
-                                                         "beliefs")):
-        pd = mpem3_dims(D, qj=qj)
+    for Bn, qj, key in ((BENCH_N * BENCH_DEG, qi, None), (BENCH_N, 1,
+                                                          "beliefs")):
+        pd = mpem3_dims(D, qi=qi, qj=qj)
         Bm, Psi, PhiM, SiM = mpem3_inputs(Bn, S, **pd, dtype=torch.float32,
                                           device=dev, seed=12 + qj)
         WsM = fs.mpem3_wscan_plain(Bm, Psi)
@@ -1057,7 +1395,8 @@ def mpem3_kernel_times(launches, D, reps):
                     "library_ms": None, **rec,
                     "base_source": "matrixproductbp_tpu_torch/csrc/"
                                    "stta_scans.cu",
-                    "D": D, "launches_from": f"main_d{D}"}
+                    "D": D, "q": qi,
+                    "launches_from": launches_from or f"main_d{D}"}
             else:
                 rows[kern][key] = rec
             del out, ref, base_out
@@ -1159,6 +1498,8 @@ def main():
     del bp_r20
     phase_randomized_vs_plain_d20()
     phase_karate()
+    gres = phase_glauber_er()
+    sres = {D: phase_sirs_rrg(D) for D in (10, 20)}
     # the kernels record: every kernel that a main path launches, each at
     # the bench shape of the sweep that launches it (merge_f_kernel, which
     # no main path takes any more, is timed in its phase lines alone)
@@ -1176,6 +1517,13 @@ def main():
     rows += [{**r, "name": r["name"] + "_d20"}
              for r in phase_linalg_kernel_times(rlaunches_d20, D=20, reps=3)
              if r["name"] == "cholqr_staged"]
+    # the new shapes of the banded and the q = 3 paths: the merge kernels at
+    # the Glauber sweep's K=8 bucket (Y=9), and the staged MPEM3 kernels at
+    # the SIRS D=10 sweep's conversions (q = 3)
+    rows += glauber_kernel_times(gres)
+    for r in mpem3_kernel_times(sres[10]["launches"], 10, 10, qi=3,
+                                launches_from="sirs_rrg_d10"):
+        rows.append({**r, "name": r["name"] + "_q3"})
     emit("done", seconds=time.perf_counter() - t0)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

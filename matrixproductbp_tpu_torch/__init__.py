@@ -3,10 +3,13 @@ Propagation), for one NVIDIA H100.
 
 The JAX package stays the reference; this package keeps its module names,
 argument orders and array layouts.  It imports torch and numpy only.  Entry
-points that make state (``mpbp``, ``mpbp_sis``, ``from_numpy_state``) place
-it on the CUDA card unless the caller passes ``device="cpu"``; every later
-call runs on the state's device.  ``bp_sweep`` and ``iterate`` run
-``method="sketch"``, ``"qr"`` and ``"randomized"``, damping and
+points that make state (``mpbp``, the models' ``mpbp_*``,
+``from_numpy_state``) place it on the CUDA card unless the caller passes
+``device="cpu"``; every later call runs on the state's device.  Factors come
+from ``build_tables`` over per-node ``FactorSpec``s or from a model's own
+table function (SIS, SIRS, heterogeneous SIS and Glauber in ``models``).
+``bp_sweep`` and ``iterate`` run ``method="sketch"``, ``"qr"`` and
+``"randomized"`` (dense and banded ``prob_yy``), damping and
 ``iterate(polish=n)``.  The hand-written CUDA kernels (``csrc/*.cu``: the
 sketch sweep's four time scans, the randomized merge's CholQR, and the
 batched Jacobi eigensolver behind the card's small SVDs) are built with
@@ -15,8 +18,10 @@ instead.
 """
 
 from .graph import (Graph, graph_from_edges, random_regular_graph,
-                    random_tree, path_graph)
-from .factors import RecursiveFactorTables, transition_probs
+                    erdos_renyi_graph, random_tree, star_graph, path_graph)
+from .factors import (RecursiveFactorTables, FactorSpec, TraceFactorSpec,
+                      DampedFactorSpec, RestrictedFactorSpec, build_tables,
+                      build_tables_t, transition_probs)
 from .ops.truncation import (SVDTrunc, TruncThresh, TruncBond, TruncBondMax,
                              TruncBondThresh, default_truncator)
 from .ops.tensortrain import TensorTrain, compress
@@ -26,8 +31,11 @@ from .bp import (MPBP, mpbp, bp_sweep, iterate, beliefs, means,
 from .convert import from_numpy_state, to_numpy_state
 
 __all__ = [
-    "Graph", "graph_from_edges", "random_regular_graph", "random_tree",
-    "path_graph", "RecursiveFactorTables", "transition_probs",
+    "Graph", "graph_from_edges", "random_regular_graph", "erdos_renyi_graph",
+    "random_tree", "star_graph", "path_graph", "RecursiveFactorTables",
+    "FactorSpec", "TraceFactorSpec", "DampedFactorSpec",
+    "RestrictedFactorSpec", "build_tables", "build_tables_t",
+    "transition_probs",
     "SVDTrunc", "TruncThresh", "TruncBond", "TruncBondMax", "TruncBondThresh",
     "default_truncator", "TensorTrain", "compress", "SeededSketches", "MPBP",
     "mpbp", "bp_sweep", "iterate", "beliefs", "means", "bethe_free_energy",

@@ -19,8 +19,12 @@ Three compression methods share the lift and the folds:
   merge (``ops/randomized.py``), whose thin QR is the CholQR kernel.
 
 ``damp > 0`` mixes every new message with the old one on each method, and
-``iterate(polish=n)`` ends with ``n`` undamped ``qr`` sweeps.  The port
-covers open trains with time-constant, dense-``prob_yy`` tables; options not
+``iterate(polish=n)`` ends with ``n`` undamped ``qr`` sweeps.  Tables with
+``yy_off`` (the sum-type ``prob_yy`` of every Glauber variant) merge by the
+banded contraction on each method.  Per-node dense ``prob_yy`` tables (those
+of ``build_tables``) run each degree bucket as groups of nodes whose cropped
+``prob_yy`` is identical, each group one batched update with its shared
+table.  The port covers open trains with time-constant tables; options not
 ported yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -36,6 +40,7 @@ from .graph import Graph
 from .ops import fused_stta
 from .ops.mpem import mpem3_to_mpem2
 from .ops.randomized import merge_rounded
+from .ops.sumy import y_expand
 from .ops.tensortrain import (TensorTrain, _fit_axis, _safe_scale, compress,
                               flat_tt, marginals, normalize,
                               normalize_eachmatrix, tt_sum)
@@ -120,9 +125,9 @@ def mpbp(graph: Graph, tables: RecursiveFactorTables, T: int, D: int,
          qs=None, device=None) -> MPBP:
     """Flat-initialised state on ``device`` (default: the CUDA card)."""
     if periodic:
-        raise _not_ported("periodic=True", 10)
+        raise _not_ported("periodic=True", 6)
     if tables.time_varying:
-        raise _not_ported("time-varying tables", 10)
+        raise _not_ported("time-varying tables", 6)
     dev = resolve_device(device)
     N, E, q = graph.N, graph.E, tables.q
     T1 = T + 1
@@ -156,20 +161,25 @@ def mpbp(graph: Graph, tables: RecursiveFactorTables, T: int, D: int,
 # ---------------------------------------------------------------------------
 
 def _merge(Lc, Llz, Rc, Rlz, pyy, trunc: SVDTrunc, Dout: int, Y: int, q: int,
-           method: str = "qr", sketches=None):
+           method: str = "qr", sketches=None, yy_off: int | None = None):
     """op for the SVD methods, batched (``bp.py:178-211``): Hadamard on x_i,
-    ``prob_yy`` contraction on y, Kronecker on bonds, then truncate.
+    ``prob_yy`` contraction on y (the band where ``yy_off`` is set; ``pyy``
+    is then not read), Kronecker on bonds, then truncate.
 
     Lc [B, T1, DL, DL, Y*q], Rc [B, T1, DR, DR, Y*q], pyy [Y, Y, Y, q] shared
     -> (cores [B, T1, Dout, Dout, Y*q], logz [B])."""
     if method == "randomized":
         return merge_rounded(Lc, Llz, Rc, Rlz, pyy, trunc, Dout, Y, q,
-                             sketches)
+                             sketches, yy_off=yy_off)
     Bn, T1, DL = Lc.shape[:3]
     DR = Rc.shape[2]
     L = Lc.reshape(Bn, T1, DL, DL, Y, q)
     R = Rc.reshape(Bn, T1, DR, DR, Y, q)
-    tmp = torch.einsum("yabx,ztmnax->ztmnybx", pyy, L)
+    if yy_off is not None:
+        # tmp[z, t, m, n, y, b, x] = L[z, t, m, n, y + off - b, x]
+        tmp = y_expand(L, yy_off, axis=4, mode="diff")
+    else:
+        tmp = torch.einsum("yabx,ztmnax->ztmnybx", pyy, L)
     M = torch.einsum("ztmnybx,ztuvbx->ztmunvyx", tmp, R)
     tt = TensorTrain(M.reshape(Bn, T1, DL * DR, DL * DR, Y * q), Llz + Rlz,
                      (Y, q))
@@ -189,11 +199,13 @@ class _Lifted(NamedTuple):
 
 
 def _lift(msgs_in_c, msgs_in_lz, psi_out, mask, Pxy_b, Py0_b, pyy_b,
-          Dc: int) -> _Lifted:
+          Dc: int, yy_off: int | None = None) -> _Lifted:
     """Lift a bucket's incoming messages to y-space
     (``recursive_bp_factor.jl:108-115``); padded slots become the identity
     element of op.  ``Pxy_b``, ``Py0_b`` carry a node axis of Nb (expanded
-    by :func:`_expand`); ``pyy_b[0]`` is shared across nodes."""
+    by :func:`_expand`); ``pyy_b[0]`` is shared across nodes, and where
+    ``yy_off`` is set it is a placeholder: the embeds relabel along the band
+    (``bp.py:533-548``)."""
     Nb, K, T1, Dm = msgs_in_c.shape[:4]
     q = psi_out.shape[-1]
     Y = Py0_b.shape[-2]
@@ -209,14 +221,20 @@ def _lift(msgs_in_c, msgs_in_lz, psi_out, mask, Pxy_b, Py0_b, pyy_b,
     def pyy_at(d1):
         return pyy0[min(d1, pyy0.shape[0] - 1)]
 
+    def band():
+        # W[z, y, b, x] = Py0[z, y + off - b, x]
+        return y_expand(Py0_b, yy_off, axis=1, mode="diff")
+
     def embed_first(Bc, Blz_):
-        W = torch.einsum("yabx,zax->zybx", pyy_at(0), Py0_b)
+        W = band() if yy_off is not None else torch.einsum(
+            "yabx,zax->zybx", pyy_at(0), Py0_b)
         out = torch.einsum("zybx,ztmnbx->ztmnyx", W,
                            Bc.reshape(Nb, T1, Dm, Dm, Y, q))
         return out.reshape(Nb, T1, Dm, Dm, Y * q), Blz_
 
     def embed_second(Bc, Blz_):
-        W = torch.einsum("yabx,zbx->zyax", pyy_at(1), Py0_b)
+        W = band() if yy_off is not None else torch.einsum(
+            "yabx,zbx->zyax", pyy_at(1), Py0_b)
         out = torch.einsum("zyax,ztmnax->ztmnyx", W,
                            Bc.reshape(Nb, T1, Dm, Dm, Y, q))
         return out.reshape(Nb, T1, Dm, Dm, Y * q), Blz_
@@ -318,7 +336,8 @@ def _finish_messages(mu: TensorTrain, logz_ks, old_c, old_lz, mask,
 def _bucket_update_batched(msgs_in_c, msgs_in_lz, msgs_out_old_c,
                            msgs_out_old_lz, psi_out, mask, Py_b, Pyp_b,
                            Pxy_b, Py0_b, phi_b, deg_b, pyy_b, trunc: SVDTrunc,
-                           Dm: int, Dc: int, damp: float, sketches=None):
+                           Dm: int, Dc: int, damp: float, sketches=None,
+                           yy_off: int | None = None):
     """Whole-bucket sketch update (``bp.py:469-696``).
 
     msgs_in_c: [Nb, K, T1, Dm, Dm, q*q]; tables bucket-cropped with node
@@ -328,11 +347,12 @@ def _bucket_update_batched(msgs_in_c, msgs_in_lz, msgs_out_old_c,
     q = phi_b.shape[-1]
     Y = Py0_b.shape[-2]
     Py_b, Pyp_b, Pxy_b, Py0_b = _expand(Nb, Py_b, Pyp_b, Pxy_b, Py0_b)
-    lf = _lift(msgs_in_c, msgs_in_lz, psi_out, mask, Pxy_b, Py0_b, pyy_b, Dc)
+    lf = _lift(msgs_in_c, msgs_in_lz, psi_out, mask, Pxy_b, Py0_b, pyy_b, Dc,
+               yy_off)
 
     def mrg(lc, llz, rc, rlz, d1):
         return fused_stta.merge_stta_fused(lc, llz, rc, rlz, lf.pyy_at(d1),
-                                           Dc, Y, q, sketches)
+                                           Dc, Y, q, sketches, yy_off=yy_off)
 
     Cs_c, Cs_lz, full_c, full_lz = _cavity_folds(lf, mrg, True, False)
 
@@ -348,6 +368,7 @@ def _bucket_update_batched(msgs_in_c, msgs_in_lz, msgs_out_old_c,
     lastC = torch.einsum("zkmnyi,zi->zkimn", C[:, :, -1], phi_b[:, -1])
     last = lastC[:, :, :, None, None].expand(Nb, K, q, q, q, Dcc, Dcc)
     B3_tm = torch.cat([main, last.reshape(1, Nb * K, -1)], dim=0)
+    del main         # as large as B3_tm: free it before the conversion
     out_c, out_lz0 = fused_stta.mpem3_stta_fused_tm(
         B3_tm, Cs_lz.reshape(Nb * K), Dcc, q, q, Dm, sketches)
     m = _safe_scale(out_c.abs().amax(dim=(2, 3, 4)))           # [NbK, T1]
@@ -392,7 +413,7 @@ def _node_update(msgs_in_c, msgs_in_lz, msgs_out_old_c, msgs_out_old_lz,
                  psi_out, mask, Py_b, Pyp_b, Pxy_b, Py0_b, phi_b, deg_b,
                  pyy_b, trunc: SVDTrunc, trunc_cav: SVDTrunc, Dm: int, Dc: int,
                  damp: float, method: str, sketches=None,
-                 direct_k3: bool = True):
+                 direct_k3: bool = True, yy_off: int | None = None):
     """Whole-bucket update for the SVD methods, ``method="qr"`` or
     ``"randomized"`` (the JAX package's vmapped ``_node_update``,
     ``bp.py:286-466``, with the node axis threaded through every step).
@@ -401,11 +422,12 @@ def _node_update(msgs_in_c, msgs_in_lz, msgs_out_old_c, msgs_out_old_lz,
     q = phi_b.shape[-1]
     Y = Py0_b.shape[-2]
     Py_b, Pyp_b, Pxy_b, Py0_b = _expand(Nb, Py_b, Pyp_b, Pxy_b, Py0_b)
-    lf = _lift(msgs_in_c, msgs_in_lz, psi_out, mask, Pxy_b, Py0_b, pyy_b, Dc)
+    lf = _lift(msgs_in_c, msgs_in_lz, psi_out, mask, Pxy_b, Py0_b, pyy_b, Dc,
+               yy_off)
 
     def mrg(lc, llz, rc, rlz, d1):
         return _merge(lc, llz, rc, rlz, lf.pyy_at(d1), trunc_cav, Dc, Y, q,
-                      method, sketches)
+                      method, sketches, yy_off)
 
     Cs_c, Cs_lz, full_c, full_lz = _cavity_folds(lf, mrg, direct_k3, True)
 
@@ -465,14 +487,31 @@ def _check_sweep_options(bp: MPBP, method: str, damp: float):
     if not 0.0 <= damp < 1.0:
         raise ValueError(f"damp must lie in [0, 1): {damp}")
     if bp.periodic:
-        raise _not_ported("periodic trains", 10)
-    tb = bp.tables
-    if tb.time_varying:
-        raise _not_ported("time-varying tables", 10)
-    if tb.yy_off is not None:
-        raise _not_ported("the banded yy_off merge", 9)
-    if tb.Pyy.shape[0] != 1:
-        raise _not_ported("per-node prob_yy tables", 9)
+        raise _not_ported("periodic trains", 6)
+    if bp.tables.time_varying:
+        raise _not_ported("time-varying tables", 6)
+
+
+def _pyy_groups(tb: RecursiveFactorTables, idx, Kb: int, Yb: int):
+    """A bucket's nodes grouped by identical bucket-cropped ``prob_yy``:
+    [(node indices, that group's table [1, K', Yb, Yb, Yb, q])].  Shared
+    (node axis 1) and banded tables give one group.  Computed once per
+    bucket on the host and kept with the tables."""
+    if tb.yy_off is not None or tb.Pyy.shape[0] == 1:
+        P = tb.Pyy if tb.yy_off is not None else \
+            tb.Pyy[:, :min(Kb, tb.Pyy.shape[1])][..., :Yb, :Yb, :Yb, :]
+        return [(idx, P)]
+    key = (Kb, Yb, idx.tobytes())
+    if key not in tb.pyy_groups:
+        P = tb.Pyy[torch.as_tensor(idx, device=tb.Pyy.device)]
+        P = P[:, :min(Kb, tb.Pyy.shape[1])][..., :Yb, :Yb, :Yb, :]
+        flat = P.reshape(len(idx), -1).cpu().numpy()
+        _, first, inv = np.unique(flat, axis=0, return_index=True,
+                                  return_inverse=True)
+        inv = inv.reshape(-1)
+        tb.pyy_groups[key] = [(idx[inv == g], P[first[g]][None])
+                              for g in range(len(first))]
+    return tb.pyy_groups[key]
 
 
 def bp_sweep(bp: MPBP, trunc: SVDTrunc, trunc_cav: SVDTrunc | None = None,
@@ -489,62 +528,73 @@ def bp_sweep(bp: MPBP, trunc: SVDTrunc, trunc_cav: SVDTrunc | None = None,
     trunc_cav = trunc if trunc_cav is None else trunc_cav
     Dm = bp.D
     Dcav = Dm if Dcav is None else Dcav
-    ga = bp.garrays
     tb = bp.tables
-    E = bp.graph.E
-    dev = bp.device
 
     new_cores, new_lz = bp.msg_cores.clone(), bp.msg_logz.clone()
     bel_c_all, bel_lz_all = bp.bel_cores.clone(), bp.bel_logz.clone()
     f_all = bp.f.clone()
 
-    for idx, Kb in _degree_buckets(bp.graph):
-        nb = torch.as_tensor(idx, dtype=torch.int64, device=dev)
-        Nb = len(idx)
+    for bidx, Kb in _degree_buckets(bp.graph):
         if tb.ydims is not None:
             Yb = max(1, min(tb.Y, tb.ydims[min(Kb, len(tb.ydims) - 1)]))
+            if tb.yy_off is not None:
+                Yb = max(Yb, tb.yy_off + 1)   # the init element y0 = off
         else:
             Yb = tb.Y
-        in_e = ga.in_edges[nb][:, :Kb]
-        in_m = ga.in_mask[nb][:, :Kb]
-        out_e = ga.out_edges[nb][:, :Kb]
-        in_idx = in_e.clamp(max=E - 1)        # padded slots are masked below
-        out_idx = out_e.clamp(max=E - 1)      # ... and dropped at the scatter
-
-        def nsel(t):
-            return t if t.shape[0] == 1 else t[nb]
-
-        Pyy_b = nsel(tb.Pyy)[:, :min(Kb, tb.Pyy.shape[1])]
-        args = (bp.msg_cores[in_idx], bp.msg_logz[in_idx],
-                bp.msg_cores[out_idx], bp.msg_logz[out_idx], bp.psi[out_idx],
-                in_m, nsel(tb.Py)[..., :Yb], nsel(tb.Pyp)[:, :Kb][..., :Yb],
-                nsel(tb.Pxy)[:, :Kb][..., :Yb, :, :],
-                nsel(tb.Py0)[..., :Yb, :], bp.phi[nb], ga.degree[nb],
-                Pyy_b[..., :Yb, :Yb, :Yb, :])
-        if method == "sketch":
-            out_c, out_lz, bel_c, bel_lz, f = _bucket_update_batched(
-                *args, trunc, Dm, Dcav, damp, sketches)
-        else:
-            # the direct K = 3 cavity triples the merge batch; the JAX
-            # package takes it up to 4096 nodes per bucket (bp.py:812), and
-            # the merge order decides what is truncated
-            out_c, out_lz, bel_c, bel_lz, f = _node_update(
-                *args, trunc, trunc_cav, Dm, Dcav, damp, method, sketches,
-                direct_k3=Nb <= 4096)
-
-        # scatter: padded slots carry out-edge id E and are masked out
-        flat = out_e.reshape(-1)
-        valid = flat < E
-        new_cores.index_copy_(
-            0, flat[valid], out_c.reshape((Nb * Kb,) + out_c.shape[2:])[valid])
-        new_lz.index_copy_(0, flat[valid], out_lz.reshape(-1)[valid])
-        bel_c_all.index_copy_(0, nb, bel_c)
-        bel_lz_all.index_copy_(0, nb, bel_lz)
-        f_all.index_copy_(0, nb, f)
+        for idx, Pyy_b in _pyy_groups(tb, bidx, Kb, Yb):
+            _update_nodes(bp, idx, Kb, Yb, Pyy_b, len(bidx), trunc,
+                          trunc_cav, Dm, Dcav, damp, method, sketches,
+                          (new_cores, new_lz, bel_c_all, bel_lz_all, f_all))
 
     return dataclasses.replace(bp, msg_cores=new_cores, msg_logz=new_lz,
                                bel_cores=bel_c_all, bel_logz=bel_lz_all,
                                f=f_all)
+
+
+def _update_nodes(bp: MPBP, idx, Kb: int, Yb: int, Pyy_b, bucket_n: int,
+                  trunc, trunc_cav, Dm: int, Dcav: int, damp: float,
+                  method: str, sketches, out):
+    """Update the nodes ``idx`` of a degree bucket of ``bucket_n`` nodes
+    (slots Kb, y-axis cropped to Yb, shared ``prob_yy`` ``Pyy_b``) and
+    scatter their messages, beliefs and ledger terms into ``out``."""
+    new_cores, new_lz, bel_c_all, bel_lz_all, f_all = out
+    ga, tb, E = bp.garrays, bp.tables, bp.graph.E
+    nb = torch.as_tensor(idx, dtype=torch.int64, device=bp.device)
+    Nb = len(idx)
+    in_e = ga.in_edges[nb][:, :Kb]
+    in_m = ga.in_mask[nb][:, :Kb]
+    out_e = ga.out_edges[nb][:, :Kb]
+    in_idx = in_e.clamp(max=E - 1)        # padded slots are masked below
+    out_idx = out_e.clamp(max=E - 1)      # ... and dropped at the scatter
+
+    def nsel(t):
+        return t if t.shape[0] == 1 else t[nb]
+
+    args = (bp.msg_cores[in_idx], bp.msg_logz[in_idx],
+            bp.msg_cores[out_idx], bp.msg_logz[out_idx], bp.psi[out_idx],
+            in_m, nsel(tb.Py)[..., :Yb], nsel(tb.Pyp)[:, :Kb][..., :Yb],
+            nsel(tb.Pxy)[:, :Kb][..., :Yb, :, :],
+            nsel(tb.Py0)[..., :Yb, :], bp.phi[nb], ga.degree[nb], Pyy_b)
+    if method == "sketch":
+        out_c, out_lz, bel_c, bel_lz, f = _bucket_update_batched(
+            *args, trunc, Dm, Dcav, damp, sketches, tb.yy_off)
+    else:
+        # the direct K = 3 cavity triples the merge batch; the JAX package
+        # takes it up to 4096 nodes per bucket (bp.py:812), and the merge
+        # order decides what is truncated
+        out_c, out_lz, bel_c, bel_lz, f = _node_update(
+            *args, trunc, trunc_cav, Dm, Dcav, damp, method, sketches,
+            direct_k3=bucket_n <= 4096, yy_off=tb.yy_off)
+
+    # scatter: padded slots carry out-edge id E and are masked out
+    flat = out_e.reshape(-1)
+    valid = flat < E
+    new_cores.index_copy_(
+        0, flat[valid], out_c.reshape((Nb * Kb,) + out_c.shape[2:])[valid])
+    new_lz.index_copy_(0, flat[valid], out_lz.reshape(-1)[valid])
+    bel_c_all.index_copy_(0, nb, bel_c)
+    bel_lz_all.index_copy_(0, nb, bel_lz)
+    f_all.index_copy_(0, nb, f)
 
 
 # ---------------------------------------------------------------------------
@@ -568,7 +618,7 @@ def iterate(bp: MPBP, maxiter: int = 5, trunc: SVDTrunc | None = None,
     if schedule not in ("jacobi", "seidel"):
         raise ValueError(f"unknown schedule {schedule!r}")
     if chunk is not None or schedule == "seidel" or shuffle:
-        raise _not_ported("chunked and Gauss-Seidel sweeps", 7)
+        raise _not_ported("chunked and Gauss-Seidel sweeps", 3)
     _check_sweep_options(bp, method, damp)
     if (polish > 0 and bp.device.type == "cuda"
             and torch.backends.cuda.matmul.allow_tf32):

@@ -68,7 +68,7 @@ def from_numpy_state(arrays: dict, meta: dict | None = None,
             f"unsupported state format {meta.get('format_version')}")
     if meta.get("periodic"):
         raise NotImplementedError("periodic trains are not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
+                                  "(ROADMAP Queue 1 item 6)")
     dev = resolve_device(device)
     graph = Graph(meta["graph.N"], meta["graph.E"], meta["graph.dmax"],
                   *(np.asarray(arrays["graph." + n]) for n in _GRAPH_LEAVES),

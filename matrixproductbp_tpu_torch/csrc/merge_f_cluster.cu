@@ -269,12 +269,12 @@ merge_f_cluster_kernel(const T* __restrict__ L, Str6 sL,
       tile_gemm<NT, T, 4, 5, 2, false>(t1, Bp + x * Y * nBp, t2, g2);
       if (x == 0) __pipeline_wait_prior(1);                    // W_{t+1}
       __syncthreads();
-      if (last) {
-        for (int i = tid; i < el * Y * sr; i += NT) {
-          const int b = i % sr, y = (i / sr) % Y, e = i / (sr * Y);
-          No[(e * P + y * q + x) * sr + b] =
-              (b == 0) ? t2[y * T2Y + e * DLB] : T(0);
-        }
+      if (last) {                                              // N = t2 . one-hot
+        onehot_rows<T>(el * Y, DLB, sr,
+                       [&](int w) { return t2 + w % Y * T2Y + w / Y * DLB; },
+                       [&](int w) {
+                         return No + (w / Y * P + w % Y * q + x) * sr;
+                       });
       } else {
         tile_gemm<NT, T, 4, 5, 16, false>(t2, Wt1, No + x * sr, gn);
       }

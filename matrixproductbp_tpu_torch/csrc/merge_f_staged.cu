@@ -168,11 +168,11 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
     tile_gemm<NT, T, 4, 5, 2, false>(t1, Bp, t2, g2);          // t2 = t1 . Bp
     __pipeline_wait_prior(1);                                  // W_{t+1}
     __syncthreads();
-    if (last) {
-      for (int i = tid; i < nN; i += NT) {
-        const int b = i % sr, p = (i / sr) % P, e = i / (sr * P);
-        No[i] = (b == 0) ? t2[p * nS + e * DLB] : T(0);
-      }
+    if (last) {                                                // N = t2 . one-hot
+      // a thread a row: its 100-225 entries cost the block less here than
+      // a warp a row's reductions (timed in turns against the parent)
+      for (int w = tid; w < sl * P; w += NT)
+        onehot_row(t2 + w % P * nS + w / P * DLB, DLB, No + w * sr, sr, 1);
     } else {
       tile_gemm<NT, T, 4, 5, 4, false>(t2, Wt1, No, gn);       // N = t2 . W_{t+1}
     }

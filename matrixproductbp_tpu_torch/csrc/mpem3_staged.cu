@@ -463,10 +463,8 @@ mpem3_f_staged_kernel(const T* __restrict__ Bm, i64 sz, i64 st,
     gprod<OpM, false>(Sc, Wt, Ob, gt, mx, bad);            // M = S . W_t
     M3_TICK(3);
     if (s == S - 1) {                           // N = t1 . one-hot
-      for (int i = gt; i < nN; i += GT) {
-        const int w = i / sr, b = i - w * sr;
-        Ob[oN + i] = b == 0 ? T1[w * R1] : T(0);
-      }
+      for (int w = gt; w < sl * P; w += GT)
+        onehot_row(T1 + w * R1, MI, Ob + oN + w * sr, sr, 1);
     } else {
       gprod<OpN, false>(T1, Wt1, Ob, gt, mx, bad);         // N = t1 . W_{t+1}
     }

@@ -382,11 +382,9 @@ __global__ void merge_f_kernel(const T* __restrict__ L, Str6 sL,
         block_gemm<T, false>(t1, Bp, t2, g2);                  // t2 = t1 . Bp
         __syncthreads();
         T* Nyx = Ns + ((row * sl * Y + y) * q + x) * sr;
-        if (last) {
-          for (int i = tid; i < sl * sr; i += nt) {
-            const int b = i % sr, e = i / sr;
-            Nyx[e * Y * q * sr + b] = (b == 0) ? t2[e * DLB] : T(0);
-          }
+        if (last) {                                            // N = t2 . one-hot
+          onehot_rows<T>(sl, DLB, sr, [&](int e) { return t2 + e * DLB; },
+                         [&](int e) { return Nyx + e * Y * q * sr; });
         } else {
           block_gemm<T, false>(t2, Wt1, Nyx, gn);              // N = t2 . W_{t+1}
         }
@@ -519,15 +517,11 @@ __global__ void mpem3_f_kernel(const T* __restrict__ Bm, i64 sz, i64 st,
     block_gemm<T, false>(Sc, Wt, Ms + row * sl * sr, gm);      // M = S . W_t
     block_gemm<T, false>(Sc, Bs, t1, g1);                      // t1 = S . B_t
     __syncthreads();
-    if (last) {
-      for (int idx = tid; idx < nN; idx += nt) {
-        int r1 = idx;
-        const int b = r1 % sr; r1 /= sr;
-        const int j = r1 % qj; r1 /= qj;
-        const int i = r1 % qi;
-        const int e = r1 / qi;
-        Ns[row * nN + idx] = (b == 0) ? t1[(i * qj + j) * nS + e * nMI] : T(0);
-      }
+    if (last) {                                                // N = t1 . one-hot
+      const int P = qi * qj;
+      onehot_rows<T>(sl * P, nMI, sr,
+                     [&](int w) { return t1 + w % P * nS + w / P * nMI; },
+                     [&](int w) { return Ns + row * nN + w * sr; });
     } else {
       block_gemm<T, false>(t1, Wt1, Ns + row * nN, gn);        // N = t1 . W_{t+1}
     }

@@ -30,7 +30,7 @@ def exact_prob(bp: MPBP):
     """(p[Q], Z): exact trajectory distribution and partition function."""
     if bp.periodic:
         raise NotImplementedError("periodic trains are not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
+                                  "(ROADMAP Queue 1 item 6)")
     g = bp.graph
     N, T1, q = bp.N, bp.T + 1, bp.q
     if N * (T1 - 1) > 16:

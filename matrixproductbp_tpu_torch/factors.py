@@ -1,6 +1,6 @@
 """Factors as dense probability tables.
 
-Counterpart of ``matrixproductbp_tpu/factors.py:53-126, 414-452``:
+Counterpart of ``matrixproductbp_tpu/factors.py``:
 
 * ``Py  [N, q, q, Y]``        P(x_i^{t+1} | x_i^t, y)              (prob_y)
 * ``Pyp [N, K, q, q, q, Y]``  P(x' | x, x_k, y_cav)               (prob_y_partial)
@@ -8,16 +8,29 @@ Counterpart of ``matrixproductbp_tpu/factors.py:53-126, 414-452``:
 * ``Pyy [N, K, Y, Y, Y, q]``  P(y | y_acc, y_new, x_i), by d1      (prob_yy)
 * ``Py0 [N, Y, q]``           initial distribution of y            (prob_y0)
 
-Any leading node axis may be 1 (broadcast).  The generic table construction
-(``FactorSpec``, ``build_tables``) and time-varying tables are not ported yet.
+Any leading node axis may be 1 (broadcast).  A factor is described by a
+:class:`FactorSpec` (the reference's five-method interface, 0-indexed
+states); :func:`build_tables` packs a per-node list of specs into the dense
+tables with the same host loops as the JAX package, so the two packages'
+tables agree bit for bit.  Factors whose ``prob_yy`` is the sum type
+``y == y1 + y2 - off`` (every Glauber variant) set ``sum_y_offset``; their
+tables carry ``yy_off`` and a placeholder ``Pyy``, and the sweep merges by
+the banded (Toeplitz) contraction.  Time-varying tables
+(``build_tables_t``) are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
-__all__ = ["RecursiveFactorTables", "transition_probs"]
+from .graph import Graph
+
+__all__ = ["RecursiveFactorTables", "FactorSpec", "TraceFactorSpec",
+           "DampedFactorSpec", "RestrictedFactorSpec", "build_tables",
+           "build_tables_t", "transition_probs"]
 
 
 @dataclasses.dataclass
@@ -29,10 +42,15 @@ class RecursiveFactorTables:
     Pxy: torch.Tensor
     Pyy: torch.Tensor
     Py0: torch.Tensor
-    #: sum-type y-merge offset (banded merge); None = dense ``Pyy``
+    #: sum-type y-merge offset (banded merge; ``Pyy`` is then a placeholder
+    #: the sweep never reads); None = dense ``Pyy``
     yy_off: int | None = None
     #: ``ydims[d]`` = y-cardinality at degree d; None = no cropping
     ydims: tuple | None = None
+    #: the sweep's groups of nodes with identical per-node ``Pyy`` in each
+    #: degree bucket, computed at first use (``bp._pyy_groups``)
+    pyy_groups: dict = dataclasses.field(default_factory=dict, init=False,
+                                         repr=False, compare=False)
 
     @property
     def time_varying(self) -> bool:
@@ -46,11 +64,255 @@ class RecursiveFactorTables:
     def Y(self) -> int:
         return self.Py.shape[-1]
 
+    @property
+    def N(self) -> int:
+        return self.Py.shape[0]
+
+    @property
+    def K(self) -> int:
+        return self.Pxy.shape[1]
+
     def to(self, device=None, dtype=None) -> "RecursiveFactorTables":
         return RecursiveFactorTables(
             *(t.to(device=device, dtype=dtype)
               for t in (self.Py, self.Pyp, self.Pxy, self.Pyy, self.Py0)),
             self.yy_off, self.ydims)
+
+
+class FactorSpec:
+    """Behavioural factor description (host side, 0-indexed states): the
+    reference's ``nstates``, ``prob_y``, ``prob_xy``, ``prob_yy`` and
+    ``prob_y0``.  :func:`build_tables` turns a per-node list of specs into
+    dense :class:`RecursiveFactorTables`."""
+
+    q: int
+    #: when not None, ``prob_yy(y, y1, y2) == (y == y1 + y2 - sum_y_offset)``
+    #: (0-indexed), the sum type of every Glauber variant: ``build_tables``
+    #: then skips the dense ``Pyy`` and the sweep merges by the banded
+    #: contraction
+    sum_y_offset: int | None = None
+
+    def nstates(self, l: int) -> int:
+        raise NotImplementedError
+
+    def prob_y(self, xp: int, x: int, y: int, d: int) -> float:
+        raise NotImplementedError
+
+    def prob_xy(self, y: int, xk: int, xi: int, k: int) -> float:
+        raise NotImplementedError
+
+    def prob_yy(self, y: int, y1: int, y2: int, xi: int, d1: int,
+                d2: int) -> float:
+        raise NotImplementedError
+
+    def prob_y0(self, y: int, xi: int) -> float:
+        return 1.0 if y == 0 else 0.0
+
+    def w(self, xp: int, x_nbrs: Sequence[int], x: int) -> float:
+        """P(x' | x, x_nbrs), folded through the five methods (the
+        enumeration oracle's and the sampler's view of the factor)."""
+        d = len(x_nbrs)
+        v = np.array([self.prob_y0(y, 0) for y in range(self.nstates(0))])
+        for k, xk in enumerate(x_nbrs):
+            Y2 = self.nstates(1)
+            vn = np.zeros(self.nstates(k + 1))
+            for y in range(len(vn)):
+                for y2 in range(Y2):
+                    pxy = self.prob_xy(y2, xk, x, k)
+                    if pxy == 0.0:
+                        continue
+                    for y1 in range(len(v)):
+                        vn[y] += (self.prob_yy(y, y1, y2, x, k, 1) * pxy
+                                  * v[y1])
+            v = vn
+        return float(sum(self.prob_y(xp, x, y, d) * v[y]
+                         for y in range(len(v))))
+
+
+class TraceFactorSpec(FactorSpec):
+    """Exhaustive-trace adapter: y is the positional tuple of neighbour
+    states (slot s at digit s, slot 0 least significant), so any factor
+    ``fn(xp, x_nbrs, x) -> prob`` takes the recursive form, neighbour-
+    asymmetric ones included."""
+
+    def __init__(self, fn: Callable, q: int, degree: int):
+        self.fn = fn
+        self.q = q
+        self.degree = degree
+
+    def nstates(self, l):
+        return self.q ** l
+
+    def _decode(self, y, l):
+        out = []
+        for _ in range(l):
+            out.append(y % self.q)
+            y //= self.q
+        return out
+
+    def prob_y(self, xp, x, y, d):
+        return float(self.fn(xp, self._decode(y, d), x))
+
+    def prob_xy(self, y, xk, xi, k):
+        return 1.0 if y == xk else 0.0
+
+    def prob_yy(self, y, y1, y2, xi, d1, d2):
+        return 1.0 if y == y1 + y2 * (self.q ** d1) else 0.0
+
+    def prob_y0(self, y, xi):
+        return 1.0 if y == 0 else 0.0
+
+    def prob_y_partial(self, xp, x, xk, y1, d, k):
+        """Cavity decode: y1's digits are the neighbours but slot k; xk is
+        inserted at k."""
+        rest = self._decode(y1, d)
+        return float(self.fn(xp, rest[:k] + [xk] + rest[k:], x))
+
+    def w(self, xp, x_nbrs, x):
+        return float(self.fn(xp, list(x_nbrs), x))
+
+
+class RestrictedFactorSpec(FactorSpec):
+    """An inner spec with its shortcuts hidden: no ``prob_y_partial`` (so
+    :func:`build_tables` sums ``Pyp`` explicitly) and no ``sum_y_offset``
+    (so the sweep takes the dense ``Pyy`` merge).  Results must equal the
+    unwrapped spec's."""
+
+    sum_y_offset = None
+
+    def __init__(self, inner: FactorSpec):
+        self.inner = inner
+        self.q = inner.q
+
+    def nstates(self, l):
+        return self.inner.nstates(l)
+
+    def prob_y(self, *a):
+        return self.inner.prob_y(*a)
+
+    def prob_xy(self, *a):
+        return self.inner.prob_xy(*a)
+
+    def prob_yy(self, *a):
+        return self.inner.prob_yy(*a)
+
+    def prob_y0(self, *a):
+        return self.inner.prob_y0(*a)
+
+    def w(self, *a):
+        return self.inner.w(*a)
+
+
+class DampedFactorSpec(FactorSpec):
+    """Any factor mixed with a lazy self-transition of probability ``p``."""
+
+    def __init__(self, inner: FactorSpec, p: float):
+        if not 0.0 <= p <= 1.0:
+            raise ValueError(f"p must lie in [0, 1]: {p}")
+        self.inner = inner
+        self.p = p
+        self.q = inner.q
+
+    def nstates(self, l):
+        return self.inner.nstates(l)
+
+    def prob_y(self, xp, x, y, d):
+        return ((1 - self.p) * self.inner.prob_y(xp, x, y, d)
+                + self.p * (xp == x))
+
+    def prob_xy(self, *a):
+        return self.inner.prob_xy(*a)
+
+    def prob_yy(self, *a):
+        return self.inner.prob_yy(*a)
+
+    def prob_y0(self, *a):
+        return self.inner.prob_y0(*a)
+
+    def w(self, xp, x_nbrs, x):
+        return (1 - self.p) * self.inner.w(xp, x_nbrs, x) + self.p * (xp == x)
+
+
+def build_tables(graph: Graph, specs: Sequence[FactorSpec],
+                 dtype=np.float64, Y_pad: int | None = None
+                 ) -> RecursiveFactorTables:
+    """Dense tables from per-node specs, built on the host in numpy by the
+    JAX package's loops and returned as CPU torch tensors.  ``Y_pad`` forces
+    a larger y-axis."""
+    N, K = graph.N, graph.dmax
+    q = specs[0].q
+    deg = graph.degree
+    Y = max(max((specs[i].nstates(l) for l in range(int(deg[i]) + 1)),
+                default=1) for i in range(N))
+    Y = max(Y, 1)
+    if Y_pad is not None:
+        if Y_pad < Y:
+            raise ValueError(f"Y_pad={Y_pad} < required Y={Y}")
+        Y = Y_pad
+
+    # per-degree y-cardinality, for the bucketed sweep's exact cropping
+    ydims = tuple(min(Y, max((specs[i].nstates(l) for i in range(N)),
+                             default=1)) for l in range(K + 1))
+
+    # a sum type shared by every node: no dense Pyy, the banded merge
+    offs = {s.sum_y_offset for s in specs}
+    yy_off = offs.pop() if (len(offs) == 1 and None not in offs) else None
+
+    Py = np.zeros((N, q, q, Y), dtype)
+    Pyp = np.zeros((N, K, q, q, q, Y), dtype)
+    Pxy = np.zeros((N, K, Y, q, q), dtype)
+    Pyy = (np.zeros((1, 1, 1, 1, 1, q), dtype) if yy_off is not None
+           else np.zeros((N, max(K, 1), Y, Y, Y, q), dtype))
+    Py0 = np.zeros((N, Y, q), dtype)
+
+    for i in range(N):
+        s = specs[i]
+        # Pyy[i, d1][y, y_first, y_second, xi], d1 = #elements in the first
+        if yy_off is None:
+            for d1 in range(max(K, 1)):
+                for y in range(Y):
+                    for y1 in range(Y):
+                        for y2 in range(Y):
+                            for xi in range(q):
+                                Pyy[i, d1, y, y1, y2, xi] = \
+                                    s.prob_yy(y, y1, y2, xi, d1, 1)
+        d = int(deg[i])
+        for xi in range(q):
+            for y in range(s.nstates(0)):
+                Py0[i, y, xi] = s.prob_y0(y, xi)
+            for xp in range(q):
+                for y in range(s.nstates(d)):
+                    Py[i, xp, xi, y] = s.prob_y(xp, xi, y, d)
+        for k in range(d):
+            for y in range(s.nstates(1)):
+                for xk in range(q):
+                    for xi in range(q):
+                        Pxy[i, k, y, xk, xi] = s.prob_xy(y, xk, xi, k)
+        # prob_y_partial: the spec's own, or the explicit sum over (y, y2)
+        for k in range(d):
+            for xp in range(q):
+                for xi in range(q):
+                    for xk in range(q):
+                        for y1 in range(s.nstates(max(d - 1, 0))):
+                            if hasattr(s, "prob_y_partial"):
+                                v = s.prob_y_partial(xp, xi, xk, y1, d - 1, k)
+                            else:
+                                v = sum(
+                                    s.prob_y(xp, xi, y, d)
+                                    * s.prob_xy(y2, xk, xi, k)
+                                    * s.prob_yy(y, y1, y2, xi, d - 1, 1)
+                                    for y in range(s.nstates(d))
+                                    for y2 in range(s.nstates(1)))
+                            Pyp[i, k, xp, xi, xk, y1] = v
+    return RecursiveFactorTables(
+        *(torch.from_numpy(a) for a in (Py, Pyp, Pxy, Pyy, Py0)), yy_off,
+        ydims)
+
+
+def build_tables_t(graph: Graph, specs_t, dtype=np.float64):
+    """Time-varying tables: not ported yet."""
+    raise NotImplementedError("time-varying tables are not ported yet "
+                              "(ROADMAP Queue 1 item 6)")
 
 
 def transition_probs(tables: RecursiveFactorTables, in_mask, x_nbr, x
@@ -60,21 +322,31 @@ def transition_probs(tables: RecursiveFactorTables, in_mask, x_nbr, x
     -> [..., N, q].  Used by the enumeration oracle."""
     if tables.time_varying:
         raise NotImplementedError("time-varying tables are not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
-    if tables.yy_off is not None:
-        raise NotImplementedError("the banded yy_off merge is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
+                                  "(ROADMAP Queue 1 item 6)")
     N, K = x_nbr.shape[-2:]
+    Y = tables.Y
     ar = torch.arange(N)
     sel = lambda t: t[ar % t.shape[0]]                    # noqa: E731
     v = sel(tables.Py0).transpose(1, 2)[ar, x]            # [..., N, Y]
     Pxy = sel(tables.Pxy)                                 # [N, K, Y, q, q]
-    Pyy = sel(tables.Pyy)                                 # [N, K', Y, Y, Y, q]
     mask = torch.as_tensor(in_mask)
+    if tables.yy_off is not None:
+        # sum type: v2[y] = sum_b v[y + off - b] pxy[b]
+        idx = (torch.arange(Y)[:, None] + tables.yy_off
+               - torch.arange(Y)[None, :])
+        ok = ((idx >= 0) & (idx < Y)).to(v.dtype)
+        idx = idx.clamp(0, Y - 1)
+    else:
+        Pyy = sel(tables.Pyy)                             # [N, K', Y, Y, Y, q]
     for k in range(K):
-        pxy = Pxy[:, k].permute(0, 2, 3, 1)[ar, x_nbr[..., k], x]   # [..., N, Y]
-        pyy = Pyy[:, min(k, Pyy.shape[1] - 1)].permute(0, 4, 1, 2, 3)[ar, x]
-        v2 = torch.einsum("...nyab,...na,...nb->...ny", pyy, v, pxy)
+        pxy = Pxy[:, k].permute(0, 2, 3, 1)[ar, x_nbr[..., k], x]  # [..,N,Y]
+        if tables.yy_off is not None:
+            vt = v[..., idx] * ok                         # [..., N, Y, Y]
+            v2 = torch.einsum("...nyb,...nb->...ny", vt, pxy)
+        else:
+            pyy = Pyy[:, min(k, Pyy.shape[1] - 1)].permute(0, 4, 1, 2, 3)
+            pyy = pyy[ar, x]
+            v2 = torch.einsum("...nyab,...na,...nb->...ny", pyy, v, pxy)
         v = torch.where(mask[:, k][:, None], v2, v)
     Py = sel(tables.Py).permute(0, 2, 1, 3)[ar, x]        # [..., N, q, Y]
     return torch.einsum("...npy,...ny->...np", Py, v)

@@ -13,8 +13,8 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["Graph", "graph_from_edges", "random_regular_graph", "random_tree",
-           "path_graph"]
+__all__ = ["Graph", "graph_from_edges", "random_regular_graph",
+           "erdos_renyi_graph", "random_tree", "star_graph", "path_graph"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -40,6 +40,12 @@ class Graph:
         valid = self.in_mask
         out[valid] = self.rev_edge[self.in_edges[valid]]
         return out
+
+    def undirected_edges(self):
+        """[(i, j, dir_id_ij)] with i < j, ordered by directed edge id of
+        i->j."""
+        return [(int(i), int(j), e) for e, (i, j) in
+                enumerate(zip(self.edge_src, self.edge_dst)) if i < j]
 
 
 def graph_from_edges(N: int, undirected_edges, dmax: int | None = None
@@ -86,6 +92,11 @@ def path_graph(N: int) -> Graph:
     return graph_from_edges(N, [(i, i + 1) for i in range(N - 1)])
 
 
+def star_graph(N: int) -> Graph:
+    """Node 0 is the hub."""
+    return graph_from_edges(N, [(0, i) for i in range(1, N)])
+
+
 def random_tree(N: int, rng: np.random.Generator) -> Graph:
     edges = [(int(rng.integers(0, i)), i) for i in range(1, N)]
     return graph_from_edges(N, edges)
@@ -112,3 +123,15 @@ def random_regular_graph(N: int, k: int, rng: np.random.Generator,
         if ok:
             return graph_from_edges(N, list(edges))
     raise RuntimeError("failed to sample a simple regular graph")
+
+
+def erdos_renyi_graph(N: int, c: float, rng: np.random.Generator) -> Graph:
+    """G(N, p) with mean degree c (p = c / (N-1)), isolated nodes kept (the
+    same draws as the JAX package's, so the same ``rng`` gives the same
+    graph)."""
+    p = c / (N - 1)
+    edges = []
+    for i in range(N):
+        js = np.nonzero(rng.random(N - i - 1) < p)[0] + i + 1
+        edges.extend((i, int(j)) for j in js)
+    return graph_from_edges(N, edges)

@@ -2,8 +2,10 @@
 
 Counterpart of ``matrixproductbp_tpu/models/sis.py``.  States are 0-indexed:
 SUSCEPTIBLE=0, INFECTIOUS=1.  The auxiliary y ("some infectious neighbour
-transmitted") is binary and merged with OR; every table is node-independent
-and carries a broadcast node axis of size 1.
+transmitted") is binary and merged with OR.  :func:`sis_tables` builds the
+node-independent tables with a broadcast node axis of size 1;
+``build_tables(g, [SISFactorSpec(...)] * N)`` builds the same factor per
+node through the generic path.
 """
 from __future__ import annotations
 
@@ -12,18 +14,19 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..bp import MPBP, mpbp
-from ..factors import RecursiveFactorTables
+from ..bp import MPBP, _not_ported, mpbp
+from ..factors import FactorSpec, RecursiveFactorTables
 from ..graph import Graph
 
 SUSCEPTIBLE = 0
 INFECTIOUS = 1
 
-__all__ = ["SIS", "SISFactorSpec", "sis_tables", "mpbp_sis", "SUSCEPTIBLE",
+__all__ = ["SIS", "SISFactorSpec", "sis_tables", "mpbp_sis",
+           "periodic_mpbp_sis", "mpbp_stationary_sis", "SUSCEPTIBLE",
            "INFECTIOUS"]
 
 
-class SISFactorSpec:
+class SISFactorSpec(FactorSpec):
     """Behavioural SIS factor: infection probability ``lam`` per infectious
     neighbour, recovery ``rho``, self-infection ``alpha``."""
 
@@ -33,6 +36,9 @@ class SISFactorSpec:
         if not (0 <= lam <= 1 and 0 <= rho <= 1 and 0 <= alpha <= 1):
             raise ValueError("lam, rho and alpha must lie in [0, 1]")
         self.lam, self.rho, self.alpha = lam, rho, alpha
+
+    def nstates(self, l: int) -> int:
+        return 1 if l == 0 else 2
 
     def prob_y(self, xp, x, y, d):
         rho, alpha = self.rho, self.alpha
@@ -48,6 +54,16 @@ class SISFactorSpec:
     def prob_yy(self, y, y1, y2, xi, d1, d2):
         return float((y == INFECTIOUS) ==
                      ((y1 == INFECTIOUS) or (y2 == INFECTIOUS)))
+
+    def prob_y0(self, y, xi):
+        return 1.0 if y == SUSCEPTIBLE else 0.0
+
+    def w(self, xp, x_nbrs, x):
+        lam, rho, alpha = self.lam, self.rho, self.alpha
+        if x == INFECTIOUS:
+            return rho if xp == SUSCEPTIBLE else 1 - rho
+        p = (1 - alpha) * (1 - lam) ** sum(xk == INFECTIOUS for xk in x_nbrs)
+        return p if xp == SUSCEPTIBLE else 1 - p
 
 
 def sis_tables(graph: Graph, lam: float, rho: float, alpha: float = 0.0
@@ -118,3 +134,14 @@ def mpbp_sis(sis: SIS, D: int, dtype=torch.float64, periodic: bool = False,
     phi = sis.phi if sis.phi is not None else sis.default_phi()
     return mpbp(sis.graph, tables, sis.T, D, phi=phi, psi=sis.psi,
                 dtype=dtype, periodic=periodic, device=device)
+
+
+def periodic_mpbp_sis(sis: SIS, D: int, dtype=torch.float64,
+                      device=None) -> MPBP:
+    """Reference ``periodic_mpbp(::SIS)``: not ported yet."""
+    raise _not_ported("periodic SIS states", 6)
+
+
+def mpbp_stationary_sis(sis: SIS, D: int = 1):
+    """Reference ``mpbp_stationary(::SIS)``: not ported yet."""
+    raise _not_ported("stationary SIS states", 6)

@@ -152,7 +152,8 @@ def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
         if nbytes <= SMEM_LIMIT:
             return name, threads.get(name, _merge_threads(nbytes)), nbytes
     raise ValueError(f"merge F scan: needs {nbytes} bytes of shared memory "
-                     f"per block, over the {SMEM_LIMIT}-byte limit")
+                     f"per block, over the {SMEM_LIMIT}-byte limit, at "
+                     f"DL={DL}, DB={DB}, Y={Y}, q={q}, sr={sr}, sl={sl}")
 
 
 def _merge_f_macros(variant, most, DL, DB, Y, q, sr, sl, dtype):
@@ -362,7 +363,8 @@ def merge_w_geometry(DL, DB, Y, q, sr, dtype, variant=None):
             if nbytes <= SMEM_LIMIT:
                 return name, _merge_threads(nbytes), nbytes
     raise ValueError(f"merge W scan: needs {nbytes} bytes of shared memory "
-                     f"per block, over the {SMEM_LIMIT}-byte limit")
+                     f"per block, over the {SMEM_LIMIT}-byte limit, at "
+                     f"DL={DL}, DB={DB}, Y={Y}, q={q}, sr={sr}")
 
 
 def merge_w_staged_macros(DL, DB, Y, q, sr, dtype):
@@ -517,7 +519,8 @@ def mpem3_geometry(Db, qi, qj, sr, sl, dtype, layout, variant=None):
         if nbytes <= SMEM_LIMIT:
             return "base", _MPEM3_THREADS, nbytes
     raise ValueError(f"{what}: needs {nbytes} bytes of shared memory per "
-                     f"block, over the {SMEM_LIMIT}-byte limit")
+                     f"block, over the {SMEM_LIMIT}-byte limit, at Db={Db}, "
+                     f"qi={qi}, qj={qj}, sr={sr}, sl={sl}")
 
 
 def mpem3_staged_macros(Db, qi, qj, sr, sl, dtype, layout, gt=None):
@@ -779,13 +782,11 @@ def merge_stta_fused(Lc, Llz, Bc, Blz, pyy, Dout: int, Y: int, q: int,
                      sketches=None, oversample: int = 4, yy_off=None):
     """Cavity merge through the scan kernels: Lc [B, T1, DL, DL, Y*q],
     Bc [B, T1, DB, DB, Y*q], pyy [Y, Y, Y, q] shared -> (cores
-    [B, T1, Dout, Dout, Y*q], logz [B] = Llz + Blz - sum log scales)."""
-    if yy_off is not None:
-        raise NotImplementedError(
-            "the banded yy_off merge is not ported yet (ROADMAP Queue 1 "
-            "item 9)")
+    [B, T1, Dout, Dout, Y*q], logz [B] = Llz + Blz - sum log scales).
+    ``yy_off`` selects the banded merge: the kernels take its banded ``Th``
+    and the band as a dense ``Pyy`` (``pyy`` is not read)."""
     return merge_sketch(Lc, Llz, Bc, Blz, pyy, Dout, Y, q, sketches,
-                        oversample, merge_wscan, merge_fscan)
+                        oversample, merge_wscan, merge_fscan, yy_off)
 
 
 def mpem3_stta_fused(B3, logz, Dout: int, sketches=None,

@@ -8,7 +8,9 @@ left-to-right pass projects each site onto the column space of its sketch
 ``[s * Y * q, s]`` through a thin QR, and a truncating SVD sweep of the
 resulting bond-``s`` train applies the caller's policy down to ``Dout``.
 Each time step runs once for the whole batch; the thin QR is the CholQR
-kernel (``ops/kernels.py``), one launch per time step.
+kernel (``ops/kernels.py``), one launch per time step.  ``yy_off`` selects
+the sum-type (banded) merge: ``y_expand`` in place of ``prob_yy``
+(``ops/randomized.py:63-104`` of the JAX package).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from . import kernels
 from .stta import DEFAULT_SKETCHES
+from .sumy import y_expand
 from .tensortrain import (TensorTrain, _maxabs, _sweep_truncate_rl,
                           normalize_eachmatrix)
 from .truncation import SVDTrunc
@@ -29,11 +32,15 @@ def _onehot(Bn, shape, like):
     return w
 
 
-def _zstep(C, Lt, Bt, pyy):
+def _zstep(C, Lt, Bt, pyy, yy_off):
     """Z[z, p, nL, nB, y, x] = sum C[z, p, k, m] L_t[z, k, nL, u, x]
-    pyy[y, u, v, x] B_t[z, m, nB, v, x]."""
+    pyy[y, u, v, x] B_t[z, m, nB, v, x] (the band ``u = y + off - v`` where
+    ``yy_off`` is set)."""
     t1 = torch.einsum("zpkm,zknux->zpnmux", C, Lt)
-    z1 = torch.einsum("yuvx,zpnmux->zpnmyvx", pyy, t1)
+    if yy_off is None:
+        z1 = torch.einsum("yuvx,zpnmux->zpnmyvx", pyy, t1)
+    else:
+        z1 = y_expand(t1, yy_off, axis=4, mode="diff")
     return torch.einsum("zpnmyvx,zmjvx->zpnjyx", z1, Bt)
 
 
@@ -44,11 +51,8 @@ def merge_rounded(Lc, Llz, Bc, Blz, pyy, trunc: SVDTrunc, Dout: int, Y: int,
     Lc [B, T1, DL, DL, Y*q], Bc [B, T1, DB, DB, Y*q], pyy [Y, Y, Y, q] shared
     -> (cores [B, T1, Dout, Dout, Y*q], logz [B] from ``Llz + Blz``).
     ``sketches.normal`` supplies the Gaussian train ``[T1, s, s, Y, q]``,
-    shared by every instance (the JAX package's unsplit ``PRNGKey(17)``)."""
-    if yy_off is not None:
-        raise NotImplementedError(
-            "the banded yy_off merge is not ported yet (ROADMAP Queue 1 "
-            "item 9)")
+    shared by every instance (the JAX package's unsplit ``PRNGKey(17)``);
+    ``yy_off`` selects the banded merge, where ``pyy`` is not read."""
     Bn, T1, DL = Lc.shape[0], Lc.shape[1], Lc.shape[2]
     DB = Bc.shape[2]
     P = Y * q
@@ -56,10 +60,13 @@ def merge_rounded(Lc, Llz, Bc, Blz, pyy, trunc: SVDTrunc, Dout: int, Y: int,
     s = min(oversample * Dout, DL * DB)
     L = Lc.reshape(Bn, T1, DL, DL, Y, q)
     B = Bc.reshape(Bn, T1, DB, DB, Y, q)
-    pyy = pyy.to(dtype)
     sk = DEFAULT_SKETCHES if sketches is None else sketches
     theta = sk.normal((T1, s, s, Y, q), dtype, device)
-    Th = torch.einsum("tabyx,yuvx->tabuvx", theta, pyy)
+    if yy_off is None:
+        pyy = pyy.to(dtype)
+        Th = torch.einsum("tabyx,yuvx->tabuvx", theta, pyy)
+    else:
+        Th = y_expand(theta, yy_off, axis=3, mode="sum")
 
     # right-to-left sketch pass: Ws[t] = W_{t+1}, t = 0..T1-2
     W = _onehot(Bn, (DL, DB, s), Lc)
@@ -76,7 +83,7 @@ def merge_rounded(Lc, Llz, Bc, Blz, pyy, trunc: SVDTrunc, Dout: int, Y: int,
     lg = Llz + Blz
     cores = []
     for t in range(T1 - 1):
-        Z = _zstep(C, L[:, t], B[:, t], pyy)          # [z, s, nL, nB, Y, q]
+        Z = _zstep(C, L[:, t], B[:, t], pyy, yy_off)  # [z, s, nL, nB, Y, q]
         m = _maxabs(Z, 5)
         Z = Z / m[:, None, None, None, None, None]
         lg = lg - torch.log(m)
@@ -86,7 +93,7 @@ def merge_rounded(Lc, Llz, Bc, Blz, pyy, trunc: SVDTrunc, Dout: int, Y: int,
         C = torch.einsum("zpyxa,zpnjyx->zanj", Q.reshape(Bn, s, Y, q, s), Z)
 
     # last core: absorb the carry; its right bond is column 0
-    Zl = _zstep(C, L[:, -1], B[:, -1], pyy)
+    Zl = _zstep(C, L[:, -1], B[:, -1], pyy, yy_off)
     last = Lc.new_zeros((Bn, s, s, P))
     last[:, :, 0, :] = Zl[:, :, 0, 0].reshape(Bn, s, P)
     cores.append(last)

@@ -11,6 +11,12 @@ rows.  The four time loops are the plain versions of the Hopper kernels in
 The JAX package staggers the time scans for XLA (``ops/pipeline.py``); the
 port has no such stagger.
 
+The sum-type (banded) merge of ``yy_off`` tables feeds the same scans the
+inputs the JAX package feeds its Pallas bodies (``fused_stta.py:860-878``):
+``Th`` from ``y_expand(psi, off, axis=3, mode="sum")``, the band as a dense
+``prob_yy`` (``sumy.band_indicator``) and the site-0 boundary through
+``mode="diff"``.
+
 Sketch randomness: JAX draws every sketch from ``PRNGKey(17)``, so a draw
 depends only on its shape and dtype.  The port takes a ``sketches`` source
 with ``draw(phi_shape, psi_shape, dtype, device) -> (phi, psi)`` (the sketch
@@ -23,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from .smallalg import spd_solve_unrolled
+from .sumy import band_indicator, y_expand
 from .tensortrain import _fit_axis, _safe_scale
 
 __all__ = ["SeededSketches", "DEFAULT_SKETCHES", "merge_stta_batched",
@@ -76,13 +83,15 @@ def _solve_batched(M, N, eps):
     take the JAX package's path unchanged."""
     out_dtype = M.dtype
     if out_dtype == torch.float32:
-        M, N = M.double(), N.double()
+        M = M.double()
     sr = M.shape[-1]
     G = torch.einsum("...ij,...ik->...jk", M, M)
     tr = torch.clamp(torch.diagonal(G, dim1=-2, dim2=-1).sum(-1), min=1e-30)
     eye = torch.eye(sr, dtype=M.dtype, device=M.device)
     Gj = G + (eps * tr / sr)[..., None, None] * eye
-    rhs = torch.einsum("...ij,...ik->...jk", M, N)
+    # N's float64 copy lives only for this product (N is the largest
+    # operand: [..., sl, P * sr])
+    rhs = torch.einsum("...ij,...ik->...jk", M, N.to(M.dtype))
     return spd_solve_unrolled(Gj, rhs).to(out_dtype)
 
 
@@ -210,13 +219,14 @@ def _assemble(first_v, Ms, Ns, Bn, S, sr, P, Dout, dtype, device):
 
 
 def merge_sketch(Lc, Llz, Bc, Blz, pyy, Dout, Y, q, sketches, oversample,
-                 wscan, fscan):
+                 wscan, fscan, yy_off=None):
     """Cavity merge ``L (x) B`` contracted with ``prob_yy`` -> bond Dout,
     through the given scan functions.
 
     Lc [B, T1, DL, DL, Y*q], Bc [B, T1, DB, DB, Y*q], pyy [Y, Y, Y, q] ->
     (cores [B, T1, Dout, Dout, Y*q], logz [B]); cores are rescaled to
     max-abs 1 each, the scales folded into logz (``fused_stta.py:912-914``).
+    ``yy_off`` selects the banded merge, where ``pyy`` is not read.
     """
     Bn, T1, DL = Lc.shape[0], Lc.shape[1], Lc.shape[2]
     DB = Bc.shape[2]
@@ -227,12 +237,18 @@ def merge_sketch(Lc, Llz, Bc, Blz, pyy, Dout, Y, q, sketches, oversample,
     S = T1 - 1
     sk = DEFAULT_SKETCHES if sketches is None else sketches
     phi, psi = sk.draw((T1, sl, sl, Y, q), (T1, sr, sr, Y, q), dtype, device)
-    pyy = pyy.to(dtype)
-    Th = torch.einsum("tabyx,yuvx->tabuvx", psi, pyy).contiguous()
-
     Lf = Lc.reshape(Bn, T1, DL, DL, Y, q)
     Bf = Bc.reshape(Bn, T1, DB, DB, Y, q)
-    c0 = torch.einsum("yuvx,znux,zjvx->znjyx", pyy, Lf[:, 0, 0], Bf[:, 0, 0])
+    if yy_off is None:
+        pyy = pyy.to(dtype)
+        Th = torch.einsum("tabyx,yuvx->tabuvx", psi, pyy).contiguous()
+        c0 = torch.einsum("yuvx,znux,zjvx->znjyx", pyy, Lf[:, 0, 0],
+                          Bf[:, 0, 0])
+    else:
+        pyy = band_indicator(Y, yy_off, q, dtype, device)
+        Th = y_expand(psi, yy_off, axis=3, mode="sum").contiguous()
+        LT = y_expand(Lf[:, 0, 0], yy_off, axis=2, mode="diff")
+        c0 = torch.einsum("znyvx,zjvx->znjyx", LT, Bf[:, 0, 0])
     S_init = _rescale(torch.einsum("fyx,znjyx->zfnj", phi[0, 0], c0))
 
     Ws = wscan(Lf[:, 1:], Bf[:, 1:], Th[1:])
@@ -282,12 +298,9 @@ def tm_to_7d(B3f, Db, qi, qj):
 def merge_stta_batched(Lc, Llz, Bc, Blz, pyy, Dout: int, Y: int, q: int,
                        sketches=None, oversample: int = 4, yy_off=None):
     """Batched cavity merge through the plain scans, on any device."""
-    if yy_off is not None:
-        raise NotImplementedError(
-            "the banded yy_off merge is not ported yet (ROADMAP Queue 1 "
-            "item 9)")
     return merge_sketch(Lc, Llz, Bc, Blz, pyy, Dout, Y, q, sketches,
-                        oversample, merge_wscan_plain, merge_fscan_plain)
+                        oversample, merge_wscan_plain, merge_fscan_plain,
+                        yy_off)
 
 
 def mpem3_stta_batched(B3, logz, Dout: int, sketches=None,

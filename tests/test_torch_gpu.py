@@ -16,7 +16,10 @@ diagonal inputs at k = 1..64 and ragged batches), and the staged MPEM3
 W and F kernels (f32, 1e-4 of max-abs, against the plain scans at both
 launches of a sketch sweep at every D from 4 to 20, S = 1, a ragged batch,
 zero and non-finite instances; strided and f64 inputs taking the first
-designs).  Marked ``gpu``; skips
+designs); every merge F kernel and both MPEM3 kernels non-finite exactly
+where the plain scans are (N's last step is the full product with the
+one-hot); the banded Glauber merges at Y = 3, 5 and 10 and the q = 3
+SIRS merges and conversions (f32, 1e-4 of max-abs).  Marked ``gpu``; skips
 from its fixture when no CUDA device is present.  Needs no JAX: on the
 card run it with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``.
@@ -371,32 +374,79 @@ def test_mpem3_staged_one_step_and_ragged(cuda, mpem3_builds, qj, layout):
             _assert_close(_mpem3_run(*args), _mpem3_plain(*args), 1e-4)
 
 
+def _assert_nonfinite_as_plain(out, ref, keep):
+    """The kernels' outputs against the plain scans': the unaltered
+    instances ``keep`` within 1e-4 of max-abs, every instance non-finite
+    exactly where the plain scans are, and equal to them (1e-4) where
+    finite."""
+    _assert_close([o[keep] for o in out], [r[keep] for r in ref], 1e-4)
+    for o, r in zip(out, ref):
+        assert torch.equal(torch.isfinite(o), torch.isfinite(r))
+        fin = torch.isfinite(r)
+        assert float((o[fin] - r[fin]).abs().max()) <= 1e-4 * float(
+            r[fin].abs().max())
+
+
 @pytest.mark.parametrize("qj,layout", [(2, "ijrmn"), (1, "mnijr")])
 def test_mpem3_staged_safe_scale(cuda, mpem3_builds, qj, layout):
-    """The _safe_scale guard: an instance whose B_t are all zero (every
-    max 0, scale 1) and one with an inf in its last step's B_t and a NaN in
-    its first (non-finite max, scale 1), among Gaussian ones.  The other
-    instances match the plain scans (1e-4 of their max-abs); the two
-    guarded ones match them wherever the plain scans are finite, and are
-    non-finite exactly where the first-design kernels are (both write N's
-    one-hot products at the last step as exact zeros where the plain
-    einsum multiplies a NaN by 0)."""
+    """The _safe_scale guard and N's last step: an instance whose B_t are
+    all zero (every max 0, scale 1), one with an inf in its last step's
+    B_t and a NaN in its first (non-finite max, scale 1), and one with an
+    inf off the one-hot's entry (m, n) = (0, 0) in its last step only,
+    among Gaussian ones.  The staged and the first-design kernels are
+    non-finite exactly where the plain scans are (N's last step is the
+    product with the one-hot, so a NaN or inf anywhere in a row of t1
+    reaches every column b) and match them elsewhere."""
     args = _mpem3_inputs(9, 6, *_mpem3_dims(10, qj), layout, torch.float32,
                          cuda)
     B1 = args[0]
     B1[3] = 0.0
     B1[5, -1, 0, 0, 0, 0, 0] = float("inf")
     B1[5, 0, 1, 1, 0, 0, 1] = float("nan")
-    out, ref = _mpem3_run(*args), _mpem3_plain(*args)
-    base = _mpem3_run(*args, variant="base")
-    keep = torch.tensor([z not in (3, 5) for z in range(9)], device=cuda)
-    _assert_close([o[keep] for o in out], [r[keep] for r in ref], 1e-4)
-    for o, r, b in zip(out, ref, base):
-        assert torch.equal(torch.isfinite(o), torch.isfinite(b))
-        fin = torch.isfinite(r)
-        assert float((o[fin] - r[fin]).abs().max()) <= 1e-4 * float(
-            r[fin].abs().max())
-    assert bool(torch.isfinite(out[0][3]).all())
+    B1[7, -1, 2, 3, 1, 0, 1] = float("inf")
+    ref = _mpem3_plain(*args)
+    keep = torch.tensor([z not in (3, 5, 7) for z in range(9)], device=cuda)
+    for variant in (None, "base"):
+        _assert_nonfinite_as_plain(_mpem3_run(*args, variant=variant), ref,
+                                   keep)
+    assert not bool(torch.isfinite(ref[1][7, -1, ..., 1:]).all())
+    assert bool(torch.isfinite(ref[0][3]).all())
+
+
+@pytest.mark.parametrize("variant", ["staged", "cluster", "base"])
+def test_merge_f_safe_scale(cuda, variant):
+    """As ``test_mpem3_staged_safe_scale`` for each merge F kernel at the
+    D=10 sketch merge, with finite W_t: a zero instance, one with a NaN in
+    its first step's B_t and an inf in its last, one with an inf off
+    (m, j) = (0, 0) in its last step only (M and the earlier N stay
+    finite, the last N turns non-finite in every column b); non-finite
+    exactly where the plain scans are."""
+    g = torch.Generator().manual_seed(9)
+    d = _sketch_dims(10)
+    Bn, S, DL, DB, Y, q, sr, sl = 9, 6, *d.values()
+    L = _randn(g, Bn, S + 1, DL, DL, Y, q).to(cuda, torch.float32)
+    B = _randn(g, Bn, S + 1, DB, DB, Y, q).to(cuda, torch.float32)
+    Th = _randn(g, S, sr, sr, Y, Y, q).to(cuda, torch.float32)
+    Pyy = torch.rand((Y, Y, Y, q), generator=g, dtype=torch.float64) \
+        .to(cuda, torch.float32)
+    Phi = _randn(g, S, sl, sl, Y, q).to(cuda, torch.float32)
+    S0 = _randn(g, Bn, sl, DL, DB).to(cuda, torch.float32)
+    L[3], B[3] = 0.0, 0.0
+    Wp = fs.merge_wscan_plain(L[:, 1:], B[:, 1:], Th)      # finite W_t
+    B[5, 1, 1, 1, 0, 1] = float("nan")
+    B[5, -1, 0, 0, 1, 0] = float("inf")
+    B[7, -1, 2, 3, 1, 0] = float("inf")
+    L1, B1 = L[:, 1:], B[:, 1:]
+    ref = [Wp, *fs.merge_fscan_plain(L1, B1, Pyy, Phi, Wp, S0)]
+    before = dict(fs.merge_fscan.variant_launches)
+    out = [Wp, *fs.merge_fscan(L1, B1, Pyy, Phi, Wp, S0, _variant=variant)]
+    assert fs.merge_fscan.variant_launches == {
+        **before, variant: before[variant] + 1}
+    keep = torch.tensor([z not in (3, 5, 7) for z in range(9)], device=cuda)
+    _assert_nonfinite_as_plain(out, ref, keep)
+    assert not bool(torch.isfinite(ref[1][7, -1, ..., 1:]).all())
+    assert bool(torch.isfinite(ref[1][7, :-1]).all())
+    assert bool(torch.isfinite(ref[2][7]).all())
 
 
 def test_mpem3_strided_and_f64_take_the_base_kernels(cuda, mpem3_builds):
@@ -614,3 +664,103 @@ def test_cholqr_and_eigh_refuse_what_they_cannot_take(cuda):
         kernels.cholqr(torch.zeros(2, 20, 80, device=cuda).transpose(1, 2))
     with pytest.raises(TypeError, match="float64"):
         smallsvd.eigh_desc(torch.zeros(2, 4, 4, device=cuda))
+
+
+# the banded (sum-type) merge of the Glauber tables at D=10: Y = 3, 5 and
+# 10 (the ER graph's K = 2, 4 and 9 buckets; Y=9 at K=8 takes the Y=10
+# kernels), Th from y_expand and the band as a dense Pyy, as the sweep
+# feeds them; and the q = 3 (SIRS) merges at D=10 and D=20
+BANDED_Y = [3, 5, 10]
+Q3_MERGES = [dict(DL=D, DB=D, Y=2, q=3, sr=D, sl=D + 4) for D in (10, 20)]
+# the q = 3 conversions of a SIRS sketch sweep: messages (qj = 3, the
+# time-major rows) and beliefs (qj = 1, contiguous) at D=10 and D=20
+MPEM3_Q3 = [(D, qj, "ijrmn" if qj == 3 else "mnijr") for D in (10, 20)
+            for qj in (3, 1)]
+
+
+def _q3_mpem3_dims(D, qj):
+    return D, 3, qj, D, D + 4
+
+
+@pytest.fixture(scope="module")
+def slice_builds():
+    """The per-shape merge F and MPEM3 kernels at every shape below, built
+    at once."""
+    if torch.cuda.is_available():
+        banded = [(10, 10, Y, 2, 10, 14, torch.float32) for Y in BANDED_Y]
+        fs.build_merge_f(banded[:2], "cluster")
+        fs.build_merge_f(banded + [(*d.values(), torch.float32)
+                                   for d in Q3_MERGES if d["DL"] == 10])
+        fs.build_mpem3([(*_q3_mpem3_dims(D, qj)[:4], s, torch.float32, lay)
+                        for D, qj, lay in MPEM3_Q3
+                        for s in (None, D + 4)])
+
+
+def _banded_merge_inputs(Bn, S, D, Y, q, off, dev, seed=10):
+    """L1, B1 (strided views), the banded Th and Pyy, Phi, S_init."""
+    from matrixproductbp_tpu_torch.ops import sumy
+    g = torch.Generator().manual_seed(seed)
+    L = _randn(g, Bn, S + 1, D, D, Y, q).to(dev, torch.float32)
+    B = _randn(g, Bn, S + 1, D, D, Y, q).to(dev, torch.float32)
+    psi = _randn(g, S, D, D, Y, q).to(dev, torch.float32)
+    Th = sumy.y_expand(psi, off, axis=3, mode="sum").contiguous()
+    Pyy = sumy.band_indicator(Y, off, q, torch.float32, dev)
+    Phi = _randn(g, S, D + 4, D + 4, Y, q).to(dev, torch.float32)
+    S0 = _randn(g, Bn, D + 4, D, D).to(dev, torch.float32)
+    return L[:, 1:], B[:, 1:], Th, Pyy, Phi, S0
+
+
+@pytest.mark.parametrize("Y", BANDED_Y)
+def test_banded_merge_scans(cuda, slice_builds, Y):
+    """The kernels merge_*_geometry picks (merge W: the first design; merge
+    F: staged to Y=5, the cluster kernel at Y=10) and every other merge F
+    kernel that fits, against the plain scans, 1e-4 of max-abs."""
+    L1, B1, Th, Pyy, Phi, S0 = _banded_merge_inputs(33, 15, 10, Y, 2, 0,
+                                                    cuda)
+    want = {3: "staged", 5: "staged", 10: "cluster"}[Y]
+    assert fs.merge_f_geometry(10, 10, Y, 2, 10, 14, torch.float32)[0] \
+        == want
+    assert fs.merge_w_geometry(10, 10, Y, 2, 10, torch.float32)[0] == "base"
+    Wp = fs.merge_wscan_plain(L1, B1, Th)
+    ref = [Wp, *fs.merge_fscan_plain(L1, B1, Pyy, Phi, Wp, S0)]
+    before = dict(fs.merge_wscan.variant_launches)
+    Ws = fs.merge_wscan(L1, B1, Th)
+    assert fs.merge_wscan.variant_launches == {
+        **before, "base": before["base"] + 1}
+    for variant in (want, "base") + (("cluster",) if Y < 10 else ()):
+        before = dict(fs.merge_fscan.variant_launches)
+        out = [Ws, *fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S0,
+                                   _variant=None if variant == want
+                                   else variant)]
+        assert fs.merge_fscan.variant_launches == {
+            **before, variant: before[variant] + 1}
+        _assert_close(out, ref, 1e-4)
+
+
+def test_banded_merge_beyond_the_kernels_raises(cuda):
+    """Y=10 at D=11: merge W's buffers do not fit, and no kernel is
+    quietly replaced by the plain scans."""
+    L1, B1, Th, _, _, _ = _banded_merge_inputs(2, 3, 11, 10, 2, 0, cuda)
+    before = fs.merge_wscan.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fs.merge_wscan(L1, B1, Th)
+    assert fs.merge_wscan.launches == before
+
+
+@pytest.mark.parametrize("dims", Q3_MERGES, ids=lambda d: f"D{d['DL']}")
+def test_q3_merge_scans(cuda, slice_builds, dims):
+    """SIRS merges (Y=2, q=3, a dense OR-merge Pyy): the picked kernels
+    (merge F staged at D=10, the first design at D=20; merge W the first
+    design) against the plain scans."""
+    out, ref = _merge_case(17, 15, **dims, dtype=torch.float32, dev=cuda)
+    _assert_close(out, ref, 1e-4)
+
+
+@pytest.mark.parametrize("D,qj,layout", MPEM3_Q3, ids=lambda x: str(x))
+def test_mpem3_staged_q3(cuda, slice_builds, D, qj, layout):
+    """Both staged MPEM3 kernels at the q = 3 conversions of a SIRS sketch
+    sweep against the plain scans, 1e-4 of max-abs."""
+    args = _mpem3_inputs(37, 15, *_q3_mpem3_dims(D, qj), layout,
+                         torch.float32, cuda)
+    assert fs.mpem3_layout(args[0], args[1], args[2]) == layout
+    _assert_close(_mpem3_run(*args), _mpem3_plain(*args), 1e-4)

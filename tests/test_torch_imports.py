@@ -32,5 +32,10 @@ def test_no_jax_imports(path):
 
 def test_scan_sees_the_package():
     assert len(FILES) >= 15
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"matrixproductbp_tpu_torch/{m}.py" for m in (
+        "factors", "ops/sumy", "models/glauber", "models/sirs",
+        "models/sis_heterogeneous", "models/inference",
+        "models/equilibrium")} <= names
     assert _forbidden("jax.numpy") and _forbidden("matrixproductbp_tpu.bp")
     assert not _forbidden("matrixproductbp_tpu_torch.bp")

@@ -142,9 +142,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,match", [
     # ids fixed to the ones these cases had in a longer list, so that runs
-    # of this test stay comparable across versions
-    pytest.param(dict(method="sketch", chunk=2), "item 7", id="kwargs3-item 7"),
-    pytest.param(dict(method="sketch", schedule="seidel"), "item 7",
+    # of this test stay comparable across versions (the raise now names
+    # item 3 of the queue's current numbering)
+    pytest.param(dict(method="sketch", chunk=2), "item 3", id="kwargs3-item 7"),
+    pytest.param(dict(method="sketch", schedule="seidel"), "item 3",
                  id="kwargs4-item 7"),
 ])
 def test_unported_options_raise(kwargs, match):
@@ -169,10 +170,25 @@ def test_iterate_options_run(kwargs):
 
 def test_unported_modes_raise():
     g = tp.graph_from_edges(3, [(0, 1), (1, 2)])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         mpbp_sis(SIS(g, 0.2, 0.1, T=2), D=3, periodic=True, device="cpu")
     _, tb = _sis_pair()
-    banded = dataclasses.replace(
-        tb, tables=dataclasses.replace(tb.tables, yy_off=1))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tp.bp_sweep(banded, tp.TruncBond(4))
+    tv = dataclasses.replace(tb, tables=dataclasses.replace(
+        tb.tables, Py=tb.tables.Py[:, None].expand(-1, 4, -1, -1, -1)))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tp.bp_sweep(tv, tp.TruncBond(4))
+
+
+@pytest.mark.parametrize("method", ["sketch", "qr", "randomized"])
+def test_banded_sweep_runs(method):
+    """Tables tagged with ``yy_off`` take the banded merge on every method:
+    a Glauber tree's sweep gives finite, normalised beliefs."""
+    from matrixproductbp_tpu_torch.models import Glauber, Ising, mpbp_glauber
+    g = tp.graph_from_edges(4, [(0, 1), (0, 2), (2, 3)])
+    tb = mpbp_glauber(Glauber(Ising(g, [0.5] * 3, [0.1] * 4), T=3), D=4,
+                      device="cpu")
+    assert tb.tables.yy_off == 0
+    tb = tp.bp_sweep(tb, tp.TruncBond(4), method=method)
+    b = tp.beliefs(tb)
+    assert bool(torch.isfinite(b).all())
+    np.testing.assert_allclose(b.sum(-1).numpy(), 1.0, rtol=1e-12)

@@ -137,7 +137,7 @@ def test_sketch_polish_matches_jax(monkeypatch):
 
 def test_options_still_not_ported_raise():
     _, tb = _pair(TREE, 2, 4, **TREE_SIS)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
         tp.iterate(tb, maxiter=1, chunk=2, method="qr")
     with pytest.raises(ValueError, match="unknown method"):
         tp.bp_sweep(tb, tp.TruncBond(4), method="svd")
