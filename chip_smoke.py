@@ -402,7 +402,10 @@ def phase_kernels():
     shapes, f32 at the bench shapes for D=10 and D=20.  Each merge case
     runs every merge F kernel whose buffers fit its shape (all three at
     D=10 and the f64 shapes, the cluster kernel and ``merge_f_kernel`` at
-    D=20) and both merge W kernels, and names each."""
+    D=20) and both merge W kernels, and names each.  Then the staged
+    MPEM3 kernels at the SIS and SIRS sweeps' conversions and the merge
+    kernels at the SIRS sweeps' merge, at D=10 and D=20, each on the
+    kernel its geometry picks, launches checked."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
@@ -451,26 +454,27 @@ def phase_kernels():
                                 "ref_max_abs": scale, "tol": tol, **variant})
                 check(err <= tol, f"{kind} kernels disagree with their "
                                   f"plain versions: {results[-1]}")
-    results += mpem3_bench_vs_plain(dev)
+    results += mpem3_bench_vs_plain(dev) + sirs_merges_vs_plain(dev)
     results += cholqr_vs_plain(dev) + eigh_vs_plain(dev)
     emit("kernels_vs_plain", cases=results)
 
 
 def mpem3_bench_vs_plain(dev):
     """The staged MPEM3 W and F kernels at the sketch sweeps' shapes, D=10
-    and D=20: the message conversion [12288, 15, D, D, 2, 2, 2] in its
-    time-major view and the belief conversion [4096, 15, D, D, 2, 1, 2]
-    contiguous, each against the plain scans at Ws, Ns and Ms, 1e-4 of
-    the plain output's max-abs; the launches counted on the staged
-    kernels."""
+    and D=20, for SIS (q = 2) and SIRS (q = 3): the message conversion
+    [12288, 15, D, D, q, q, q] in its time-major view and the belief
+    conversion [4096, 15, D, D, q, 1, q] contiguous, each against the
+    plain scans at Ws, Ns and Ms, 1e-4 of the plain output's max-abs; the
+    launches counted on the staged kernels."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     rows = []
     for D in (10, 20):
-        for Bn, qj in ((BENCH_N * BENCH_DEG, 2), (BENCH_N, 1)):
-            dims = mpem3_dims(D, qj=qj)
+        for Bn, qi, qj in ((BENCH_N * BENCH_DEG, 2, 2), (BENCH_N, 2, 1),
+                           (BENCH_N * BENCH_DEG, 3, 3), (BENCH_N, 3, 1)):
+            dims = mpem3_dims(D, qi=qi, qj=qj)
             args = mpem3_inputs(Bn, BENCH_T, **dims, dtype=torch.float32,
-                                device=dev, seed=20 + D + qj)
+                                device=dev, seed=20 + D + qj + 10 * (qi - 2))
             check(fs.mpem3_layout(*args[:3]) == mpem3_layout_of(qj),
                   f"MPEM3 inputs not in the sweep's layout: {dims}")
             before = (dict(fs.mpem3_wscan.variant_launches),
@@ -494,6 +498,53 @@ def mpem3_bench_vs_plain(dev):
                   f"staged MPEM3 kernels disagree with the plain scans: "
                   f"{rows[-1]}")
             del args, out, ref
+    return rows
+
+
+def merge_vs_plain(args, dims, what):
+    """Ws, Ns and Ms of the merge kernels ``merge_*_geometry`` picks for
+    ``dims`` (f32) against the plain scans on ``args``, 1e-4 of the plain
+    output's max-abs; one launch counted on each picked kernel and none on
+    the others.  Returns the row."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    shape = tuple(dims[k] for k in ("DL", "DB", "Y", "q", "sr", "sl"))
+    picks = (fs.merge_w_geometry(*shape[:5], torch.float32)[0],
+             fs.merge_f_geometry(*shape, torch.float32)[0])
+    counters = (fs.merge_wscan.variant_launches,
+                fs.merge_fscan.variant_launches)
+    before = [dict(c) for c in counters]
+    out = run_merge(fs, *args)
+    seen = [{v: n - b[v] for v, n in c.items()}
+            for c, b in zip(counters, before)]
+    ref = run_merge(fs, *args, plain=True)
+    torch.cuda.synchronize()
+    err, scale = max_err(out, ref)
+    row = {"kind": "merge", "what": what, "dtype": "float32", **dims,
+           "B": args[0].shape[0], "S": args[0].shape[1],
+           "merge_w_kernel": picks[0], "merge_f_kernel": picks[1],
+           "max_abs_err": err, "ref_max_abs": scale,
+           "tol": TOL_F32_REL * scale}
+    check(all(n == (v == p) for d, p in zip(seen, picks)
+              for v, n in d.items()),
+          f"{what}: merge launches {seen}, want one on each of {picks}")
+    check(err <= TOL_F32_REL * scale,
+          f"{what}: merge kernels disagree with the plain scans: {row}")
+    return row
+
+
+def sirs_merges_vs_plain(dev):
+    """The merge kernels at the SIRS sweeps' merge shape (q = 3, Y = 2,
+    [8192, 15], the shared dense Pyy), D=10 (staged merge F and W) and
+    D=20 (the first designs), against the plain scans."""
+    import torch
+    rows = []
+    for D in (10, 20):
+        dims = merge_dims(D, Y=2, q=3)
+        args = merge_inputs(2 * BENCH_N, BENCH_T, **dims,
+                            dtype=torch.float32, device=dev, seed=50 + D)
+        rows.append(merge_vs_plain(args, dims, f"sirs_rrg_d{D} merge"))
+        del args
     return rows
 
 
@@ -1124,37 +1175,31 @@ def phase_glauber_er():
     every merge and conversion on a hand kernel and no plain scan; one
     sweep held to the same sweep through the plain scans; the isolated
     spins' beliefs held to their exact marginals; the banded merge scans
-    at the K=4 and K=9 buckets' shapes held to the plain scans."""
-    import torch
-    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    at the K = 2, 4, 8 and 9 buckets' shapes (Y = 3, 5, 9, 10) held to the
+    plain scans, each on the kernels the geometry picks (its own per-shape
+    build where it has one)."""
     bp0 = glauber_state()
     cur, res = timed_model_sweeps(bp0, TIMED_SWEEPS_GLAUBER)
     phase_profile(cur, label="profile_glauber_er")
     n_iso, iso_err = isolated_spin_err(cur)
     res.update(isolated_nodes=n_iso, isolated_belief_err=iso_err,
                tol_isolated=1e-5, yy_off=bp0.tables.yy_off)
-    scans = []
-    for key in ("K4_Y5", "K9_Y10"):
-        Y = int(key.split("_Y")[1])
-        md = merge_dims(GLAUBER_D, Y)
-        Bn = res["by_bucket"][key]["nodes"] // res["by_bucket"][key]["updates"]
-        args = banded_merge_inputs(Bn, GLAUBER_T, **md, device="cuda",
-                                   seed=30 + Y)
-        out, ref = run_merge(fs, *args), run_merge(fs, *args, plain=True)
-        torch.cuda.synchronize()
-        err, scale = max_err(out, ref)
-        scans.append({"bucket": key, "B": Bn, **md, "max_abs_err": err,
-                      "ref_max_abs": scale, "tol": TOL_F32_REL * scale})
-        del args, out, ref
-    res["banded_scans_vs_plain"] = scans
     emit("glauber_er", **res)
     check_buckets(res, 2, "glauber_er")
     check(res["one_sweep_belief_diff_vs_plain"] <= TOL_SWEEP_BELIEFS,
           f"glauber_er: kernel sweep vs plain sweep: {res}")
     check(iso_err <= 1e-5, f"glauber_er: isolated spins off: {iso_err}")
-    for r in scans:
-        check(r["max_abs_err"] <= r["tol"],
-              f"glauber_er: banded merge scans vs plain: {r}")
+    scans = []
+    for key in ("K2_Y3", "K4_Y5", "K8_Y9", "K9_Y10"):
+        Y = int(key.split("_Y")[1])
+        md = merge_dims(GLAUBER_D, Y)
+        Bn = res["by_bucket"][key]["nodes"] // res["by_bucket"][key]["updates"]
+        args = banded_merge_inputs(Bn, GLAUBER_T, **md, device="cuda",
+                                   seed=30 + Y)
+        scans.append({"bucket": key, **merge_vs_plain(
+            args, md, f"glauber_er bucket {key} banded merge")})
+        del args
+    emit("glauber_er_banded_scans_vs_plain", cases=scans)
     return res
 
 
@@ -1218,8 +1263,11 @@ def glauber_kernel_times(gres, reps=10):
     for (name, src, line), count, kern, plain, (flops, nbytes) in cases:
         out, ref = kern(), plain()
         torch.cuda.synchronize()
-        err, _ = max_err(tuple(out) if isinstance(out, tuple) else out,
-                         tuple(ref) if isinstance(ref, tuple) else ref)
+        err, scale = max_err(tuple(out) if isinstance(out, tuple) else out,
+                             tuple(ref) if isinstance(ref, tuple) else ref)
+        check(err <= TOL_F32_REL * scale,
+              f"{name} at the Glauber Y={Y} bucket disagrees with its plain "
+              f"version: {err} > {TOL_F32_REL} * {scale}")
         bms, by = bound_ms(flops, nbytes)
         rows.append({
             "name": f"{name}_glauber_y{Y}", "route": "cuda",
@@ -1314,8 +1362,11 @@ def phase_kernel_times(launches, D=10, reps=10):
     for name, kern, plain, (flops, nbytes), src, line in cases:
         out, ref = kern(), plain()
         torch.cuda.synchronize()
-        err, _ = max_err(tuple(out) if isinstance(out, tuple) else out,
-                         tuple(ref) if isinstance(ref, tuple) else ref)
+        err, scale = max_err(tuple(out) if isinstance(out, tuple) else out,
+                             tuple(ref) if isinstance(ref, tuple) else ref)
+        check(err <= TOL_F32_REL * scale,
+              f"{name} at D={D} disagrees with its plain version: {err} > "
+              f"{TOL_F32_REL} * {scale}")
         ms_runs = turns.get(name) or [time_cuda(kern, reps)]
         plain_ms = time_cuda(plain, 2)
         bms, by = bound_ms(flops, nbytes)
@@ -1373,8 +1424,12 @@ def mpem3_kernel_times(launches, D, reps, qi=2, launches_from=None):
             out, ref = runs["staged"](), plain()
             base_out = runs["base"]()
             torch.cuda.synchronize()
-            err, _ = max_err(out, ref)
+            err, scale = max_err(out, ref)
             base_err, _ = max_err(base_out, ref)
+            check(max(err, base_err) <= TOL_F32_REL * scale,
+                  f"MPEM3 {kern} kernels at [{Bn}, {S}], D={D}, q={qi}, "
+                  f"qj={qj} disagree with the plain scan: staged {err}, "
+                  f"base {base_err} > {TOL_F32_REL} * {scale}")
             bms, by = bound_ms(flops, nbytes)
             ms = {v: sum(t) / len(t) for v, t in turns.items()}
             rec = {"B": Bn, "qj": qj, "layout": mpem3_layout_of(qj),

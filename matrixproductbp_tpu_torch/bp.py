@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .factors import RecursiveFactorTables
 from .graph import Graph
@@ -492,26 +493,31 @@ def _check_sweep_options(bp: MPBP, method: str, damp: float):
         raise _not_ported("time-varying tables", 6)
 
 
+#: per-node ``prob_yy`` tensor -> {(Kb, Yb, node bytes): its groups}
+_PYY_GROUPS = WeakIdKeyDictionary()
+
+
 def _pyy_groups(tb: RecursiveFactorTables, idx, Kb: int, Yb: int):
     """A bucket's nodes grouped by identical bucket-cropped ``prob_yy``:
     [(node indices, that group's table [1, K', Yb, Yb, Yb, q])].  Shared
     (node axis 1) and banded tables give one group.  Computed once per
-    bucket on the host and kept with the tables."""
+    bucket on the host and kept while the table lives."""
     if tb.yy_off is not None or tb.Pyy.shape[0] == 1:
         P = tb.Pyy if tb.yy_off is not None else \
             tb.Pyy[:, :min(Kb, tb.Pyy.shape[1])][..., :Yb, :Yb, :Yb, :]
         return [(idx, P)]
+    memo = _PYY_GROUPS.setdefault(tb.Pyy, {})
     key = (Kb, Yb, idx.tobytes())
-    if key not in tb.pyy_groups:
+    if key not in memo:
         P = tb.Pyy[torch.as_tensor(idx, device=tb.Pyy.device)]
         P = P[:, :min(Kb, tb.Pyy.shape[1])][..., :Yb, :Yb, :Yb, :]
         flat = P.reshape(len(idx), -1).cpu().numpy()
         _, first, inv = np.unique(flat, axis=0, return_index=True,
                                   return_inverse=True)
         inv = inv.reshape(-1)
-        tb.pyy_groups[key] = [(idx[inv == g], P[first[g]][None])
-                              for g in range(len(first))]
-    return tb.pyy_groups[key]
+        memo[key] = [(idx[inv == g], P[first[g]][None])
+                     for g in range(len(first))]
+    return memo[key]
 
 
 def bp_sweep(bp: MPBP, trunc: SVDTrunc, trunc_cav: SVDTrunc | None = None,

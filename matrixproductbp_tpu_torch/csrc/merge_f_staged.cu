@@ -172,7 +172,7 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
       // a thread a row: its 100-225 entries cost the block less here than
       // a warp a row's reductions (timed in turns against the parent)
       for (int w = tid; w < sl * P; w += NT)
-        onehot_row(t2 + w % P * nS + w / P * DLB, DLB, No + w * sr, sr, 1);
+        onehot_row(t2 + w % P * nS + w / P * DLB, DLB, No + w * sr, sr);
     } else {
       tile_gemm<NT, T, 4, 5, 4, false>(t2, Wt1, No, gn);       // N = t2 . W_{t+1}
     }

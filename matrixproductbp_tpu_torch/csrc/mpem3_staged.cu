@@ -464,7 +464,7 @@ mpem3_f_staged_kernel(const T* __restrict__ Bm, i64 sz, i64 st,
     M3_TICK(3);
     if (s == S - 1) {                           // N = t1 . one-hot
       for (int w = gt; w < sl * P; w += GT)
-        onehot_row(T1 + w * R1, MI, Ob + oN + w * sr, sr, 1);
+        onehot_row(T1 + w * R1, MI, Ob + oN + w * sr, sr);
     } else {
       gprod<OpN, false>(T1, Wt1, Ob, gt, mx, bad);         // N = t1 . W_{t+1}
     }

@@ -40,16 +40,15 @@ static int prepare(K kernel, size_t smem, int* threads) {
 // One row of N at a forward scan's last step: a row `a` of n entries times
 // the one-hot W_{T1}, in full, as the plain scan's product does it:
 // a[0] + sum_{c>0} a[c]*0 at b = 0 and sum_c a[c]*0 at every other b, so a
-// NaN or inf anywhere in the row reaches each column b.  Column b lands at
-// out[b * cs].
+// NaN or inf anywhere in the row reaches each column b, at out[b].
 template <typename T>
 __device__ __forceinline__ void onehot_row(const T* a, int n, T* out,
-                                           int sr, int cs) {
+                                           int sr) {
   T z = T(0);
   for (int c = 1; c < n; ++c) z += a[c] * T(0);
   out[0] = a[0] + z;
   z += a[0] * T(0);
-  for (int b = 1; b < sr; ++b) out[b * cs] = z;
+  for (int b = 1; b < sr; ++b) out[b] = z;
 }
 
 // The rows of N at a forward scan's last step, as onehot_row, one warp a

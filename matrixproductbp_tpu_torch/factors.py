@@ -47,10 +47,6 @@ class RecursiveFactorTables:
     yy_off: int | None = None
     #: ``ydims[d]`` = y-cardinality at degree d; None = no cropping
     ydims: tuple | None = None
-    #: the sweep's groups of nodes with identical per-node ``Pyy`` in each
-    #: degree bucket, computed at first use (``bp._pyy_groups``)
-    pyy_groups: dict = dataclasses.field(default_factory=dict, init=False,
-                                         repr=False, compare=False)
 
     @property
     def time_varying(self) -> bool:

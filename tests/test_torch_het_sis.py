@@ -17,6 +17,7 @@ import torch
 import matrixproductbp_tpu as mp
 from matrixproductbp_tpu.models import sis_heterogeneous as jhet
 import matrixproductbp_tpu_torch as tp
+from matrixproductbp_tpu_torch import bp as tbp
 from matrixproductbp_tpu_torch import exact
 from matrixproductbp_tpu_torch.models import SIS, SISFactorSpec, mpbp_sis
 from matrixproductbp_tpu_torch.models import sis_heterogeneous as thet
@@ -114,7 +115,8 @@ def test_sis_by_spec_and_trace_nodes_in_one_bucket():
     assert bp.tables.Y == 2
     bp = _iterated(bp)
     assert [sorted(map(list, (i for i, _ in groups))) for groups in
-            bp.tables.pyy_groups.values()] == [[[0, 2], [3, 5]], [[1, 4]]]
+            tbp._PYY_GROUPS[bp.tables.Pyy].values()] \
+        == [[[0, 2], [3, 5]], [[1, 4]]]
     _assert_enumeration(bp)
 
 
