@@ -12,8 +12,12 @@ plain version; a 4-node tree against enumeration, with
 ``iterate(polish=2)``; the karate-club graph with two ``qr`` polish
 sweeps; homogeneous Glauber dynamics on an Erdos-Renyi graph, N=5000,
 T=15, D=10, through the banded merge; SIRS on the 3-regular graph at D=10
-and D=20, through per-node tables), checks the results, and times each
-kernel beside its bound.
+and D=20, through per-node tables; the bench state swept in chunks, Jacobi
+and in place, against the monolithic sweep; the Glauber state by the
+shuffled Gauss-Seidel ``iterate``; and the scale target, SIS on an
+Erdos-Renyi graph of 10^5 nodes, T=50, D=10, swept in place by
+``bigsweep.bp_sweep_flat``), checks the results, and times each kernel
+beside its bound.
 Each path runs with the launch counts set to 0 just before it and read
 just after.  One JSON line per phase; any failed phase raises.
 The second-to-last line is the ``kernels`` record, the line before it the
@@ -54,6 +58,25 @@ TIMED_RANDOMIZED_D10, TIMED_RANDOMIZED_D20 = 2, 1
 # runs one matrix per launch at k=40, ~7 min at N=4096)
 CHECK_N_D20 = 128
 KARATE_ITERS, POLISH_SWEEPS = 20, 2
+# chunked sweeps of the bench state: chunks of 1024 nodes (the K=3
+# bucket's 4096 in four), and the in-place sweep on the same chunks
+CHUNK_NODES = 1024
+TOL_CHUNKED = 1e-5
+# Gauss-Seidel on the Glauber state (iterate's shuffled schedule), and on
+# SIS over the same graph, where both schedules converge: its sweeps, the
+# most each last delta may be, and how far apart the two fixed points may
+# be (f32 sketch sweeps settle to deltas of order 1e-3, not lower: their
+# rounding moves each sweep that much)
+GLAUBER_SEIDEL_CHUNK, GLAUBER_SEIDEL_SWEEPS = 2048, 3
+SIS_SEIDEL_SWEEPS, TOL_SIS_SEIDEL_DELTA, TOL_SIS_SEIDEL_FIXED = 10, 1e-2, 5e-3
+# the scale target: SIS on erdos_renyi_gnm(1e5, 1.5e5), T=50, D=10, f32,
+# in place (scripts/scale_run.py:44-58); the node-slot budget of a chunk
+# (tools/probe_scale.py); its isolated nodes' marginals to 1e-5 of exact
+SCALE_N, SCALE_T, SCALE_D = 100_000, 50, 10
+SCALE_LAM, SCALE_RHO, SCALE_PRIOR_I = 0.2, 0.1, 0.3
+SCALE_CHUNK = 24576
+TIMED_SWEEPS_SCALE = 2
+TOL_ISOLATED = 1e-5
 # one randomized sweep at the bench shape: 3 merge calls (one bucket, K=3,
 # the direct all-pairs cavity), each with one CholQR per time step 0..T-1
 # and one SVD per step of its truncating sweep; the message and belief
@@ -139,16 +162,19 @@ def banded_merge_inputs(Bn, S, DL, DB, Y, q, sr, sl, device, seed, off=0):
     return L[:, 1:], B[:, 1:], Th, Pyy, Phi, S_init
 
 
-def merge_inputs(Bn, S, DL, DB, Y, q, sr, sl, dtype, device, seed):
-    """Random merge-scan inputs; L1/B1 are strided views as in the sweep."""
+def merge_inputs(Bn, S, DL, DB, Y, q, sr, sl, dtype, device, seed,
+                 gen="cpu"):
+    """Random merge-scan inputs; L1/B1 are strided views as in the sweep.
+    ``gen``: the device that draws them (the card for the large ones)."""
     import torch
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64)  # noqa
+    g = torch.Generator(device=gen).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64,  # noqa
+                               device=gen)
     L = r(Bn, S + 1, DL, DL, Y, q).to(device, dtype)
     B = r(Bn, S + 1, DB, DB, Y, q).to(device, dtype)
     Th = r(S, sr, sr, Y, Y, q).to(device, dtype)
-    Pyy = torch.rand((Y, Y, Y, q), generator=g, dtype=torch.float64) \
-        .to(device, dtype)
+    Pyy = torch.rand((Y, Y, Y, q), generator=g, dtype=torch.float64,
+                     device=gen).to(device, dtype)
     Phi = r(S, sl, sl, Y, q).to(device, dtype)
     S_init = r(Bn, sl, DL, DB).to(device, dtype)
     return L[:, 1:], B[:, 1:], Th, Pyy, Phi, S_init
@@ -161,14 +187,16 @@ def mpem3_layout_of(qj):
     return "ijrmn" if qj > 1 else "mnijr"
 
 
-def mpem3_inputs(Bn, S, Db, qi, qj, sr, sl, dtype, device, seed):
+def mpem3_inputs(Bn, S, Db, qi, qj, sr, sl, dtype, device, seed,
+                 gen="cpu"):
     """Random MPEM3-scan inputs; B1 is the view the sweep hands over
     (:func:`mpem3_layout_of`): the permuted time-major one of the message
     path or the contiguous one of the belief path, without its first
-    step."""
+    step.  ``gen`` as in :func:`merge_inputs`."""
     import torch
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64)  # noqa
+    g = torch.Generator(device=gen).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64,  # noqa
+                               device=gen)
     if mpem3_layout_of(qj) == "ijrmn":
         B3f = r(S + 1, Bn, qi * qj * qi * Db * Db).to(device, dtype)
         B1 = B3f.reshape(S + 1, Bn, qi, qj, qi, Db, Db) \
@@ -1035,16 +1063,16 @@ def count_plain_scans():
 @contextlib.contextmanager
 def count_by_bucket():
     """Launches by kernel and by degree bucket while the block runs:
-    {"K<slots>_Y<y-axis>": {"updates": groups updated, "nodes": ...,
-    kernel: launches}}, read around each call of the sweep's per-group
-    update (``bp._update_nodes``)."""
+    {"K<slots>_Y<y-axis>": {"updates": groups (of chunks) updated,
+    "nodes": ..., kernel: launches}}, read around each call of the sweep's
+    per-group update (``bp._update_nodes``)."""
     from matrixproductbp_tpu_torch import bp as tbp
     update = tbp._update_nodes
     rec = {}
 
-    def counted(bp, idx, Kb, Yb, *a, **k):
+    def counted(sw, idx, Kb, Yb, *a, **k):
         before = read_counts()
-        update(bp, idx, Kb, Yb, *a, **k)
+        out = update(sw, idx, Kb, Yb, *a, **k)
         after = read_counts()
         r = rec.setdefault(f"K{Kb}_Y{Yb}", {"updates": 0, "nodes": 0})
         r["updates"] += 1
@@ -1052,6 +1080,7 @@ def count_by_bucket():
         for name, n in after.items():
             if n != before[name]:
                 r[name] = r.get(name, 0) + n - before[name]
+        return out
     try:
         tbp._update_nodes = counted
         yield rec
@@ -1144,15 +1173,15 @@ def check_buckets(res, q, what):
           f"{what}: bucket launches {total} != {res['launches']}")
 
 
-def glauber_state(N=GLAUBER_N, D=GLAUBER_D):
+def glauber_state(N=GLAUBER_N, D=GLAUBER_D, dtype=None):
     import torch
     import matrixproductbp_tpu_torch as tp
     from matrixproductbp_tpu_torch.models import Glauber, Ising, mpbp_glauber
     g = tp.erdos_renyi_graph(N, GLAUBER_C, np.random.default_rng(0))
     ising = Ising(g, np.full(g.E // 2, GLAUBER_J), np.full(N, GLAUBER_H),
                   GLAUBER_BETA)
-    return mpbp_glauber(Glauber(ising, GLAUBER_T), D=D, dtype=torch.float32,
-                        device="cuda")
+    return mpbp_glauber(Glauber(ising, GLAUBER_T), D=D,
+                        dtype=dtype or torch.float32, device="cuda")
 
 
 def isolated_spin_err(bp):
@@ -1183,12 +1212,13 @@ def phase_glauber_er():
     phase_profile(cur, label="profile_glauber_er")
     n_iso, iso_err = isolated_spin_err(cur)
     res.update(isolated_nodes=n_iso, isolated_belief_err=iso_err,
-               tol_isolated=1e-5, yy_off=bp0.tables.yy_off)
+               tol_isolated=TOL_ISOLATED, yy_off=bp0.tables.yy_off)
     emit("glauber_er", **res)
     check_buckets(res, 2, "glauber_er")
     check(res["one_sweep_belief_diff_vs_plain"] <= TOL_SWEEP_BELIEFS,
           f"glauber_er: kernel sweep vs plain sweep: {res}")
-    check(iso_err <= 1e-5, f"glauber_er: isolated spins off: {iso_err}")
+    check(iso_err <= TOL_ISOLATED,
+          f"glauber_er: isolated spins off: {iso_err}")
     scans = []
     for key in ("K2_Y3", "K4_Y5", "K8_Y9", "K9_Y10"):
         Y = int(key.split("_Y")[1])
@@ -1230,6 +1260,403 @@ def phase_sirs_rrg(D):
     check(res["one_sweep_belief_diff_vs_plain"] <= TOL_SWEEP_BELIEFS,
           f"sirs_rrg D={D}: kernel sweep vs plain sweep: {res}")
     return res
+
+
+def msg_marginals(cores, logz, q):
+    """The messages' time marginals [E, T1, q*q]: what they represent."""
+    from matrixproductbp_tpu_torch.ops import tensortrain as tt
+    return tt.marginals(tt.TensorTrain(cores, logz, (q, q)))
+
+
+def phase_chunked_vs_monolithic():
+    """One sketch sweep of the bench state (D=10) three ways: ``bp_sweep``;
+    ``bp_sweep_chunked(chunk=1024)`` (Jacobi: the K=3 bucket's 4096 nodes
+    in four chunks), its launches counted; and ``bigsweep.bp_sweep_flat(
+    jacobi=True, belief_cores=True, chunk=3072)`` (the same 1024-node
+    chunks).  Chunked against monolithic: beliefs and the messages'
+    marginals within ``TOL_CHUNKED`` (the cores' difference printed);
+    flat against chunked bit for bit."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch import bigsweep
+    torch.cuda.empty_cache()
+    bp0 = bench_state(10, torch.float32)
+    trunc = tp.TruncBond(10)
+    mono = tp.bp_sweep(bp0, trunc, method="sketch")
+    torch.cuda.synchronize()
+    reset_counts()
+    chunked = tp.bp_sweep_chunked(bp0, trunc, method="sketch",
+                                  chunk=CHUNK_NODES)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    fs = bigsweep.flat_init(bp0.graph, bp0.tables, BENCH_T, 10,
+                            dtype=torch.float32, belief_cores=True)
+    fs = bigsweep.bp_sweep_flat(bp0.graph, bp0.tables, fs, trunc, BENCH_T,
+                                10, phi=bp0.phi, chunk=3 * CHUNK_NODES,
+                                jacobi=True)
+    torch.cuda.synchronize()
+    chunks = -(-BENCH_N // CHUNK_NODES)
+    want = {**{k: 0 for k in counts}, "merge_w_staged": 3 * chunks,
+            "merge_f_staged": 3 * chunks, "mpem3_w_staged": 2 * chunks,
+            "mpem3_f_staged": 2 * chunks}
+    diffs = {
+        "beliefs": float((tp.beliefs(chunked) - tp.beliefs(mono))
+                         .abs().max()),
+        "msg_marginals": float((msg_marginals(chunked.msg_cores,
+                                              chunked.msg_logz, 2)
+                                - msg_marginals(mono.msg_cores,
+                                                mono.msg_logz, 2))
+                               .abs().max()),
+        "msg_cores": float((chunked.msg_cores - mono.msg_cores).abs().max())}
+    names = ("msg_cores", "msg_logz", "bel_cores", "bel_logz", "f")
+    flat_equal = {n: bool(torch.equal(getattr(fs, n), getattr(chunked, n)))
+                  for n in names}
+    emit("chunked_vs_monolithic", N=BENCH_N, T=BENCH_T, D=10,
+         chunk=CHUNK_NODES, chunks=chunks, chunked_vs_monolithic=diffs,
+         tol=TOL_CHUNKED, flat_vs_chunked_bit_equal=flat_equal,
+         flat_vs_chunked_beliefs=float((fs.marg - tp.beliefs(chunked))
+                                       .abs().max()),
+         launches=counts)
+    check(counts == want, f"chunked sweep: launches {counts}, want {want}")
+    check(max(diffs["beliefs"], diffs["msg_marginals"]) <= TOL_CHUNKED,
+          f"chunked sweep off the monolithic one: {diffs}")
+    check(all(flat_equal.values()),
+          f"flat Jacobi sweep not bit-equal to the chunked: {flat_equal}")
+
+
+def seidel_sweep(bp0, plain=False):
+    """One shuffled Gauss-Seidel sweep of ``bp0`` in chunks of
+    ``GLAUBER_SEIDEL_CHUNK``, permuted by ``default_rng(0)``: on the
+    kernels, or through the plain scans."""
+    import matrixproductbp_tpu_torch as tp
+    with plain_scans() if plain else contextlib.nullcontext():
+        return tp.bp_sweep_chunked(
+            bp0, tp.TruncBond(bp0.D), method="sketch",
+            chunk=GLAUBER_SEIDEL_CHUNK, schedule="seidel",
+            rng=np.random.default_rng(0))
+
+
+def seidel_sweep_errors(state):
+    """One shuffled sweep (:func:`seidel_sweep`) of ``state(dtype)`` on the
+    f32 kernels, through the f32 plain scans and through the f64 plain
+    scans (the f64 merge kernels do not hold Glauber's Y=9 bucket at D=10):
+    the f32 kernels' belief range, the max-abs distance of both f32
+    sweeps' beliefs from the f64 sweep's and from each other, and the
+    tolerance for the kernels' distance, ``TOL_SWEEP_BELIEFS`` or twice
+    the plain sweep's (the accuracy phase's rule)."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    bp0 = state(torch.float32)
+    b = {"kernels": tp.beliefs(seidel_sweep(bp0)),
+         "plain": tp.beliefs(seidel_sweep(bp0, plain=True))}
+    del bp0
+    ref = tp.beliefs(seidel_sweep(state(torch.float64), plain=True))
+    torch.cuda.synchronize()
+    out = {"kernels_vs_f64": float((b["kernels"].double() - ref)
+                                   .abs().max()),
+           "plain_vs_f64": float((b["plain"].double() - ref).abs().max()),
+           "kernels_vs_plain": float((b["kernels"] - b["plain"])
+                                     .abs().max()),
+           "range": [float(b["kernels"].min()), float(b["kernels"].max())]}
+    out["tol"] = max(TOL_SWEEP_BELIEFS, 2 * out["plain_vs_f64"])
+    return out
+
+
+def check_seidel_sweep(one, what):
+    check(-1e-5 <= one["range"][0] and one["range"][1] <= 1.0 + 1e-5,
+          f"{what}: one Seidel sweep left [0, 1]: {one}")
+    check(one["kernels_vs_f64"] <= one["tol"],
+          f"{what}: Seidel sweep on the kernels off f64: {one}")
+
+
+def phase_glauber_seidel():
+    """``iterate(schedule="seidel", shuffle=True, chunk=2048, maxiter=3,
+    tol=0)`` on the Glauber ER state (T=15, D=10, f32, sketch): each
+    bucket a chunk a sweep, in a shuffled order, reading what earlier
+    chunks wrote.  Beliefs finite and normalised; every merge and
+    conversion on a hand kernel, by bucket, and no plain scan.  Then one
+    shuffled sweep from the same start on the f32 kernels, and through the
+    f32 and the f64 plain scans (:func:`seidel_sweep_errors`): the kernels'
+    beliefs in [0, 1] (to 1e-5), and no further from the f64 sweep's than
+    ``TOL_SWEEP_BELIEFS`` or twice the plain f32 sweep's distance, as the
+    accuracy phase holds the card to the plain f32 error.  Glauber at this
+    D is ill-conditioned: it leaves [0, 1] within a few sweeps by either
+    schedule, and a single Seidel sweep (which reads messages already
+    updated in it) moves ~1e-2 with f32 rounding alone, so the kernels are
+    not held to the plain f32 sweep itself (PERF.md section 7);
+    :func:`phase_sis_er_seidel` checks the schedule where it converges."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    torch.cuda.empty_cache()
+    bp0 = glauber_state()
+    torch.cuda.synchronize()
+    reset_counts()
+    with count_plain_scans() as plain, count_by_bucket() as buckets:
+        t0 = time.perf_counter()
+        bp, n, deltas = tp.iterate(
+            bp0, maxiter=GLAUBER_SEIDEL_SWEEPS,
+            trunc=tp.TruncBond(GLAUBER_D), tol=0.0, method="sketch",
+            schedule="seidel", shuffle=True, chunk=GLAUBER_SEIDEL_CHUNK)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = read_counts()
+    b = tp.beliefs(bp)
+    norm = float((b.sum(-1) - 1.0).abs().max())
+    finite = bool(torch.isfinite(b).all()) and bool(torch.isfinite(bp.f).all())
+    belief_range = [float(b.min()), float(b.max())]
+    del bp, b, bp0
+    one = seidel_sweep_errors(lambda dtype: glauber_state(dtype=dtype))
+    res = {"N": GLAUBER_N, "T": GLAUBER_T, "D": GLAUBER_D,
+           "chunk": GLAUBER_SEIDEL_CHUNK, "sweeps": n, "deltas": deltas,
+           "s_per_sweep": dt / n, "launches": counts, "by_bucket": buckets,
+           "plain_scan_calls": plain, "normalisation_err": norm,
+           "belief_range": belief_range, "one_sweep": one}
+    emit("glauber_seidel", **res)
+    check(finite, "glauber_seidel: beliefs or f not finite")
+    check(norm <= 1e-5, f"glauber_seidel: beliefs not normalised: {norm}")
+    check_buckets(res, 2, "glauber_seidel")
+    check_seidel_sweep(one, "glauber_seidel")
+
+
+def phase_sis_er_seidel():
+    """SIS (lambda=0.2, rho=0.1, gamma=0.3, the bench's model) on the
+    Glauber phase's graph (``erdos_renyi_graph(5000, 2.5)``), T=15, D=10,
+    f32, sketch: one shuffled Gauss-Seidel sweep held as in
+    :func:`phase_glauber_seidel` (:func:`seidel_sweep_errors`); then
+    ``iterate``
+    ``SIS_SEIDEL_SWEEPS`` sweeps by shuffled Gauss-Seidel in chunks of 2048
+    nodes, and as many by Jacobi, both converging.  Checks: beliefs
+    finite, normalised (1e-5) and in [0, 1] (to 1e-5) after each; both
+    last deltas under ``TOL_SIS_SEIDEL_DELTA``; the two schedules' fixed
+    points within ``TOL_SIS_SEIDEL_FIXED`` of each other; no plain scan."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.models import SIS, mpbp_sis
+    torch.cuda.empty_cache()
+    g = tp.erdos_renyi_graph(GLAUBER_N, GLAUBER_C, np.random.default_rng(0))
+    sis = SIS(g, lam=0.2, rho=0.1, T=GLAUBER_T, gamma=0.3)
+    one = seidel_sweep_errors(
+        lambda dtype: mpbp_sis(sis, D=GLAUBER_D, dtype=dtype, device="cuda"))
+    res = {"N": g.N, "E": g.E, "T": GLAUBER_T, "D": GLAUBER_D,
+           "one_sweep": one, "chunk": GLAUBER_SEIDEL_CHUNK, "sweeps": SIS_SEIDEL_SWEEPS,
+           "tol_last_delta": TOL_SIS_SEIDEL_DELTA,
+           "tol_fixed_points": TOL_SIS_SEIDEL_FIXED}
+    beliefs = {}
+    with count_plain_scans() as plain:
+        for sched, kw in (("seidel", dict(schedule="seidel", shuffle=True,
+                                          chunk=GLAUBER_SEIDEL_CHUNK)),
+                          ("jacobi", {})):
+            bp0 = mpbp_sis(sis, D=GLAUBER_D, dtype=torch.float32,
+                           device="cuda")
+            t0 = time.perf_counter()
+            bp, n, deltas = tp.iterate(bp0, maxiter=SIS_SEIDEL_SWEEPS,
+                                       trunc=tp.TruncBond(GLAUBER_D), tol=0.0,
+                                       method="sketch", **kw)
+            torch.cuda.synchronize()
+            b = tp.beliefs(bp)
+            beliefs[sched] = b
+            res[sched] = {
+                "s_per_sweep": (time.perf_counter() - t0) / n,
+                "deltas": deltas, "range": [float(b.min()), float(b.max())],
+                "finite": bool(torch.isfinite(b).all())
+                and bool(torch.isfinite(bp.f).all()),
+                "normalisation_err": float((b.sum(-1) - 1.0).abs().max())}
+    res["fixed_points_diff"] = float(
+        (beliefs["seidel"] - beliefs["jacobi"]).abs().max())
+    res["plain_scan_calls"] = plain
+    emit("sis_er_seidel", **res)
+    check(not any(plain.values()),
+          f"sis_er_seidel: plain scans ran on the card: {plain}")
+    check_seidel_sweep(one, "sis_er_seidel")
+    for sched in ("seidel", "jacobi"):
+        r = res[sched]
+        check(r["finite"] and r["normalisation_err"] <= 1e-5,
+              f"sis_er_seidel: {sched} beliefs not finite or normalised: {r}")
+        check(-1e-5 <= r["range"][0] and r["range"][1] <= 1.0 + 1e-5,
+              f"sis_er_seidel: {sched} beliefs left [0, 1]: {r['range']}")
+        check(r["deltas"][-1] <= TOL_SIS_SEIDEL_DELTA,
+              f"sis_er_seidel: {sched} not converging: {r['deltas']}")
+    check(res["fixed_points_diff"] <= TOL_SIS_SEIDEL_FIXED,
+          f"sis_er_seidel: Seidel and Jacobi fixed points apart: {res}")
+
+
+def scale_problem(N, T, rng_seed=0):
+    """(graph, tables, phi [N, T+1, 2] f32 numpy) of the scale target:
+    ``erdos_renyi_gnm(N, 3N/2)``, SIS tables shared by every node
+    (``sis_tables``), the t=0 prior as ``phi``."""
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.models.sis import sis_tables
+    g = tp.erdos_renyi_gnm(N, 3 * N // 2, np.random.default_rng(rng_seed))
+    phi = np.ones((N, T + 1, 2), np.float32)
+    phi[:, 0] = (1.0 - SCALE_PRIOR_I, SCALE_PRIOR_I)
+    return g, sis_tables(g, SCALE_LAM, SCALE_RHO), phi
+
+
+def exact_isolated(T):
+    """P(x_t = I) of a node without neighbours: it only recovers."""
+    return SCALE_PRIOR_I * (1.0 - SCALE_RHO) ** np.arange(T + 1)
+
+
+def phase_scale_er_1e5():
+    """SIS (lambda=0.2, rho=0.1, the t=0 prior (0.7, 0.3)) on
+    ``erdos_renyi_gnm(100000, 150000, default_rng(0))``, T=50, D=10, f32,
+    sketch, tables from ``sis_tables``: ``bigsweep.flat_init`` on the card,
+    then ``bp_sweep_flat`` in place (Gauss-Seidel) at a node-slot budget of
+    ``SCALE_CHUNK``: a warm-up sweep, then ``TIMED_SWEEPS_SCALE`` timed
+    ones, counts set to 0 just before and read just after, by kernel and
+    by bucket.  Checks: marginals finite and normalised (1e-5); no plain
+    scan and every scan kernel launched; the isolated nodes against their
+    exact marginal P(I, t) = 0.3 * 0.9^t, within ``TOL_ISOLATED``; one chunk of the largest bucket re-run through the plain scans,
+    beliefs and messages' marginals within ``TOL_SWEEP_BELIEFS``."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch import bigsweep
+    from matrixproductbp_tpu_torch import bp as tbp
+    from matrixproductbp_tpu_torch.ops.tensortrain import TensorTrain, \
+        marginals
+    torch.cuda.empty_cache()
+    T, D, dev = SCALE_T, SCALE_D, torch.device("cuda")
+    t0 = time.perf_counter()
+    g, tables, phi = scale_problem(SCALE_N, T)
+    problem_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fs = bigsweep.flat_init(g, tables, T, D)
+    tables = tables.to(device=dev, dtype=torch.float32)
+    phi_d = torch.as_tensor(phi, device=dev)
+    trunc = tp.TruncBond(D)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+
+    def sweep():
+        bigsweep.bp_sweep_flat(g, tables, fs, trunc, T, D, phi=phi_d,
+                               chunk=SCALE_CHUNK)
+
+    t0 = time.perf_counter()
+    sweep()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with count_plain_scans() as plain, count_by_bucket() as buckets:
+        t0 = time.perf_counter()
+        for i in range(TIMED_SWEEPS_SCALE):
+            if i == TIMED_SWEEPS_SCALE - 1:
+                m_prev = fs.marg.clone()
+            sweep()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / TIMED_SWEEPS_SCALE
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    m = fs.marg
+    finite = bool(torch.isfinite(m).all()) and bool(
+        torch.isfinite(fs.f).all())
+    norm = float((m.sum(-1) - 1.0).abs().max())
+    iso = np.nonzero(g.degree == 0)[0]
+    iso_err = float(np.abs(m[torch.as_tensor(iso, device=dev), :, 1]
+                           .double().cpu().numpy()
+                           - exact_isolated(T)).max())
+    # one chunk of the largest bucket through the kernels and the plain
+    # scans, from the same (final) messages
+    bidx, Kb = max(tbp._degree_buckets(g), key=lambda b: len(b[0]))
+    ids = bidx[:max(16, SCALE_CHUNK // Kb)]
+    Yb = tbp._bucket_y(tables, Kb)
+    ((_, P),) = tbp._pyy_groups(tables, bidx, Kb, Yb)
+    sw = tbp._Sweep(tbp.graph_arrays(g, dev), tables, g.E, phi_d, None)
+    args = (sw, ids, Kb, Yb, P, (fs.msg_cores, fs.msg_logz), True, trunc,
+            trunc, D, D, 0.0, "sketch", None)
+    ups = [tbp._update_nodes(*args)]
+    with plain_scans():
+        ups.append(tbp._update_nodes(*args))
+    torch.cuda.synchronize()
+    bel = [marginals(TensorTrain(u.bel_c, u.bel_lz, (2,))) for u in ups]
+    msg = [msg_marginals(u.out_c, u.out_lz, 2) for u in ups]
+    chunk_diff = {"beliefs": float((bel[0] - bel[1]).abs().max()),
+                  "msg_marginals": float((msg[0] - msg[1]).abs().max())}
+    del ups, bel, msg
+    res = {"N": g.N, "E": g.E, "dmax": g.dmax, "isolated_nodes": len(iso),
+           "T": T, "D": D, "q": 2, "dtype": "float32", "chunk": SCALE_CHUNK,
+           "buckets": [[int(k), len(i)] for i, k in tbp._degree_buckets(g)],
+           "problem_s": problem_s, "init_s": init_s, "warm_up_s": warm_s,
+           "sweeps": TIMED_SWEEPS_SCALE, "s_per_sweep": dt,
+           "edge_updates_per_s": g.E / dt, "resident_bytes": resident,
+           "peak_bytes": peak, "peak_reserved_bytes": reserved,
+           "last_delta": float((m - m_prev).abs().max()),
+           "normalisation_err": norm, "isolated_belief_err": iso_err,
+           "tol_isolated": TOL_ISOLATED,
+           "largest_bucket": [int(Kb), len(bidx)],
+           "chunk_nodes_largest_bucket": len(ids),
+           "chunk_vs_plain": chunk_diff, "tol_chunk": TOL_SWEEP_BELIEFS,
+           "launches": counts, "by_bucket": buckets,
+           "plain_scan_calls": plain}
+    emit("scale_er_1e5", **res)
+    check(finite, "scale_er_1e5: marginals or f not finite")
+    check(norm <= 1e-5, f"scale_er_1e5: marginals not normalised: {norm}")
+    check_buckets(res, 2, "scale_er_1e5")
+    check(all(counts[k] > 0 for k in ("merge_w_staged", "merge_f_staged",
+                                      "mpem3_w_staged", "mpem3_f_staged")),
+          f"scale_er_1e5: a scan kernel never launched: {counts}")
+    check(iso_err <= TOL_ISOLATED,
+          f"scale_er_1e5: isolated nodes off their exact marginal: {iso_err}")
+    check(max(chunk_diff.values()) <= TOL_SWEEP_BELIEFS,
+          f"scale_er_1e5: a chunk off its plain-scan update: {chunk_diff}")
+    return res
+
+
+def scale_kernel_times(res, reps=3):
+    """The four staged scan kernels at the scale sweep's shapes (S=50,
+    D=10): the merges of a chunk of its largest bucket ([n, 50], n nodes)
+    and both conversions ([Kb * n, 50] messages, [n, 50] beliefs), CUDA
+    events over ``reps`` launches beside the bound and the plain scan's
+    time; the inputs drawn on the card; launches from the scale sweeps.
+    One row a kernel, named ``<kernel>_t50``."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    dev = torch.device("cuda")
+    S, D = SCALE_T, SCALE_D
+    n = res["chunk_nodes_largest_bucket"]
+    Kb = res["largest_bucket"][0]
+    md = merge_dims(D)
+    L1, B1, Th, Pyy, Phi, S_init = merge_inputs(
+        n, S, **md, dtype=torch.float32, device=dev, seed=61, gen=dev)
+    Ws = fs.merge_wscan(L1, B1, Th)
+    cases = [
+        ("merge_w_staged", lambda: fs.merge_wscan(L1, B1, Th),
+         lambda: fs.merge_wscan_plain(L1, B1, Th),
+         work_merge_w(n, S, **md, esize=4), MERGE_W_ROWS["staged"]),
+        ("merge_f_staged",
+         lambda: fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S_init),
+         lambda: fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init),
+         work_merge_f(n, S, **md, esize=4), MERGE_F_ROWS["staged"])]
+    rows = []
+    for name, kern, plain, (flops, nbytes), (_, src, line) in cases:
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, scale = max_err(tuple(out) if isinstance(out, tuple) else out,
+                             tuple(ref) if isinstance(ref, tuple) else ref)
+        check(err <= TOL_F32_REL * scale,
+              f"{name} at the scale shape disagrees with its plain version:"
+              f" {err} > {TOL_F32_REL} * {scale}")
+        bms, by = bound_ms(flops, nbytes)
+        rows.append({
+            "name": f"{name}_t50", "route": "cuda",
+            "source": "matrixproductbp_tpu_torch/csrc/" + src,
+            "replaces": "matrixproductbp_tpu/ops/fused_stta.py" + line,
+            "launches": res["launches"][name], "max_abs_err": err,
+            "ms": time_cuda(kern, reps), "plain_ms": time_cuda(plain, 1),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "flops": flops, "bytes": nbytes, "D": D, "B": n, "S": S,
+            "launches_from": "scale_er_1e5"})
+        emit("kernel_time_scale", **rows[-1])
+        del out, ref
+    del L1, B1, Th, Pyy, Phi, S_init, Ws
+    torch.cuda.empty_cache()
+    for r in mpem3_kernel_times(res["launches"], D, reps, S=S,
+                                batches=(Kb * n, n), gen=dev,
+                                launches_from="scale_er_1e5"):
+        rows.append({**r, "name": r["name"] + "_t50"})
+    return rows
 
 
 def glauber_kernel_times(gres, reps=10):
@@ -1389,25 +1816,27 @@ def phase_kernel_times(launches, D=10, reps=10):
 MPEM3_LINES = {"w": ":508", "f": ":545"}
 
 
-def mpem3_kernel_times(launches, D, reps, qi=2, launches_from=None):
+def mpem3_kernel_times(launches, D, reps, qi=2, launches_from=None,
+                       S=BENCH_T, batches=(BENCH_N * BENCH_DEG, BENCH_N),
+                       gen="cpu"):
     """The staged MPEM3 W and F kernels (the sweep's) and the first designs
     (``mpem3_w_kernel``, ``mpem3_f_kernel``) at both conversions of the
     sketch sweep at bond D and q = ``qi`` (2: SIS, 3: SIRS), on the same
     inputs, timed in turns (staged, base, base, staged): the message
-    conversion [12288, 15] (the row's own numbers) and the belief
-    conversion [4096, 15] (under ``beliefs``); each beside its bound and
-    its plain version's time.  One row a scan, named after the staged
-    kernel; the first design's times as ``base_ms``."""
+    conversion (``batches[0]`` instances, [12288, 15] at the bench shape;
+    the row's own numbers) and the belief conversion (``batches[1]``,
+    [4096, 15]; under ``beliefs``); each beside its bound and its plain
+    version's time.  One row a scan, named after the staged kernel; the
+    first design's times as ``base_ms``.  ``gen``: the device that draws
+    the inputs."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
-    S = BENCH_T
     rows = {}
-    for Bn, qj, key in ((BENCH_N * BENCH_DEG, qi, None), (BENCH_N, 1,
-                                                          "beliefs")):
+    for Bn, qj, key in ((batches[0], qi, None), (batches[1], 1, "beliefs")):
         pd = mpem3_dims(D, qi=qi, qj=qj)
         Bm, Psi, PhiM, SiM = mpem3_inputs(Bn, S, **pd, dtype=torch.float32,
-                                          device=dev, seed=12 + qj)
+                                          device=dev, seed=12 + qj, gen=gen)
         WsM = fs.mpem3_wscan_plain(Bm, Psi)
         scans = {
             "w": ({v: (lambda v=v: fs.mpem3_wscan(Bm, Psi, _variant=v))
@@ -1432,7 +1861,7 @@ def mpem3_kernel_times(launches, D, reps, qi=2, launches_from=None):
                   f"base {base_err} > {TOL_F32_REL} * {scale}")
             bms, by = bound_ms(flops, nbytes)
             ms = {v: sum(t) / len(t) for v, t in turns.items()}
-            rec = {"B": Bn, "qj": qj, "layout": mpem3_layout_of(qj),
+            rec = {"B": Bn, "S": S, "qj": qj, "layout": mpem3_layout_of(qj),
                    "max_abs_err": err, "ms": ms["staged"],
                    "ms_turns": turns["staged"],
                    "plain_ms": time_cuda(plain, 2), "bound_ms": bms,
@@ -1555,6 +1984,10 @@ def main():
     phase_karate()
     gres = phase_glauber_er()
     sres = {D: phase_sirs_rrg(D) for D in (10, 20)}
+    phase_chunked_vs_monolithic()
+    phase_glauber_seidel()
+    phase_sis_er_seidel()
+    scale = phase_scale_er_1e5()
     # the kernels record: every kernel that a main path launches, each at
     # the bench shape of the sweep that launches it (merge_f_kernel, which
     # no main path takes any more, is timed in its phase lines alone)
@@ -1579,6 +2012,8 @@ def main():
     for r in mpem3_kernel_times(sres[10]["launches"], 10, 10, qi=3,
                                 launches_from="sirs_rrg_d10"):
         rows.append({**r, "name": r["name"] + "_q3"})
+    # the scale sweep's shapes (T=50, a chunk of its largest bucket)
+    rows += scale_kernel_times(scale)
     emit("done", seconds=time.perf_counter() - t0)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

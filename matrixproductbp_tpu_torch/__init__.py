@@ -10,7 +10,10 @@ from ``build_tables`` over per-node ``FactorSpec``s or from a model's own
 table function (SIS, SIRS, heterogeneous SIS and Glauber in ``models``).
 ``bp_sweep`` and ``iterate`` run ``method="sketch"``, ``"qr"`` and
 ``"randomized"`` (dense and banded ``prob_yy``), damping and
-``iterate(polish=n)``.  The hand-written CUDA kernels (``csrc/*.cu``: the
+``iterate(polish=n)``; ``bp_sweep_chunked`` and ``iterate(chunk=,
+schedule="seidel", shuffle=True)`` sweep in node chunks, Jacobi or
+Gauss-Seidel, and ``bigsweep`` sweeps large graphs in place with
+marginal-only beliefs.  The hand-written CUDA kernels (``csrc/*.cu``: the
 sketch sweep's four time scans, the randomized merge's CholQR, and the
 batched Jacobi eigensolver behind the card's small SVDs) are built with
 ``nvcc`` at first use; on CPU tensors their plain PyTorch versions run
@@ -18,7 +21,8 @@ instead.
 """
 
 from .graph import (Graph, graph_from_edges, random_regular_graph,
-                    erdos_renyi_graph, random_tree, star_graph, path_graph)
+                    erdos_renyi_graph, erdos_renyi_gnm, random_tree,
+                    star_graph, path_graph)
 from .factors import (RecursiveFactorTables, FactorSpec, TraceFactorSpec,
                       DampedFactorSpec, RestrictedFactorSpec, build_tables,
                       build_tables_t, transition_probs)
@@ -26,18 +30,20 @@ from .ops.truncation import (SVDTrunc, TruncThresh, TruncBond, TruncBondMax,
                              TruncBondThresh, default_truncator)
 from .ops.tensortrain import TensorTrain, compress
 from .ops.stta import SeededSketches
-from .bp import (MPBP, mpbp, bp_sweep, iterate, beliefs, means,
-                 bethe_free_energy, resolve_device)
+from .bp import (MPBP, mpbp, bp_sweep, bp_sweep_chunked, iterate, beliefs,
+                 means, bethe_free_energy, resolve_device)
+from . import bigsweep
 from .convert import from_numpy_state, to_numpy_state
 
 __all__ = [
     "Graph", "graph_from_edges", "random_regular_graph", "erdos_renyi_graph",
-    "random_tree", "star_graph", "path_graph", "RecursiveFactorTables",
-    "FactorSpec", "TraceFactorSpec", "DampedFactorSpec",
-    "RestrictedFactorSpec", "build_tables", "build_tables_t",
-    "transition_probs",
+    "erdos_renyi_gnm", "random_tree", "star_graph", "path_graph",
+    "RecursiveFactorTables", "FactorSpec", "TraceFactorSpec",
+    "DampedFactorSpec", "RestrictedFactorSpec", "build_tables",
+    "build_tables_t", "transition_probs",
     "SVDTrunc", "TruncThresh", "TruncBond", "TruncBondMax", "TruncBondThresh",
     "default_truncator", "TensorTrain", "compress", "SeededSketches", "MPBP",
-    "mpbp", "bp_sweep", "iterate", "beliefs", "means", "bethe_free_energy",
-    "resolve_device", "from_numpy_state", "to_numpy_state",
+    "mpbp", "bp_sweep", "bp_sweep_chunked", "bigsweep", "iterate", "beliefs",
+    "means", "bethe_free_energy", "resolve_device", "from_numpy_state",
+    "to_numpy_state",
 ]

@@ -24,8 +24,12 @@ Three compression methods share the lift and the folds:
 banded contraction on each method.  Per-node dense ``prob_yy`` tables (those
 of ``build_tables``) run each degree bucket as groups of nodes whose cropped
 ``prob_yy`` is identical, each group one batched update with its shared
-table.  The port covers open trains with time-constant tables; options not
-ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+table.  ``bp_sweep_chunked`` bounds the temporaries by updating each bucket
+in chunks of nodes, read from the pre-sweep messages (Jacobi) or from those
+earlier chunks wrote (Gauss-Seidel), optionally in a shuffled order; the
+in-place sweep of ``bigsweep.py`` runs on the same chunks.  The port covers
+open trains with time-constant tables; options not ported yet raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -47,8 +51,9 @@ from .ops.tensortrain import (TensorTrain, _fit_axis, _safe_scale, compress,
                               normalize_eachmatrix, tt_sum)
 from .ops.truncation import SVDTrunc, default_truncator
 
-__all__ = ["GraphArrays", "MPBP", "mpbp", "bp_sweep", "iterate", "beliefs",
-           "means", "bethe_free_energy", "resolve_device"]
+__all__ = ["GraphArrays", "MPBP", "mpbp", "bp_sweep", "bp_sweep_chunked",
+           "iterate", "beliefs", "means", "bethe_free_energy",
+           "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -482,14 +487,16 @@ def _degree_buckets(graph: Graph):
     return buckets
 
 
-def _check_sweep_options(bp: MPBP, method: str, damp: float):
+def _check_sweep_options(method: str, damp: float,
+                         tables: RecursiveFactorTables,
+                         periodic: bool = False):
     if method not in ("sketch", "qr", "randomized"):
         raise ValueError(f"unknown method {method!r}")
     if not 0.0 <= damp < 1.0:
         raise ValueError(f"damp must lie in [0, 1): {damp}")
-    if bp.periodic:
+    if periodic:
         raise _not_ported("periodic trains", 6)
-    if bp.tables.time_varying:
+    if tables.time_varying:
         raise _not_ported("time-varying tables", 6)
 
 
@@ -520,6 +527,141 @@ def _pyy_groups(tb: RecursiveFactorTables, idx, Kb: int, Yb: int):
     return memo[key]
 
 
+def _bucket_y(tb: RecursiveFactorTables, Kb: int) -> int:
+    """The y-axis a bucket of Kb slots is cropped to (``bp.py:759-764``)."""
+    if tb.ydims is None:
+        return tb.Y
+    Yb = max(1, min(tb.Y, tb.ydims[min(Kb, len(tb.ydims) - 1)]))
+    if tb.yy_off is not None:
+        Yb = max(Yb, tb.yy_off + 1)       # the init element y0 = off
+    return Yb
+
+
+class _Sweep(NamedTuple):
+    """What a node update reads besides the messages."""
+    garrays: GraphArrays
+    tables: RecursiveFactorTables
+    E: int
+    phi: torch.Tensor            # [N, T1, q]
+    psi: torch.Tensor | None     # [E, T1, q, q]; None: all ones
+
+
+class _Update(NamedTuple):
+    """One node update's results, to be stored by the sweep."""
+    edges: torch.Tensor          # i64[M], the out-edges that exist
+    out_c: torch.Tensor          # [M, T1, Dm, Dm, q*q]
+    out_lz: torch.Tensor         # [M]
+    nodes: torch.Tensor          # i64[Nb]
+    bel_c: torch.Tensor          # [Nb, T1, Dm, Dm, q]
+    bel_lz: torch.Tensor         # [Nb]
+    f: torch.Tensor              # [Nb]
+
+
+def _update_nodes(sw: _Sweep, idx, Kb: int, Yb: int, Pyy_b, src,
+                  direct_k3: bool, trunc, trunc_cav, Dm: int, Dcav: int,
+                  damp: float, method: str, sketches) -> _Update:
+    """Update the nodes ``idx`` of a degree bucket (slots Kb, y-axis cropped
+    to Yb, shared ``prob_yy`` ``Pyy_b``) from the messages ``src =
+    (cores, logz)``; the old out-messages are read only to damp."""
+    ga, tb, E = sw.garrays, sw.tables, sw.E
+    msg_c, msg_lz = src
+    nb = torch.as_tensor(idx, dtype=torch.int64, device=msg_c.device)
+    Nb = len(idx)
+    in_e = ga.in_edges[nb][:, :Kb]
+    in_m = ga.in_mask[nb][:, :Kb]
+    out_e = ga.out_edges[nb][:, :Kb]
+    in_idx = in_e.clamp(max=E - 1)        # padded slots are masked below
+    out_idx = out_e.clamp(max=E - 1)      # ... and dropped at the store
+    T1, q = msg_c.shape[1], tb.q
+
+    def nsel(t):
+        return t if t.shape[0] == 1 else t[nb]
+
+    old = ((msg_c[out_idx], msg_lz[out_idx]) if damp > 0.0 else (None, None))
+    psi_out = (sw.psi[out_idx] if sw.psi is not None else
+               msg_c.new_ones((Nb, Kb, T1, q, q)))
+    phi_b = (sw.phi[nb] if sw.phi.shape[0] > 1 else
+             sw.phi.expand(Nb, -1, -1).contiguous())
+    args = (msg_c[in_idx], msg_lz[in_idx], *old, psi_out, in_m,
+            nsel(tb.Py)[..., :Yb], nsel(tb.Pyp)[:, :Kb][..., :Yb],
+            nsel(tb.Pxy)[:, :Kb][..., :Yb, :, :], nsel(tb.Py0)[..., :Yb, :],
+            phi_b, ga.degree[nb], Pyy_b)
+    if method == "sketch":
+        out_c, out_lz, bel_c, bel_lz, f = _bucket_update_batched(
+            *args, trunc, Dm, Dcav, damp, sketches, tb.yy_off)
+    else:
+        out_c, out_lz, bel_c, bel_lz, f = _node_update(
+            *args, trunc, trunc_cav, Dm, Dcav, damp, method, sketches,
+            direct_k3=direct_k3, yy_off=tb.yy_off)
+    # padded slots carry out-edge id E and are dropped
+    flat = out_e.reshape(-1)
+    valid = flat < E
+    return _Update(flat[valid],
+                   out_c.reshape((Nb * Kb,) + out_c.shape[2:])[valid],
+                   out_lz.reshape(-1)[valid], nb, bel_c, bel_lz, f)
+
+
+def _sweep(sw: _Sweep, graph: Graph, src, store, nodes_per_chunk, rng,
+           direct_k3_max: int | None, trunc, trunc_cav, Dm: int, Dcav: int,
+           damp: float, method: str, sketches):
+    """Update every node once, degree bucket by degree bucket.
+
+    Each bucket is permuted by ``rng`` when given (one ``permutation`` a
+    bucket, in bucket order, as the JAX package draws), then cut into
+    chunks of ``nodes_per_chunk(Kb)`` nodes (None: the whole bucket); each
+    chunk is split into its ``prob_yy`` groups, every group reads ``src``,
+    and then ``store`` takes each group's :class:`_Update`.  Where ``src``
+    is the buffer ``store`` writes, later chunks read earlier chunks'
+    messages (Gauss-Seidel).  Buckets above ``direct_k3_max`` nodes take
+    the prefix/suffix folds at K = 3 on the SVD methods."""
+    tb = sw.tables
+    for bidx, Kb in _degree_buckets(graph):
+        order = bidx if rng is None else rng.permutation(bidx)
+        Yb = _bucket_y(tb, Kb)
+        groups = _pyy_groups(tb, bidx, Kb, Yb)
+        label = np.zeros(len(bidx), np.int64)
+        for g, (gidx, _) in enumerate(groups):
+            label[np.searchsorted(bidx, gidx)] = g
+        direct_k3 = direct_k3_max is None or len(bidx) <= direct_k3_max
+        n = nodes_per_chunk(Kb) if nodes_per_chunk else len(order)
+        for lo in range(0, len(order), n):
+            ids = order[lo:lo + n]
+            lab = label[np.searchsorted(bidx, ids)]
+            ups = [_update_nodes(sw, ids[lab == g], Kb, Yb, P, src,
+                                 direct_k3, trunc, trunc_cav, Dm, Dcav, damp,
+                                 method, sketches)
+                   for g, (_, P) in enumerate(groups) if (lab == g).any()]
+            for u in ups:
+                store(u)
+
+
+def _sweep_state(bp: MPBP, nodes_per_chunk, rng, seidel: bool,
+                 direct_k3_max, trunc, trunc_cav, Dcav, damp, method,
+                 sketches) -> MPBP:
+    """A sweep of ``bp`` into fresh copies of its state (the caller's stays
+    intact), read from the copies themselves when ``seidel``."""
+    _check_sweep_options(method, damp, bp.tables, bp.periodic)
+    trunc_cav = trunc if trunc_cav is None else trunc_cav
+    Dm = bp.D
+    Dcav = Dm if Dcav is None else Dcav
+    new_c, new_lz = bp.msg_cores.clone(), bp.msg_logz.clone()
+    bel_c, bel_lz, f = bp.bel_cores.clone(), bp.bel_logz.clone(), bp.f.clone()
+
+    def store(u: _Update):
+        new_c.index_copy_(0, u.edges, u.out_c)
+        new_lz.index_copy_(0, u.edges, u.out_lz)
+        bel_c.index_copy_(0, u.nodes, u.bel_c)
+        bel_lz.index_copy_(0, u.nodes, u.bel_lz)
+        f.index_copy_(0, u.nodes, u.f)
+
+    sw = _Sweep(bp.garrays, bp.tables, bp.graph.E, bp.phi, bp.psi)
+    src = (new_c, new_lz) if seidel else (bp.msg_cores, bp.msg_logz)
+    _sweep(sw, bp.graph, src, store, nodes_per_chunk, rng, direct_k3_max,
+           trunc, trunc_cav, Dm, Dcav, damp, method, sketches)
+    return dataclasses.replace(bp, msg_cores=new_c, msg_logz=new_lz,
+                               bel_cores=bel_c, bel_logz=bel_lz, f=f)
+
+
 def bp_sweep(bp: MPBP, trunc: SVDTrunc, trunc_cav: SVDTrunc | None = None,
              Dcav: int | None = None, damp: float = 0.0, method: str = "qr",
              sketches=None) -> MPBP:
@@ -530,77 +672,36 @@ def bp_sweep(bp: MPBP, trunc: SVDTrunc, trunc_cav: SVDTrunc | None = None,
     merges; the sketch method reads only the bond caps.  ``sketches``:
     source of the Gaussian sketches of ``"sketch"`` and ``"randomized"``
     (``ops/stta.py``); default re-seeds a generator with 17 every draw."""
-    _check_sweep_options(bp, method, damp)
-    trunc_cav = trunc if trunc_cav is None else trunc_cav
-    Dm = bp.D
-    Dcav = Dm if Dcav is None else Dcav
-    tb = bp.tables
-
-    new_cores, new_lz = bp.msg_cores.clone(), bp.msg_logz.clone()
-    bel_c_all, bel_lz_all = bp.bel_cores.clone(), bp.bel_logz.clone()
-    f_all = bp.f.clone()
-
-    for bidx, Kb in _degree_buckets(bp.graph):
-        if tb.ydims is not None:
-            Yb = max(1, min(tb.Y, tb.ydims[min(Kb, len(tb.ydims) - 1)]))
-            if tb.yy_off is not None:
-                Yb = max(Yb, tb.yy_off + 1)   # the init element y0 = off
-        else:
-            Yb = tb.Y
-        for idx, Pyy_b in _pyy_groups(tb, bidx, Kb, Yb):
-            _update_nodes(bp, idx, Kb, Yb, Pyy_b, len(bidx), trunc,
-                          trunc_cav, Dm, Dcav, damp, method, sketches,
-                          (new_cores, new_lz, bel_c_all, bel_lz_all, f_all))
-
-    return dataclasses.replace(bp, msg_cores=new_cores, msg_logz=new_lz,
-                               bel_cores=bel_c_all, bel_logz=bel_lz_all,
-                               f=f_all)
+    # the direct K = 3 cavity triples the merge batch; the JAX package
+    # takes it up to 4096 nodes per bucket (bp.py:812), and the merge
+    # order decides what is truncated
+    return _sweep_state(bp, None, None, False, 4096, trunc, trunc_cav, Dcav,
+                        damp, method, sketches)
 
 
-def _update_nodes(bp: MPBP, idx, Kb: int, Yb: int, Pyy_b, bucket_n: int,
-                  trunc, trunc_cav, Dm: int, Dcav: int, damp: float,
-                  method: str, sketches, out):
-    """Update the nodes ``idx`` of a degree bucket of ``bucket_n`` nodes
-    (slots Kb, y-axis cropped to Yb, shared ``prob_yy`` ``Pyy_b``) and
-    scatter their messages, beliefs and ledger terms into ``out``."""
-    new_cores, new_lz, bel_c_all, bel_lz_all, f_all = out
-    ga, tb, E = bp.garrays, bp.tables, bp.graph.E
-    nb = torch.as_tensor(idx, dtype=torch.int64, device=bp.device)
-    Nb = len(idx)
-    in_e = ga.in_edges[nb][:, :Kb]
-    in_m = ga.in_mask[nb][:, :Kb]
-    out_e = ga.out_edges[nb][:, :Kb]
-    in_idx = in_e.clamp(max=E - 1)        # padded slots are masked below
-    out_idx = out_e.clamp(max=E - 1)      # ... and dropped at the scatter
+def bp_sweep_chunked(bp: MPBP, trunc: SVDTrunc,
+                     trunc_cav: SVDTrunc | None = None,
+                     Dcav: int | None = None, damp: float = 0.0,
+                     method: str = "sketch", chunk: int = 1024,
+                     schedule: str = "jacobi",
+                     rng: np.random.Generator | None = None,
+                     sketches=None) -> MPBP:
+    """Memory-bounded sweep (``bp.py:990-1120``): each degree bucket in
+    chunks of at most ``chunk`` nodes, so the temporaries grow with the
+    chunk and not with N.  Per node it computes what :func:`bp_sweep` does
+    (the sketches have no batch axis, so a chunk's nodes see the same
+    ones), except that the SVD methods take the direct K = 3 cavity at any
+    bucket size, as the JAX package's chunks do.
 
-    def nsel(t):
-        return t if t.shape[0] == 1 else t[nb]
-
-    args = (bp.msg_cores[in_idx], bp.msg_logz[in_idx],
-            bp.msg_cores[out_idx], bp.msg_logz[out_idx], bp.psi[out_idx],
-            in_m, nsel(tb.Py)[..., :Yb], nsel(tb.Pyp)[:, :Kb][..., :Yb],
-            nsel(tb.Pxy)[:, :Kb][..., :Yb, :, :],
-            nsel(tb.Py0)[..., :Yb, :], bp.phi[nb], ga.degree[nb], Pyy_b)
-    if method == "sketch":
-        out_c, out_lz, bel_c, bel_lz, f = _bucket_update_batched(
-            *args, trunc, Dm, Dcav, damp, sketches, tb.yy_off)
-    else:
-        # the direct K = 3 cavity triples the merge batch; the JAX package
-        # takes it up to 4096 nodes per bucket (bp.py:812), and the merge
-        # order decides what is truncated
-        out_c, out_lz, bel_c, bel_lz, f = _node_update(
-            *args, trunc, trunc_cav, Dm, Dcav, damp, method, sketches,
-            direct_k3=bucket_n <= 4096, yy_off=tb.yy_off)
-
-    # scatter: padded slots carry out-edge id E and are masked out
-    flat = out_e.reshape(-1)
-    valid = flat < E
-    new_cores.index_copy_(
-        0, flat[valid], out_c.reshape((Nb * Kb,) + out_c.shape[2:])[valid])
-    new_lz.index_copy_(0, flat[valid], out_lz.reshape(-1)[valid])
-    bel_c_all.index_copy_(0, nb, bel_c)
-    bel_lz_all.index_copy_(0, nb, bel_lz)
-    f_all.index_copy_(0, nb, f)
+    ``schedule="jacobi"`` reads the pre-sweep messages; ``"seidel"`` reads
+    the messages earlier chunks of the same sweep have written (the
+    reference's asynchronous ``iterate!``, ``mpbp.jl:190-195``).  ``rng``
+    (a numpy ``Generator``) permutes each bucket before it is chunked, a
+    new order every sweep.  The caller's state is left intact."""
+    if schedule not in ("jacobi", "seidel"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    return _sweep_state(bp, lambda Kb: chunk, rng, schedule == "seidel",
+                        None, trunc, trunc_cav, Dcav, damp, method, sketches)
 
 
 # ---------------------------------------------------------------------------
@@ -617,25 +718,41 @@ def iterate(bp: MPBP, maxiter: int = 5, trunc: SVDTrunc | None = None,
     (reference ``iterate!``), then ``polish`` undamped ``method="qr"``
     sweeps.  Returns (bp, n_iters, deltas).
 
+    ``chunk`` sweeps by :func:`bp_sweep_chunked` in chunks of that many
+    nodes; ``schedule="seidel"`` and ``shuffle=True`` (each bucket
+    reshuffled every sweep by ``np.random.default_rng(seed)``) give the
+    reference's asynchronous schedule and chunk by 1024 nodes unless
+    ``chunk`` is set.  With ``chunk`` the polish sweeps are chunked Jacobi
+    sweeps.
+
     The JAX package runs its polish sweeps under full-float32 matmul
     precision, a TPU setting; on the card float32 matmuls are full float32
     unless TF32 is switched on, which polish refuses."""
     trunc = default_truncator() if trunc is None else trunc
     if schedule not in ("jacobi", "seidel"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    if chunk is not None or schedule == "seidel" or shuffle:
-        raise _not_ported("chunked and Gauss-Seidel sweeps", 3)
-    _check_sweep_options(bp, method, damp)
+    _check_sweep_options(method, damp, bp.tables, bp.periodic)
     if (polish > 0 and bp.device.type == "cuda"
             and torch.backends.cuda.matmul.allow_tf32):
         raise RuntimeError("polish sweeps need full float32 matmuls: set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
+    rng = np.random.default_rng(seed) if shuffle else None
+    if (schedule == "seidel" or shuffle) and chunk is None:
+        chunk = 1024
+
+    def sweep(bp, damp, method, rng=None, schedule="jacobi"):
+        if chunk is None:
+            return bp_sweep(bp, trunc, trunc_cav, Dcav, damp, method,
+                            sketches)
+        return bp_sweep_chunked(bp, trunc, trunc_cav, Dcav, damp, method,
+                                chunk, schedule, rng, sketches)
+
     m_old = beliefs(bp)
     f_old = bp.f
     deltas = []
     n_done = maxiter
     for it in range(maxiter):
-        bp = bp_sweep(bp, trunc, trunc_cav, Dcav, damp, method, sketches)
+        bp = sweep(bp, damp, method, rng, schedule)
         m_new = beliefs(bp)
         delta = float(torch.maximum((m_new - m_old).abs().max(),
                                     (bp.f - f_old).abs().max()))
@@ -647,7 +764,7 @@ def iterate(bp: MPBP, maxiter: int = 5, trunc: SVDTrunc | None = None,
             break
         m_old, f_old = m_new, bp.f
     for _ in range(polish):
-        bp = bp_sweep(bp, trunc, trunc_cav, Dcav, 0.0, "qr", sketches)
+        bp = sweep(bp, 0.0, "qr")
     return bp, n_done, deltas
 
 

@@ -263,12 +263,20 @@ def build_tables(graph: Graph, specs: Sequence[FactorSpec],
 
     for i in range(N):
         s = specs[i]
-        # Pyy[i, d1][y, y_first, y_second, xi], d1 = #elements in the first
+        # Pyy[i, d1][y, y_first, y_second, xi], d1 = #elements in the first.
+        # A merge of states the spec has (y1 < nstates(d1), y2 <
+        # nstates(1)) never lands on a y beyond nstates(d1 + 1): the JAX
+        # package (factors.py:334-341) asks prob_yy there too, and a spec
+        # such as SIS's OR puts mass on those padded y
         if yy_off is None:
             for d1 in range(max(K, 1)):
+                n_out, n1, n2 = (s.nstates(d1 + 1), s.nstates(d1),
+                                 s.nstates(1))
                 for y in range(Y):
                     for y1 in range(Y):
                         for y2 in range(Y):
+                            if y >= n_out and y1 < n1 and y2 < n2:
+                                continue
                             for xi in range(q):
                                 Pyy[i, d1, y, y1, y2, xi] = \
                                     s.prob_yy(y, y1, y2, xi, d1, 1)

@@ -14,7 +14,8 @@ import dataclasses
 import numpy as np
 
 __all__ = ["Graph", "graph_from_edges", "random_regular_graph",
-           "erdos_renyi_graph", "random_tree", "star_graph", "path_graph"]
+           "erdos_renyi_graph", "erdos_renyi_gnm", "random_tree",
+           "star_graph", "path_graph"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -135,3 +136,17 @@ def erdos_renyi_graph(N: int, c: float, rng: np.random.Generator) -> Graph:
         js = np.nonzero(rng.random(N - i - 1) < p)[0] + i + 1
         edges.extend((i, int(j)) for j in js)
     return graph_from_edges(N, edges)
+
+
+def erdos_renyi_gnm(N: int, M: int, rng: np.random.Generator) -> Graph:
+    """M edges drawn as the JAX package's scale run draws them
+    (``scripts/scale_run.py:44-52``): 3M uniform node pairs, those with
+    i < j, deduplicated in sorted order, the first M kept.  The sorted cut
+    leaves low-numbered nodes more edges than high-numbered ones; isolated
+    nodes are kept.  O(M) host work, where :func:`erdos_renyi_graph`
+    draws N^2 / 2 uniforms."""
+    src = rng.integers(0, N, 3 * M)
+    dst = rng.integers(0, N, 3 * M)
+    keep = src < dst
+    pairs = np.unique(np.stack([src[keep], dst[keep]], 1), axis=0)[:M]
+    return graph_from_edges(N, pairs)

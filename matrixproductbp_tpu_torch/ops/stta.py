@@ -64,8 +64,9 @@ class SeededSketches:
 DEFAULT_SKETCHES = SeededSketches(17)
 
 
-def _eps_for(dtype):
-    return 1e-12 if dtype == torch.float64 else 1e-6
+#: the solve's jitter, relative to the Gram's mean diagonal (the JAX
+#: package's float64 value: both dtypes solve in float64 here)
+SOLVE_EPS = 1e-12
 
 
 def _solve_batched(M, N, eps):
@@ -73,14 +74,18 @@ def _solve_batched(M, N, eps):
 
     M: [..., sl, sr]; N: [..., sl, k] -> [..., sr, k].
 
-    float32 inputs are solved in float64 (with the float32 jitter ``eps``)
-    and the result rounded back.  In float32 the normal equations of a
-    rank-deficient M (the early time steps: rank <= (Y*q)^t < sr) keep
-    positive definiteness only through the jitter, and at sr = 20 round-off
-    exceeds it: Cholesky pivots go negative, hit the 1e-30 floor and the
-    cores overflow (the JAX package's float32 sweep, which has no float64 on
-    a TPU, returns non-finite beliefs after one D=20 sweep).  float64 inputs
-    take the JAX package's path unchanged."""
+    float32 inputs are solved in float64 and the result rounded back.  In
+    float32 the normal equations of a rank-deficient M (the early time
+    steps: rank <= (Y*q)^t < sr) keep positive definiteness only through
+    the jitter, and at sr = 20 round-off exceeds the JAX package's float32
+    jitter 1e-6: Cholesky pivots go negative, hit the 1e-30 floor and the
+    cores overflow (its float32 sweep, which has no float64 on a TPU,
+    returns non-finite beliefs after one D=20 sweep).  In float64 the
+    float64 jitter ``eps`` = 1e-12 keeps them positive.  A jitter of 1e-6
+    would also shrink every direction of M whose squared singular value is
+    below 1e-6 of the mean: a lone SIS node's infected share late in a T=50
+    horizon (0.3 * 0.9^50 ~ 1.5e-3), whose marginal it then misses by up to
+    1e-2 (``tests/test_torch_bigsweep.py::test_f32_lone_node_exact``)."""
     out_dtype = M.dtype
     if out_dtype == torch.float32:
         M = M.double()
@@ -207,10 +212,10 @@ def mpem3_fscan_plain(B1, Phi, Ws, S_init):
 def _assemble(first_v, Ms, Ns, Bn, S, sr, P, Dout, dtype, device):
     """Cores [B, T1, Dout, Dout, P] from the first-core row, the cross
     matrices and the numerators (``fused_stta.py:903-911``)."""
-    eps = _eps_for(dtype)
     first = torch.zeros((Bn, sr, sr, P), dtype=dtype, device=device)
     first[:, 0] = first_v
-    Bsol = _solve_batched(Ms, Ns.reshape(Bn, S, Ns.shape[2], P * sr), eps)
+    Bsol = _solve_batched(Ms, Ns.reshape(Bn, S, Ns.shape[2], P * sr),
+                          SOLVE_EPS)
     Bsol = Bsol.reshape(Bn, S, sr, P, sr).transpose(3, 4)
     last = torch.zeros((Bn, sr, sr, P), dtype=dtype, device=device)
     last[:, :, 0, :] = Bsol[:, -1][:, :, 0, :]

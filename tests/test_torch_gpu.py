@@ -19,7 +19,9 @@ zero and non-finite instances; strided and f64 inputs taking the first
 designs); every merge F kernel and both MPEM3 kernels non-finite exactly
 where the plain scans are (N's last step is the full product with the
 one-hot); the banded Glauber merges at Y = 3, 5 and 10 and the q = 3
-SIRS merges and conversions (f32, 1e-4 of max-abs).  Marked ``gpu``; skips
+SIRS merges and conversions (f32, 1e-4 of max-abs); and the chunked sweep
+against the monolithic one, the flat Jacobi sweep bit for bit against the
+chunked one.  Marked ``gpu``; skips
 from its fixture when no CUDA device is present.  Needs no JAX: on the
 card run it with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``.
@@ -764,3 +766,45 @@ def test_mpem3_staged_q3(cuda, slice_builds, D, qj, layout):
                          torch.float32, cuda)
     assert fs.mpem3_layout(args[0], args[1], args[2]) == layout
     _assert_close(_mpem3_run(*args), _mpem3_plain(*args), 1e-4)
+
+
+def test_chunked_sweep_on_the_card(cuda):
+    """SIS on a random 3-regular graph of 96 nodes (T=5, D=6, f32,
+    sketch): ``bp_sweep_chunked`` in chunks of 40 nodes (the last one 16)
+    against ``bp_sweep``, beliefs and the messages' marginals to 1e-5 and
+    every merge and conversion on a kernel; the Jacobi flat sweep on the
+    same chunks bit for bit against the chunked one; a Gauss-Seidel
+    shuffled sweep finite and normalised."""
+    import numpy as np
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch import bigsweep
+    from matrixproductbp_tpu_torch.models import SIS, mpbp_sis
+    from matrixproductbp_tpu_torch.ops.tensortrain import TensorTrain, \
+        marginals
+    g = tp.random_regular_graph(96, 3, np.random.default_rng(0))
+    bp0 = mpbp_sis(SIS(g, 0.2, 0.1, T=5, gamma=0.3), D=6,
+                   dtype=torch.float32)
+    trunc = tp.TruncBond(6)
+    mono = tp.bp_sweep(bp0, trunc, method="sketch")
+    before = (fs.merge_fscan.launches, fs.mpem3_fscan.launches)
+    chunked = tp.bp_sweep_chunked(bp0, trunc, method="sketch", chunk=40)
+    assert (fs.merge_fscan.launches - before[0],
+            fs.mpem3_fscan.launches - before[1]) == (9, 6)
+
+    def msg(bp):
+        return marginals(TensorTrain(bp.msg_cores, bp.msg_logz, (2, 2)))
+
+    assert float((tp.beliefs(chunked) - tp.beliefs(mono)).abs().max()) \
+        <= 1e-5
+    assert float((msg(chunked) - msg(mono)).abs().max()) <= 1e-5
+    fl = bigsweep.flat_init(g, bp0.tables, 5, 6, belief_cores=True)
+    fl = bigsweep.bp_sweep_flat(g, bp0.tables, fl, trunc, 5, 6,
+                                phi=bp0.phi, chunk=120, jacobi=True)
+    for name in ("msg_cores", "msg_logz", "bel_cores", "bel_logz", "f"):
+        assert torch.equal(getattr(fl, name), getattr(chunked, name)), name
+    seidel = tp.bp_sweep_chunked(bp0, trunc, method="sketch", chunk=40,
+                                 schedule="seidel",
+                                 rng=np.random.default_rng(0))
+    b = tp.beliefs(seidel)
+    assert bool(torch.isfinite(b).all())
+    assert float((b.sum(-1) - 1).abs().max()) <= 1e-5

@@ -120,6 +120,41 @@ def test_sis_by_spec_and_trace_nodes_in_one_bucket():
     _assert_enumeration(bp)
 
 
+def test_sis_by_spec_beside_wider_trace_specs_reaches_enumeration():
+    """SIS by spec on the path 0-1-2 and SIS as trace specs on 3-4-5 give
+    Y = 4 (node 4's nstates(2)); the SIS specs' OR would merge their states
+    0 and 1 onto the padded y = 2, 3.  The port's tables leave those
+    entries at zero and reach enumeration; the JAX package's fill them
+    (ROADMAP Queue 3) and miss it."""
+    from matrixproductbp_tpu import factors as jfactors
+    from matrixproductbp_tpu.models.sis import SISFactorSpec as JSISFactorSpec
+    edges = [(0, 1), (1, 2), (3, 4), (4, 5)]
+    g = tp.graph_from_edges(6, edges)
+    phi = SIS(g, 0.3, 0.2, T=2, gamma=0.4).default_phi()
+
+    def specs(sis_spec, trace_spec):
+        sis = sis_spec(0.3, 0.2)
+        return [trace_spec(sis.w, 2, int(g.degree[i])) if i >= 3 else sis
+                for i in range(6)]
+
+    tb = tp.mpbp(g, tp.build_tables(g, specs(SISFactorSpec,
+                                             tp.TraceFactorSpec)),
+                 2, D=8, phi=phi, device="cpu")
+    assert tb.tables.Y == 4
+    tb = _iterated(tb, "qr")
+    p, Z = exact.exact_prob(tb)          # 2^18 trajectories: once
+    want = exact.exact_marginals(tb, p)
+    assert np.abs(tp.beliefs(tb).numpy() - want).max() < 1e-8
+    assert abs(-float(tp.bethe_free_energy(tb)) - np.log(Z)) < 1e-8
+    jg = mp.graph_from_edges(6, edges)
+    jb = mp.mpbp(jg, jfactors.build_tables(
+        jg, specs(JSISFactorSpec, jfactors.TraceFactorSpec)), 2, D=8,
+        phi=phi)
+    jb, _, _ = mp.iterate(jb, maxiter=15, trunc=mp.TruncThresh(0.0),
+                          tol=1e-13, method="qr")
+    assert np.abs(np.asarray(mp.beliefs(jb)) - want).max() > 1e-2
+
+
 def test_damped_factor_reaches_enumeration():
     g = tp.graph_from_edges(*TREE)
     spec = tp.DampedFactorSpec(SISFactorSpec(0.35, 0.25, alpha=0.02), p=0.3)

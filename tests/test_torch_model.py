@@ -140,18 +140,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
         tp.from_numpy_state(tp.to_numpy_state(tb))
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    # ids fixed to the ones these cases had in a longer list, so that runs
-    # of this test stay comparable across versions (the raise now names
-    # item 3 of the queue's current numbering)
-    pytest.param(dict(method="sketch", chunk=2), "item 3", id="kwargs3-item 7"),
-    pytest.param(dict(method="sketch", schedule="seidel"), "item 3",
+@pytest.mark.parametrize("kwargs", [
+    # ids fixed to the ones these cases had when they pinned the raise of
+    # ROADMAP Queue 1 item 3, so that runs of this test stay comparable
+    pytest.param(dict(method="sketch", chunk=2), id="kwargs3-item 7"),
+    pytest.param(dict(method="sketch", schedule="seidel"),
                  id="kwargs4-item 7"),
 ])
-def test_unported_options_raise(kwargs, match):
+def test_unported_options_raise(kwargs):
+    """The options that raised until item 3 was ported now run: finite,
+    normalised beliefs."""
     _, tb = _sis_pair()
-    with pytest.raises(NotImplementedError, match=match):
-        tp.iterate(tb, maxiter=1, trunc=tp.TruncBond(4), **kwargs)
+    tb, n, _ = tp.iterate(tb, maxiter=2, trunc=tp.TruncBond(4), tol=0.0,
+                          **kwargs)
+    b = tp.beliefs(tb)
+    assert n == 2 and bool(torch.isfinite(b).all())
+    np.testing.assert_allclose(b.sum(-1).numpy(), 1.0, atol=1e-12)
 
 
 @pytest.mark.parametrize("kwargs", [
