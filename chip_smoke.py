@@ -14,7 +14,9 @@ sweeps; homogeneous Glauber dynamics on an Erdos-Renyi graph, N=5000,
 T=15, D=10, through the banded merge; SIRS on the 3-regular graph at D=10
 and D=20, through per-node tables; the bench state swept in chunks, Jacobi
 and in place, against the monolithic sweep; the Glauber state by the
-shuffled Gauss-Seidel ``iterate``; and the scale target, SIS on an
+shuffled Gauss-Seidel ``iterate``; SIS inference on a tree of 4096
+nodes with 256 soft observations, through every observable, the
+soft-margin sampler and SMC; and the scale target, SIS on an
 Erdos-Renyi graph of 10^5 nodes, T=50, D=10, swept in place by
 ``bigsweep.bp_sweep_flat``), checks the results, and times each kernel
 beside its bound.
@@ -77,6 +79,17 @@ SCALE_LAM, SCALE_RHO, SCALE_PRIOR_I = 0.2, 0.1, 0.3
 SCALE_CHUNK = 24576
 TIMED_SWEEPS_SCALE = 2
 TOL_ISOLATED = 1e-5
+# SIS inference with observations on a tree (the bench's SIS): iterate,
+# the sampler against BP, observe, iterate again, then every observable,
+# the soft-margin sampler and SMC on the observed state
+INFER_N, INFER_T, INFER_D = 4096, 15, 10
+INFER_MAXITER, INFER_TOL = 60, 1e-4
+INFER_SAMPLES, INFER_PARTICLES = 4096, 4096
+INFER_NOBS, INFER_SOFTINF = 256, 10.0
+TOL_MC_FLOOR = 8e-3         # the sampler's gate: 6 max(err, 8e-3)
+TOL_SUMS = 1e-5             # pair, alternate and two-time marginals sum to 1
+PAIR_PEAK_BYTES = 4e9       # pair_beliefs' peak (the D^2 cores: 21 GB)
+TOL_LOGNORM_PLAIN = 1e-3    # belief_lognorms on the kernels vs plain scans
 # one randomized sweep at the bench shape: 3 merge calls (one bucket, K=3,
 # the direct all-pairs cavity), each with one CholQR per time step 0..T-1
 # and one SVD per step of its truncating sweep; the message and belief
@@ -781,15 +794,21 @@ def merge_w_wants(D):
 def phase_accuracy():
     """4-node tree, T=3, D=10, f32: 10 sketch sweeps on the card, beliefs
     against the enumeration oracle; the f32 plain version on the CPU gives
-    the error the algorithm itself leaves at f32."""
+    the error the algorithm itself leaves at f32.  On the card's sketch
+    state, the pair, alternate and two-time observables against
+    enumeration and the pair-route free energy (``qr`` and ``sketch``
+    normalizations) against -log Z; SMC on an observed tree against
+    enumeration (``tests/test_smc.py:30-39``'s gate)."""
     import torch
     import matrixproductbp_tpu_torch as tp
     from matrixproductbp_tpu_torch import exact
     from matrixproductbp_tpu_torch.models import SIS, mpbp_sis
     g = tp.graph_from_edges(4, [(0, 1), (0, 2), (2, 3)])
     sis = SIS(g, lam=0.2, rho=0.1, T=3, gamma=0.3)
-    b_ex = exact.exact_marginals(mpbp_sis(sis, D=10, device="cpu"))
-    errs = {}
+    ref = mpbp_sis(sis, D=10, device="cpu")
+    p_ex, Z = exact.exact_prob(ref)
+    b_ex = exact.exact_marginals(ref, p_ex)
+    errs, states = {}, {}
     legs = (("cuda", "sketch", 0), ("cpu", "sketch", 0),
             ("cuda", "sketch", POLISH_SWEEPS), ("cuda", "randomized", 0))
     for dev, method, polish in legs:
@@ -798,19 +817,70 @@ def phase_accuracy():
                               tol=0.0, method=method, polish=polish)
         errs[(dev, method, polish)] = float(np.abs(
             tp.beliefs(bp).double().cpu().numpy() - b_ex).max())
+        states[(dev, method, polish)] = bp
     plain = errs[("cpu", "sketch", 0)]
     tol = TOL_ORACLE if plain <= TOL_ORACLE else 2 * plain
+    bp = states[("cuda", "sketch", 0)]
+
+    def host(t):
+        return t.double().cpu().numpy()
+
+    obs = {
+        "pair": float(np.abs(host(tp.pair_beliefs(bp)[0])
+                             - exact.exact_pair_marginals(ref, p_ex)).max()),
+        "alternate": float(np.abs(host(tp.alternate_marginals(bp))
+                                  - exact.exact_alternate_marginals(
+                                      ref, p_ex)).max()),
+        "autocorrelations": float(np.abs(
+            host(tp.autocorrelations(bp))
+            - exact.exact_autocorrelations(ref, p=p_ex)).max()),
+        "free_energy_pair_qr": abs(
+            -float(tp.bethe_free_energy_pair(bp)) - np.log(Z)),
+        "free_energy_pair_sketch": abs(-float(tp.bethe_free_energy_pair(
+            bp, trunc=tp.TruncBond(10), method="sketch")) - np.log(Z))}
+    smc_err = accuracy_smc()
     emit("accuracy", belief_err_card_f32=errs[("cuda", "sketch", 0)],
          belief_err_cpu_plain_f32=plain,
          belief_err_card_f32_sketch_polish2=errs[
              ("cuda", "sketch", POLISH_SWEEPS)],
          belief_err_card_f32_randomized=errs[("cuda", "randomized", 0)],
-         tol=tol, tol_polish_randomized=TOL_ORACLE)
+         tol=tol, tol_polish_randomized=TOL_ORACLE,
+         observables_err_card_f32=obs, tol_observables=TOL_ORACLE,
+         smc_vs_exact=smc_err)
     check(errs[("cuda", "sketch", 0)] <= tol, f"beliefs off the oracle: "
                                                f"{errs}")
     check(errs[("cuda", "sketch", POLISH_SWEEPS)] <= TOL_ORACLE
           and errs[("cuda", "randomized", 0)] <= TOL_ORACLE,
           f"polished or randomized beliefs off the oracle: {errs}")
+    check(max(obs.values()) <= TOL_ORACLE,
+          f"observables off the oracle: {obs}")
+    check(smc_err["marginals"] < 0.03 and smc_err["log_evidence"] < 0.06,
+          f"SMC off the oracle: {smc_err}")
+
+
+def accuracy_smc():
+    """SMC with 16,384 particles on the card for the observed 4-node tree
+    of ``tests/test_smc.py`` (T=3, five soft observations): its marginals'
+    and log-evidence's distance from enumeration."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch import exact, sampling, smc
+    from matrixproductbp_tpu_torch.models import SISFactorSpec
+    g = tp.graph_from_edges(4, [(0, 1), (1, 2), (1, 3)])
+    tables = tp.build_tables(g, [SISFactorSpec(lam=0.3, rho=0.25)] * g.N)
+    phi = np.ones((g.N, 4, 2))
+    phi[:, 0] = [0.6, 0.4]
+    gen = torch.Generator(device="cuda")
+    bp = tp.mpbp(g, tables, T=3, D=8, phi=phi, device="cuda")
+    bp, _, _ = sampling.draw_node_observations(
+        bp, 5, np.random.default_rng(3), softinf=20.0,
+        generator=gen.manual_seed(9))
+    p, Z = exact.exact_prob(bp)
+    sms = smc.smc_sample(bp, 16384, generator=gen.manual_seed(0))
+    m, _ = sampling.marginals_mc(sms)
+    return {"marginals": float(np.abs(m.cpu().numpy()
+                                      - exact.exact_marginals(bp, p)).max()),
+            "log_evidence": abs(sms.log_evidence - np.log(Z))}
 
 
 def bench_state(D, dtype, N=BENCH_N):
@@ -1061,13 +1131,14 @@ def count_plain_scans():
 
 
 @contextlib.contextmanager
-def count_by_bucket():
+def count_by_bucket(target="_update_nodes"):
     """Launches by kernel and by degree bucket while the block runs:
     {"K<slots>_Y<y-axis>": {"updates": groups (of chunks) updated,
     "nodes": ..., kernel: launches}}, read around each call of the sweep's
-    per-group update (``bp._update_nodes``)."""
+    per-group update (``bp._update_nodes``) or of ``target``, another
+    per-group function of ``bp`` with the same leading arguments."""
     from matrixproductbp_tpu_torch import bp as tbp
-    update = tbp._update_nodes
+    update = getattr(tbp, target)
     rec = {}
 
     def counted(sw, idx, Kb, Yb, *a, **k):
@@ -1082,10 +1153,10 @@ def count_by_bucket():
                 r[name] = r.get(name, 0) + n - before[name]
         return out
     try:
-        tbp._update_nodes = counted
+        setattr(tbp, target, counted)
         yield rec
     finally:
-        tbp._update_nodes = update
+        setattr(tbp, target, update)
 
 
 def merges_per_update(Kb):
@@ -1478,6 +1549,277 @@ def phase_sis_er_seidel():
               f"sis_er_seidel: {sched} not converging: {r['deltas']}")
     check(res["fixed_points_diff"] <= TOL_SIS_SEIDEL_FIXED,
           f"sis_er_seidel: Seidel and Jacobi fixed points apart: {res}")
+
+
+def lognorm_wants(Kb, Yb, q, D, calls):
+    """The launches ``calls`` group calls of ``belief_lognorms(method=
+    "sketch")`` on a bucket of Kb slots make: the full fold's Kb - 1
+    merges, on the merge W and F kernels the geometry picks, and no
+    conversion (the log-norm is taken from the MPEM3)."""
+    want = {k: v for k, v in bucket_wants(Kb, Yb, q, D, calls).items()
+            if k.startswith("merge")}
+    return {k: (Kb - 1) * calls for k in want} if Kb > 1 else {}
+
+
+def timed_call(fn):
+    """(result, seconds, peak bytes allocated during the call, bytes
+    allocated before it) of ``fn()`` on the card."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+            base)
+
+
+def smc_distances(sms, b):
+    """SMC's marginals against the BP beliefs ``b`` [N, T1, q]: the largest
+    and the mean distance at t=T and at t<T, and how many cells at t=T
+    lie outside 6 max(err, 8e-3)."""
+    from matrixproductbp_tpu_torch import sampling
+    m, err = sampling.marginals_mc(sms)
+    d = (m - b.double()).abs()
+    bound = 6 * err.clamp(min=TOL_MC_FLOOR)
+    return m, {"final_max": float(d[:, -1].max()),
+               "final_mean": float(d[:, -1].mean()),
+               "final_outside_gate": int((d[:, -1] >= bound[:, -1]).sum()),
+               "earlier_max": float(d[:, :-1].max()),
+               "earlier_mean": float(d[:, :-1].mean())}
+
+
+class RoundedSketches:
+    """The default sketches (a generator seeded with 17 at every draw),
+    drawn in f64 and rounded to the asked type: f32 and f64 calls see the
+    same sketches."""
+
+    def draw(self, phi_shape, psi_shape, dtype, device):
+        import torch
+        from matrixproductbp_tpu_torch.ops.stta import SeededSketches
+        a, b = SeededSketches().draw(phi_shape, psi_shape, torch.float64,
+                                     device)
+        return a.to(dtype), b.to(dtype)
+
+
+def as_f64(bp):
+    """``bp`` with its state and tables in f64."""
+    import dataclasses
+    import torch
+    return dataclasses.replace(
+        bp, tables=bp.tables.to(dtype=torch.float64),
+        **{k: getattr(bp, k).double() for k in (
+            "phi", "psi", "msg_cores", "msg_logz", "bel_cores", "bel_logz",
+            "f")})
+
+
+def inference_tree_run():
+    """SIS (lambda=0.2, rho=0.1, gamma=0.3) on ``random_tree(4096,
+    default_rng(0))`` (E=8,190, degrees 1-12: buckets K = 1, 2, 4, 8, 12),
+    T=15, D=10, f32, sketch: iterate, the soft-margin sampler against BP,
+    draw observations, iterate the observed state, then each observable
+    timed with its peak memory, ``belief_lognorms(method="sketch")`` on the
+    kernels (launches by bucket, plain scans counted) and on the plain
+    scans, ``logprob`` of the drawn trajectory, and SMC twice (two
+    generators: the spread of its own estimate).  Returns the record;
+    :func:`phase_inference_tree` checks it."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch import sampling, smc
+    from matrixproductbp_tpu_torch.models import SIS, mpbp_sis
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    g = tp.random_tree(INFER_N, np.random.default_rng(0))
+    bp0 = mpbp_sis(SIS(g, lam=0.2, rho=0.1, T=INFER_T, gamma=0.3),
+                   D=INFER_D, dtype=torch.float32, device="cuda")
+    trunc = tp.TruncBond(INFER_D)
+    res = {"N": g.N, "E": g.E, "T": INFER_T, "D": INFER_D,
+           "max_degree": int(g.degree.max())}
+
+    def run_iterate(bp):
+        (bp, n, deltas), dt, _, _ = timed_call(lambda: tp.iterate(
+            bp, maxiter=INFER_MAXITER, trunc=trunc, tol=INFER_TOL,
+            method="sketch"))
+        return bp, {"iters": n, "last_delta": deltas[-1],
+                    "s_per_sweep": dt / len(deltas), "seconds": dt}
+
+    bp, res["iterate_free"] = run_iterate(bp0)
+    b = tp.beliefs(bp)
+    gen = torch.Generator(device="cuda")
+    sms, dt, peak, _ = timed_call(lambda: sampling.sample(
+        bp, INFER_SAMPLES, generator=gen.manual_seed(0)))
+    m, err = sampling.marginals_mc(sms)
+    d = (m - b.double()).abs()
+    res["sampler_vs_bp"] = {
+        "samples": INFER_SAMPLES, "seconds": dt, "peak_bytes": peak,
+        "max_dist": float(d.max()),
+        "max_ratio": float((d / (6 * err.clamp(min=TOL_MC_FLOOR))).max()),
+        "cells_outside": int((d >= 6 * err.clamp(min=TOL_MC_FLOOR)).sum())}
+    del sms
+    bpo, X, obs = sampling.draw_node_observations(
+        bp, nobs=INFER_NOBS, rng=np.random.default_rng(1),
+        softinf=INFER_SOFTINF, generator=gen.manual_seed(1))
+    res["observations"] = {"nobs": len(obs), "softinf": INFER_SOFTINF}
+    reset_counts()
+    with count_plain_scans() as plain:
+        bpo, res["iterate_observed"] = run_iterate(bpo)
+    res["iterate_observed"]["plain_scan_calls"] = dict(plain)
+    res["iterate_observed"]["launches"] = read_counts()
+    bo = tp.beliefs(bpo)
+    res["bethe_free_energy"] = float(tp.bethe_free_energy(bpo))
+
+    times, outs = {}, {}
+
+    def observe(name, fn):
+        out, dt, peak, base = timed_call(fn)
+        times[name] = {"seconds": dt, "peak_bytes": peak,
+                       "resident_bytes": base}
+        outs[name] = out
+
+    observe("pair_beliefs", lambda: tp.pair_beliefs(bpo))
+    observe("pair_lognorms", lambda: tp.pair_lognorms(bpo))
+    observe("beliefs_tu", lambda: tp.beliefs_tu(bpo))
+    observe("autocovariances", lambda: tp.autocovariances(bpo))
+    observe("alternate_marginals", lambda: tp.alternate_marginals(bpo))
+    sk = RoundedSketches()
+    reset_counts()
+    with count_plain_scans() as plain, \
+            count_by_bucket("_belief_lognorm_nodes") as buckets:
+        observe("belief_lognorms_sketch", lambda: tp.belief_lognorms(
+            bpo, trunc=trunc, method="sketch", sketches=sk))
+    lognorm_launches = read_counts()
+    with plain_scans():
+        observe("belief_lognorms_sketch_plain_scans",
+                lambda: tp.belief_lognorms(bpo, trunc=trunc,
+                                           method="sketch", sketches=sk))
+        lz64 = tp.belief_lognorms(as_f64(bpo), trunc=trunc, method="sketch",
+                                  sketches=sk)
+    observe("bethe_free_energy_pair", lambda: tp.bethe_free_energy_pair(
+        bpo, trunc=trunc, method="sketch"))
+    observe("logprob", lambda: tp.logprob(bpo, X))
+
+    pb, lzn = outs["pair_beliefs"]
+    tu = outs["beliefs_tu"]
+    T1 = INFER_T + 1
+    upper = torch.ones((T1, T1), dtype=torch.bool, device="cuda").triu(1)
+    lz, lzp = (outs["belief_lognorms_sketch"].double(),
+               outs["belief_lognorms_sketch_plain_scans"].double())
+    deg = torch.as_tensor(g.degree, device="cuda")
+
+    def by_degree(d):
+        return {int(k): float(d[deg == k].max())
+                for k in torch.unique(deg).tolist()}
+    src = torch.as_tensor(g.edge_src, dtype=torch.int64, device="cuda")
+    res.update(
+        observables=times,
+        finite={k: bool(all(torch.isfinite(torch.as_tensor(t)).all()
+                            for t in (v if isinstance(v, tuple) else (v,))))
+                for k, v in outs.items()},
+        sum_err={"pair": float((pb.sum((-2, -1)) - 1).abs().max()),
+                 "alternate": float((outs["alternate_marginals"]
+                                     .sum((-2, -1)) - 1).abs().max()),
+                 "two_time": float((tu.sum((-2, -1))[:, upper] - 1)
+                                   .abs().max())},
+        pair_vs_beliefs=float((pb.sum(-1) - bo[src]).abs().max()),
+        belief_lognorms={"kernels_vs_plain": float((lz - lzp).abs().max()),
+                         "kernels_vs_f64": float((lz - lz64).abs().max()),
+                         "plain_vs_f64": float((lzp - lz64).abs().max()),
+                         "max_abs": float(lz64.abs().max()),
+                         "kernels_vs_plain_by_degree": by_degree(
+                             (lz - lzp).abs()),
+                         "kernels_vs_f64_by_degree": by_degree(
+                             (lz - lz64).abs()),
+                         "plain_vs_f64_by_degree": by_degree(
+                             (lzp - lz64).abs()),
+                         "plain_scan_calls": dict(plain),
+                         "launches": lognorm_launches,
+                         "by_bucket": buckets, "tol": TOL_LOGNORM_PLAIN},
+        bethe_free_energy_pair=float(outs["bethe_free_energy_pair"]),
+        logprob=outs["logprob"])
+    del outs, pb, tu
+
+    smc_runs = []
+    for seed in (0, 1):
+        sms, dt, peak, _ = timed_call(lambda: smc.smc_sample(
+            bpo, INFER_PARTICLES, generator=gen.manual_seed(seed)))
+        m, dist = smc_distances(sms, bo)
+        smc_runs.append((m, {"seconds": dt, "peak_bytes": peak,
+                             "states_valid": bool(
+                                 ((sms.X >= 0) & (sms.X < bpo.q)).all()),
+                             "log_evidence": sms.log_evidence,
+                             "ess_final": float(smc.effective_sample_size(
+                                 sms.logw)), **dist}))
+        del sms
+    spread = (smc_runs[0][0] - smc_runs[1][0]).abs()
+    res["smc"] = {"particles": INFER_PARTICLES,
+                  "minus_bethe_free_energy": -res["bethe_free_energy"],
+                  "runs": [r for _, r in smc_runs],
+                  "replica_final_max": float(spread[:, -1].max()),
+                  "replica_final_mean": float(spread[:, -1].mean())}
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def phase_inference_tree():
+    """:func:`inference_tree_run`, then its gates: every output finite;
+    pair, alternate and two-time marginals summing to 1 within 1e-5;
+    ``pair_beliefs`` peaking under 4 GB; the sampler within 6 max(err,
+    8e-3) of BP in every cell; ``belief_lognorms(method="sketch")`` on the
+    merge kernels, launched as its buckets want, with no plain scan, within
+    1e-3 of its plain-scan twin, or else no further from the same call in
+    f64 (the same sketches, rounded) than twice the twin is; the observed
+    iterate on the kernels; SMC's states valid, its weights and evidence
+    finite.  SMC's distances from BP are reported beside the spread
+    between two runs, not gated: with
+    256 soft observations on 4,096 nodes its weights collapse onto a few
+    lineages each step, and its marginals spread far wider than their
+    binomial error says (SMC is held to enumeration in
+    :func:`phase_accuracy`)."""
+    res = inference_tree_run()
+    emit("inference_tree", **res)
+    check_inference_tree(res)
+    return res
+
+
+def check_inference_tree(res):
+    """The gates of :func:`phase_inference_tree` on its record."""
+    check(all(res["finite"].values()), f"inference_tree: not finite: "
+                                       f"{res['finite']}")
+    check(max(res["sum_err"].values()) <= TOL_SUMS,
+          f"inference_tree: marginals do not sum to 1: {res['sum_err']}")
+    peak = res["observables"]["pair_beliefs"]["peak_bytes"]
+    check(peak < PAIR_PEAK_BYTES, f"inference_tree: pair_beliefs peaked at "
+                                  f"{peak} bytes")
+    check(res["sampler_vs_bp"]["cells_outside"] == 0,
+          f"inference_tree: sampler off BP: {res['sampler_vs_bp']}")
+    ln = res["belief_lognorms"]
+    check(not any(ln["plain_scan_calls"].values()),
+          f"inference_tree: plain scans in belief_lognorms: {ln}")
+    total = {}
+    for key, got in ln["by_bucket"].items():
+        Kb, Yb = (int(v[1:]) for v in key.split("_"))
+        want = lognorm_wants(Kb, Yb, 2, INFER_D, got["updates"])
+        seen = {k: v for k, v in got.items() if k not in ("updates", "nodes")}
+        check(seen == want, f"inference_tree: belief_lognorms bucket {key} "
+                            f"launched {seen}, want {want}")
+        for k, v in seen.items():
+            total[k] = total.get(k, 0) + v
+    check(total == {k: v for k, v in ln["launches"].items() if v},
+          f"inference_tree: bucket launches {total} != {ln['launches']}")
+    # 1e-3; failing that, the kernels no further from the f64 call than
+    # twice the plain f32 call is (f32 rounding, not a kernel)
+    check(ln["kernels_vs_plain"] <= TOL_LOGNORM_PLAIN
+          or ln["kernels_vs_f64"] <= 2 * ln["plain_vs_f64"],
+          f"inference_tree: belief_lognorms kernels vs plain: {ln}")
+    it = res["iterate_observed"]
+    check(not any(it["plain_scan_calls"].values())
+          and it["launches"]["merge_f_staged"] > 0,
+          f"inference_tree: observed iterate off the kernels: {it}")
+    sm = res["smc"]
+    check(all(r["states_valid"] and np.isfinite(r["log_evidence"])
+              and r["ess_final"] >= 1.0 for r in sm["runs"]),
+          f"inference_tree: SMC states, evidence or weights off: {sm}")
 
 
 def scale_problem(N, T, rng_seed=0):
@@ -1987,6 +2329,7 @@ def main():
     phase_chunked_vs_monolithic()
     phase_glauber_seidel()
     phase_sis_er_seidel()
+    phase_inference_tree()
     scale = phase_scale_er_1e5()
     # the kernels record: every kernel that a main path launches, each at
     # the bench shape of the sweep that launches it (merge_f_kernel, which

@@ -13,7 +13,10 @@ table function (SIS, SIRS, heterogeneous SIS and Glauber in ``models``).
 ``iterate(polish=n)``; ``bp_sweep_chunked`` and ``iterate(chunk=,
 schedule="seidel", shuffle=True)`` sweep in node chunks, Jacobi or
 Gauss-Seidel, and ``bigsweep`` sweeps large graphs in place with
-marginal-only beliefs.  The hand-written CUDA kernels (``csrc/*.cu``: the
+marginal-only beliefs.  The observables (two-time, pair and alternate
+marginals, the pair-route free energy, ``logprob``), the enumeration
+oracles (``exact``), the observation builders, the soft-margin sampler
+(``sampling``) and SMC (``smc``) read a state on its device.  The hand-written CUDA kernels (``csrc/*.cu``: the
 sketch sweep's four time scans, the randomized merge's CholQR, and the
 batched Jacobi eigensolver behind the card's small SVDs) are built with
 ``nvcc`` at first use; on CPU tensors their plain PyTorch versions run
@@ -28,12 +31,43 @@ from .factors import (RecursiveFactorTables, FactorSpec, TraceFactorSpec,
                       build_tables_t, transition_probs)
 from .ops.truncation import (SVDTrunc, TruncThresh, TruncBond, TruncBondMax,
                              TruncBondThresh, default_truncator)
-from .ops.tensortrain import TensorTrain, compress
+from .ops.tensortrain import (TensorTrain, flat_tt, rand_tt, evaluate,
+                              lognorm, normalization, normalize,
+                              normalize_eachmatrix, marginals,
+                              twovar_marginals, orthogonalize_left,
+                              orthogonalize_right, compress, tt_sum, tt_dot,
+                              bond_ranks)
+from .ops.mpem import mpem3_to_mpem2, evaluate_mpem3
 from .ops.stta import SeededSketches
 from .bp import (MPBP, mpbp, bp_sweep, bp_sweep_chunked, iterate, beliefs,
-                 means, bethe_free_energy, resolve_device)
+                 beliefs_tu, pair_beliefs, pair_beliefs_as_tt,
+                 pair_beliefs_as_mpem, pair_lognorms, belief_lognorms,
+                 bethe_free_energy_pair, bethe_free_energy, means,
+                 autocorrelations, autocovariances, pair_correlations,
+                 alternate_marginals, alternate_correlations, logprob,
+                 expectation, reset, reset_messages, reset_beliefs,
+                 reset_observations, is_periodic, is_free_dynamics, getT,
+                 getN, nstates, CB_BP, resolve_device)
+from .observations import (pair_observations_directed,
+                           pair_observations_nondirected,
+                           pair_obs_undirected_to_directed)
+from .utils import mean_with_uncertainty
 from . import bigsweep
+from . import exact
+from . import sampling
+from . import smc
 from .convert import from_numpy_state, to_numpy_state
+from .exact import (exact_prob, site_marginals, exact_marginals,
+                    exact_pair_marginals, exact_alternate_marginals,
+                    exact_autocorrelations, exact_autocovariances,
+                    exact_marginal_expectations,
+                    exact_pair_marginal_expectations,
+                    exact_alternate_marginal_expectations)
+from .sampling import (SoftMarginSampler, sample, sample_one, marginals_mc,
+                       pair_marginals_mc, means_mc, autocorrelations_mc,
+                       autocovariances_mc, draw_node_observations,
+                       simulate_queue_sis, continuous_sis_sampler)
+from .smc import smc_sample
 
 __all__ = [
     "Graph", "graph_from_edges", "random_regular_graph", "erdos_renyi_graph",
@@ -42,8 +76,27 @@ __all__ = [
     "DampedFactorSpec", "RestrictedFactorSpec", "build_tables",
     "build_tables_t", "transition_probs",
     "SVDTrunc", "TruncThresh", "TruncBond", "TruncBondMax", "TruncBondThresh",
-    "default_truncator", "TensorTrain", "compress", "SeededSketches", "MPBP",
-    "mpbp", "bp_sweep", "bp_sweep_chunked", "bigsweep", "iterate", "beliefs",
-    "means", "bethe_free_energy", "resolve_device", "from_numpy_state",
-    "to_numpy_state",
+    "default_truncator", "TensorTrain", "flat_tt", "rand_tt", "evaluate",
+    "lognorm", "normalization", "normalize", "normalize_eachmatrix",
+    "marginals", "twovar_marginals", "orthogonalize_left",
+    "orthogonalize_right", "compress", "tt_sum", "tt_dot", "bond_ranks",
+    "mpem3_to_mpem2", "evaluate_mpem3", "SeededSketches", "MPBP", "mpbp",
+    "bp_sweep", "bp_sweep_chunked", "iterate", "beliefs", "beliefs_tu",
+    "pair_beliefs", "pair_beliefs_as_tt", "pair_beliefs_as_mpem",
+    "pair_lognorms", "belief_lognorms", "bethe_free_energy_pair",
+    "bethe_free_energy", "means", "autocorrelations", "autocovariances",
+    "pair_correlations", "alternate_marginals", "alternate_correlations",
+    "logprob", "expectation", "reset", "reset_messages", "reset_beliefs",
+    "reset_observations", "is_periodic", "is_free_dynamics", "getT", "getN",
+    "nstates", "CB_BP", "resolve_device", "pair_observations_directed",
+    "pair_observations_nondirected", "pair_obs_undirected_to_directed",
+    "mean_with_uncertainty", "bigsweep", "exact", "sampling", "smc",
+    "from_numpy_state", "to_numpy_state", "exact_prob", "site_marginals",
+    "exact_marginals", "exact_pair_marginals", "exact_alternate_marginals",
+    "exact_autocorrelations", "exact_autocovariances",
+    "exact_marginal_expectations", "exact_pair_marginal_expectations",
+    "exact_alternate_marginal_expectations", "SoftMarginSampler", "sample",
+    "sample_one", "marginals_mc", "pair_marginals_mc", "means_mc",
+    "autocorrelations_mc", "autocovariances_mc", "draw_node_observations",
+    "simulate_queue_sis", "continuous_sis_sampler", "smc_sample",
 ]

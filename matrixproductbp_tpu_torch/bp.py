@@ -8,6 +8,13 @@ contracts each cavity with the transition table into an MPEM3 and converts
 it to a bond-D message; the belief comes from the full fold.  Every step
 runs over the whole bucket at once, in place of the JAX package's ``vmap``.
 
+The observables read the stored messages and beliefs: two-time and pair
+marginals, the pair and belief normalizations of the pair-route free
+energy, and trajectory log-probabilities.  Pair quantities contract the
+two messages of an edge factor by factor through ``D x D`` environments,
+never forming the bond-``D^2`` pair train (only ``pair_beliefs_as_tt``,
+whose output it is).
+
 Three compression methods share the lift and the folds:
 
 * ``method="sketch"``: sketch merges and sketch conversions through the
@@ -43,17 +50,24 @@ from torch.utils.weak import WeakIdKeyDictionary
 from .factors import RecursiveFactorTables
 from .graph import Graph
 from .ops import fused_stta
-from .ops.mpem import mpem3_to_mpem2
+from .ops.mpem import mpem3_lognorm, mpem3_to_mpem2
 from .ops.randomized import merge_rounded
 from .ops.sumy import y_expand
 from .ops.tensortrain import (TensorTrain, _fit_axis, _safe_scale, compress,
                               flat_tt, marginals, normalize,
-                              normalize_eachmatrix, tt_sum)
-from .ops.truncation import SVDTrunc, default_truncator
+                              normalize_eachmatrix, tt_sum, twovar_marginals)
+from .ops.truncation import SVDTrunc, TruncThresh, default_truncator
 
 __all__ = ["GraphArrays", "MPBP", "mpbp", "bp_sweep", "bp_sweep_chunked",
-           "iterate", "beliefs", "means", "bethe_free_energy",
-           "resolve_device"]
+           "iterate", "beliefs", "beliefs_tu", "pair_beliefs",
+           "pair_beliefs_as_tt", "pair_beliefs_as_mpem", "pair_lognorms",
+           "belief_lognorms", "bethe_free_energy_pair", "bethe_free_energy",
+           "means", "autocorrelations", "autocovariances",
+           "pair_correlations", "alternate_marginals",
+           "alternate_correlations", "logprob", "expectation", "reset",
+           "reset_messages", "reset_beliefs", "reset_observations",
+           "is_periodic", "is_free_dynamics", "getT", "getN", "nstates",
+           "CB_BP", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -152,14 +166,21 @@ def mpbp(graph: Graph, tables: RecursiveFactorTables, T: int, D: int,
         pt = psi[torch.as_tensor(graph.rev_edge, dtype=torch.int64)]
         if not torch.allclose(psi, pt.transpose(2, 3)):
             raise ValueError("psi on edge (i,j) must be the transpose of (j,i)")
-    msg, _ = normalize(flat_tt(T1, D, (q, q), dtype))
-    bel = flat_tt(T1, D, (q,), dtype)
     zeros = lambda n: torch.zeros((n,), dtype=dtype, device=dev)  # noqa: E731
     return MPBP(
         tables.to(device=dev, dtype=dtype), phi.to(dev), psi.to(dev),
-        msg.cores.to(dev).expand((E,) + msg.cores.shape).clone(), zeros(E),
-        bel.cores.to(dev).expand((N,) + bel.cores.shape).clone(), zeros(N),
+        _flat_cores(E, T1, D, (q, q), dtype, dev), zeros(E),
+        _flat_cores(N, T1, D, (q,), dtype, dev), zeros(N),
         zeros(N), graph_arrays(graph, dev), graph, False, qs)
+
+
+def _flat_cores(n: int, T1: int, D: int, phys, dtype, device):
+    """``n`` copies of the flat train's cores: normalized for the messages
+    (phys ``(q, q)``), raw for the beliefs (``(q,)``), as ``mpbp`` starts."""
+    tt = flat_tt(T1, D, phys, dtype, device)
+    if len(phys) == 2:
+        tt, _ = normalize(tt)
+    return tt.cores.expand((n,) + tt.cores.shape).clone()
 
 
 # ---------------------------------------------------------------------------
@@ -557,35 +578,49 @@ class _Update(NamedTuple):
     f: torch.Tensor              # [Nb]
 
 
-def _update_nodes(sw: _Sweep, idx, Kb: int, Yb: int, Pyy_b, src,
-                  direct_k3: bool, trunc, trunc_cav, Dm: int, Dcav: int,
-                  damp: float, method: str, sketches) -> _Update:
-    """Update the nodes ``idx`` of a degree bucket (slots Kb, y-axis cropped
-    to Yb, shared ``prob_yy`` ``Pyy_b``) from the messages ``src =
-    (cores, logz)``; the old out-messages are read only to damp."""
+def _group_inputs(sw: _Sweep, idx, Kb: int, Yb: int, src):
+    """What a node update reads for the nodes ``idx`` of a degree bucket
+    (slots Kb, y-axis cropped to Yb) from the messages ``src = (cores,
+    logz)``: (node ids, out-edge ids (E on padded slots), their clamped
+    indices, (in-messages, their logz, psi on the out-edges, slot mask,
+    Py, Pyp, Pxy, Py0 cropped to the bucket, phi, degrees))."""
     ga, tb, E = sw.garrays, sw.tables, sw.E
     msg_c, msg_lz = src
     nb = torch.as_tensor(idx, dtype=torch.int64, device=msg_c.device)
     Nb = len(idx)
-    in_e = ga.in_edges[nb][:, :Kb]
     in_m = ga.in_mask[nb][:, :Kb]
     out_e = ga.out_edges[nb][:, :Kb]
-    in_idx = in_e.clamp(max=E - 1)        # padded slots are masked below
+    in_idx = ga.in_edges[nb][:, :Kb].clamp(max=E - 1)  # padded: masked
     out_idx = out_e.clamp(max=E - 1)      # ... and dropped at the store
     T1, q = msg_c.shape[1], tb.q
 
     def nsel(t):
         return t if t.shape[0] == 1 else t[nb]
 
-    old = ((msg_c[out_idx], msg_lz[out_idx]) if damp > 0.0 else (None, None))
     psi_out = (sw.psi[out_idx] if sw.psi is not None else
                msg_c.new_ones((Nb, Kb, T1, q, q)))
     phi_b = (sw.phi[nb] if sw.phi.shape[0] > 1 else
              sw.phi.expand(Nb, -1, -1).contiguous())
-    args = (msg_c[in_idx], msg_lz[in_idx], *old, psi_out, in_m,
-            nsel(tb.Py)[..., :Yb], nsel(tb.Pyp)[:, :Kb][..., :Yb],
-            nsel(tb.Pxy)[:, :Kb][..., :Yb, :, :], nsel(tb.Py0)[..., :Yb, :],
-            phi_b, ga.degree[nb], Pyy_b)
+    return nb, out_e, out_idx, (
+        msg_c[in_idx], msg_lz[in_idx], psi_out, in_m,
+        nsel(tb.Py)[..., :Yb], nsel(tb.Pyp)[:, :Kb][..., :Yb],
+        nsel(tb.Pxy)[:, :Kb][..., :Yb, :, :], nsel(tb.Py0)[..., :Yb, :],
+        phi_b, ga.degree[nb])
+
+
+def _update_nodes(sw: _Sweep, idx, Kb: int, Yb: int, Pyy_b, src,
+                  direct_k3: bool, trunc, trunc_cav, Dm: int, Dcav: int,
+                  damp: float, method: str, sketches) -> _Update:
+    """Update the nodes ``idx`` of a degree bucket (slots Kb, y-axis cropped
+    to Yb, shared ``prob_yy`` ``Pyy_b``) from the messages ``src =
+    (cores, logz)``; the old out-messages are read only to damp."""
+    tb, E = sw.tables, sw.E
+    msg_c, msg_lz = src
+    nb, out_e, out_idx, (in_c, in_lz, *rest) = _group_inputs(
+        sw, idx, Kb, Yb, src)
+    Nb = len(idx)
+    old = ((msg_c[out_idx], msg_lz[out_idx]) if damp > 0.0 else (None, None))
+    args = (in_c, in_lz, *old, *rest, Pyy_b)
     if method == "sketch":
         out_c, out_lz, bel_c, bel_lz, f = _bucket_update_batched(
             *args, trunc, Dm, Dcav, damp, sketches, tb.yy_off)
@@ -773,14 +808,419 @@ def beliefs(bp: MPBP) -> torch.Tensor:
     return marginals(TensorTrain(bp.bel_cores, bp.bel_logz, (bp.q,)))
 
 
+def _values(bp: MPBP, values) -> torch.Tensor:
+    """The value table f [q] on the state's device (default 0..q-1)."""
+    if values is None:
+        return torch.arange(bp.q, dtype=bp.phi.dtype, device=bp.device)
+    return torch.as_tensor(values, dtype=bp.phi.dtype, device=bp.device)
+
+
 def means(bp: MPBP, values: torch.Tensor | None = None) -> torch.Tensor:
     """<f(x_i^t)> with f a value table [q] (default 0..q-1)."""
-    v = (torch.arange(bp.q, dtype=bp.phi.dtype, device=bp.device)
-         if values is None else torch.as_tensor(values, dtype=bp.phi.dtype,
-                                                device=bp.device))
-    return torch.einsum("ntq,q->nt", beliefs(bp), v)
+    return torch.einsum("ntq,q->nt", beliefs(bp), _values(bp, values))
 
 
 def bethe_free_energy(bp: MPBP) -> torch.Tensor:
     """sum_i f_i (reference ``bethe_free_energy``)."""
     return bp.f.sum()
+
+
+# ---------------------------------------------------------------------------
+# time observables
+# ---------------------------------------------------------------------------
+
+def beliefs_tu(bp: MPBP, maxdist: int | None = None) -> torch.Tensor:
+    """Two-time marginals [N, T1, T1, q, q], entries t < u <= t + maxdist
+    (reference ``beliefs_tu``)."""
+    return twovar_marginals(TensorTrain(bp.bel_cores, bp.bel_logz, (bp.q,)),
+                            maxdist)
+
+
+def autocorrelations(bp: MPBP, values=None, maxdist: int | None = None
+                     ) -> torch.Tensor:
+    """<f(x_i^t) f(x_i^u)> for t < u, [N, T1, T1] (reference
+    ``autocorrelations``, ``mpbp.jl:245-255``)."""
+    v = _values(bp, values)
+    return torch.einsum("ntupq,p,q->ntu", beliefs_tu(bp, maxdist), v, v)
+
+
+def autocovariances(bp: MPBP, values=None, maxdist: int | None = None
+                    ) -> torch.Tensor:
+    """Autocorrelations minus the product of means, entries t < u
+    (``mpbp.jl:288-296``)."""
+    r = autocorrelations(bp, values, maxdist)
+    m = means(bp, values)
+    T1 = m.shape[1]
+    mask = torch.ones((T1, T1), dtype=torch.bool, device=m.device).triu(1)
+    return (r - m[:, :, None] * m[:, None, :]) * mask
+
+
+# ---------------------------------------------------------------------------
+# pair observables: the two messages of an edge contracted factor by factor
+# ---------------------------------------------------------------------------
+
+def _pair_factors(bp: MPBP, t: int):
+    """The pair belief's factors at time t, per directed edge e = (i, j):
+    ``A[e, a, b, xi, xj]`` of mu_ij and ``Bp[e, c, d, xi, xj]``, mu_ji with
+    its legs swapped to (xi, xj), times psi_ij^t."""
+    E, D, q = bp.graph.E, bp.D, bp.q
+    rev = torch.as_tensor(bp.graph.rev_edge, dtype=torch.int64,
+                          device=bp.device)
+    A = bp.msg_cores[:, t].reshape(E, D, D, q, q)
+    Bp = bp.msg_cores[rev, t].reshape(E, D, D, q, q).transpose(-1, -2)
+    return A, Bp * bp.psi[:, t, None, None]
+
+
+def _rescale(env: torch.Tensor):
+    """Environments [E, D, D] scaled to max-abs 1, and the logs of the
+    scales."""
+    m = _safe_scale(env.abs().amax(dim=(-2, -1)))
+    return env / m[:, None, None], torch.log(m)
+
+
+def _pair_left(bp: MPBP, keep: bool = True):
+    """Left environments of every edge's pair belief, ``L[t][e, a, c]`` the
+    product of factors 0..t-1 rescaled to max-abs 1 (``keep``: all T1 + 1 of
+    them, else the last), and the log of the total sum [E]."""
+    E, D = bp.graph.E, bp.D
+    L = bp.msg_cores.new_zeros((E, D, D))
+    L[:, 0, 0] = 1.0
+    lg = bp.msg_cores.new_zeros((E,))
+    Ls = [L]
+    for t in range(bp.T + 1):
+        A, Bp = _pair_factors(bp, t)
+        X = torch.einsum("eac,eabij->ecbij", L, A)
+        L, lm = _rescale(torch.einsum("ecbij,ecdij->ebd", X, Bp))
+        lg = lg + lm
+        if keep:
+            Ls.append(L)
+    rev = torch.as_tensor(bp.graph.rev_edge, dtype=torch.int64,
+                          device=bp.device)
+    lz = (torch.log(L[:, 0, 0].abs()) + lg - bp.msg_logz
+          - bp.msg_logz[rev])
+    return (Ls if keep else None), lz
+
+
+def _pair_right(bp: MPBP):
+    """Right environments ``R[t][e, b, d]``: factors t..T rescaled, with
+    ``R[T1]`` the open boundary."""
+    E, D = bp.graph.E, bp.D
+    R = bp.msg_cores.new_zeros((E, D, D))
+    R[:, 0, 0] = 1.0
+    Rs = [R]
+    for t in range(bp.T, -1, -1):
+        A, Bp = _pair_factors(bp, t)
+        Z = torch.einsum("ecdij,ebd->ecbij", Bp, R)
+        R, _ = _rescale(torch.einsum("eabij,ecbij->eac", A, Z))
+        Rs.append(R)
+    return Rs[::-1]
+
+
+def _normalized(p: torch.Tensor) -> torch.Tensor:
+    return p / p.sum(dim=(-2, -1), keepdim=True)
+
+
+def _open_only(bp: MPBP, what: str):
+    if bp.periodic:
+        raise _not_ported(f"{what} of periodic trains", 6)
+
+
+def pair_lognorms(bp: MPBP) -> torch.Tensor:
+    """log normalization of every directed-edge pair belief,
+    log z_ij = log sum_{x_i, x_j} mu_ij mu_ji psi_ij, [E]
+    (``bp.py:1293-1312``)."""
+    _open_only(bp, "pair_lognorms")
+    return _pair_left(bp, keep=False)[1]
+
+
+def _node_weights(bp: MPBP, dtype) -> torch.Tensor:
+    """The (1/d_j - 1/2) weight of each edge's log z in its head's logz
+    (``mpbp.jl:230``; ``1/(d_j - 1) - 1/2`` on a symmetry-collapsed
+    infinite graph, ``infinite_graph.jl:38-44``)."""
+    dst = torch.as_tensor(bp.graph.edge_dst, dtype=torch.int64,
+                          device=bp.device)
+    deg = bp.garrays.degree.to(dtype)[dst]
+    if bp.graph.infinite:
+        return 1.0 / torch.clamp(deg - 1, min=1) - 0.5
+    return 1.0 / torch.clamp(deg, min=1) - 0.5
+
+
+def pair_beliefs(bp: MPBP):
+    """Per-directed-edge pair marginals [E, T1, q, q] (legs x_i, x_j) and
+    per-node logz contributions [N] (reference ``pair_beliefs``,
+    ``mpbp.jl:200-235``).  One left and one right environment sweep,
+    O(D^3 q^2) an edge and step."""
+    _open_only(bp, "pair_beliefs")
+    Ls, lz = _pair_left(bp)
+    Rs = _pair_right(bp)
+    marg = []
+    for t in range(bp.T + 1):
+        A, Bp = _pair_factors(bp, t)
+        X = torch.einsum("eac,eabij->ecbij", Ls[t], A)
+        Z = torch.einsum("ecdij,ebd->ecbij", Bp, Rs[t + 1])
+        marg.append(_normalized((X * Z).sum(dim=(1, 2))))
+    dst = torch.as_tensor(bp.graph.edge_dst, dtype=torch.int64,
+                          device=bp.device)
+    logz_nodes = lz.new_zeros((bp.N,)).index_add_(
+        0, dst, _node_weights(bp, lz.dtype) * lz)
+    return torch.stack(marg, dim=1), logz_nodes
+
+
+def alternate_marginals(bp: MPBP) -> torch.Tensor:
+    """p(x_i^t, x_j^{t+1}) per directed edge, [E, T, q, q] (reference
+    ``alternate_marginals``, ``mpbp.jl:270-280``): the (t, t+1) block of
+    the pair belief from the same environments as :func:`pair_beliefs`."""
+    _open_only(bp, "alternate_marginals")
+    Ls, _ = _pair_left(bp)
+    Rs = _pair_right(bp)
+    out = []
+    nxt = _pair_factors(bp, 0)
+    for t in range(bp.T):
+        (A, Bp), nxt = nxt, _pair_factors(bp, t + 1)
+        # left: factor t open in x_i^t; right: factor t+1 open in x_j^{t+1}
+        X = torch.einsum("eac,eabij->ecbij", Ls[t], A)
+        left = torch.einsum("ecbij,ecdij->ebdi", X, Bp)
+        A1, Bp1 = nxt
+        Z = torch.einsum("ecdij,ebd->ecbij", Bp1, Rs[t + 2])
+        right = torch.einsum("eabij,ecbij->eacj", A1, Z)
+        out.append(_normalized(torch.einsum("ebdi,ebdj->eij", left, right)))
+    return torch.stack(out, dim=1)
+
+
+def pair_beliefs_as_tt(bp: MPBP):
+    """Pair beliefs as trains: cores [E, T1, D*D, D*D, q*q] and logz [E]
+    (reference ``pair_beliefs_as_mpem``, ``mpbp.jl:208-216``).  The cores
+    are the output, so this builds them: E * T1 * D^4 * q^2 entries (21 GB
+    in f32 at E=8,190, T1=16, D=10, q=2).  The other pair observables
+    contract the same factors without them."""
+    _open_only(bp, "pair_beliefs_as_tt")
+    E, T1, D, q = bp.graph.E, bp.T + 1, bp.D, bp.q
+    rev = torch.as_tensor(bp.graph.rev_edge, dtype=torch.int64,
+                          device=bp.device)
+    A = bp.msg_cores.reshape(E, T1, D, D, q, q)
+    Bt = bp.msg_cores[rev].reshape(E, T1, D, D, q, q)
+    M = torch.einsum("etabij,etcdji,etij->etacbdij", A, Bt, bp.psi)
+    return (M.reshape(E, T1, D * D, D * D, q * q),
+            bp.msg_logz + bp.msg_logz[rev])
+
+
+#: reference name for :func:`pair_beliefs_as_tt` (``mpbp.jl:208-216``)
+pair_beliefs_as_mpem = pair_beliefs_as_tt
+
+
+def pair_correlations(bp: MPBP, values=None) -> torch.Tensor:
+    """<f(x_i^t) f(x_j^t)> per directed edge, [E, T1]."""
+    v = _values(bp, values)
+    return torch.einsum("etpq,p,q->et", pair_beliefs(bp)[0], v, v)
+
+
+def alternate_correlations(bp: MPBP, values=None) -> torch.Tensor:
+    """<f(x_i^t) f(x_j^{t+1})> per directed edge, [E, T]."""
+    v = _values(bp, values)
+    return torch.einsum("etpq,p,q->et", alternate_marginals(bp), v, v)
+
+
+# ---------------------------------------------------------------------------
+# normalizations of the pair-route free energy
+# ---------------------------------------------------------------------------
+
+def _belief_lognorm_nodes(sw: _Sweep, idx, Kb: int, Yb: int, Pyy_b, src,
+                          trunc, Dc: int, method: str, sketches):
+    """log z_i of the nodes ``idx`` of a bucket (Kb slots, y cropped to Yb,
+    shared ``prob_yy`` ``Pyy_b``): lift the in-messages as the sweep does,
+    fold all of them (op(init, B_0), then one merge a slot), contract the
+    fold with ``prob_y`` into the belief's MPEM3 and take its total sum."""
+    tb = sw.tables
+    _, _, _, (in_c, in_lz, psi_out, in_m, Py_b, _, Pxy_b, Py0_b, phi_b,
+              _) = _group_inputs(sw, idx, Kb, Yb, src)
+    Nb, T1, q = len(idx), in_c.shape[2], tb.q
+    Py_b, Pxy_b, Py0_b = _expand(Nb, Py_b, Pxy_b, Py0_b)
+    lf = _lift(in_c, in_lz, psi_out, in_m, Pxy_b, Py0_b, Pyy_b, Dc,
+               tb.yy_off)
+    Lc, Llz = lf.embed_first(lf.B[:, 0], lf.Blz[:, 0])
+    Lc = lf.pad_dc(Lc)
+    for k in range(1, Kb):
+        if method == "sketch":
+            Lc, Llz = fused_stta.merge_stta_fused(
+                Lc, Llz, lf.B[:, k], lf.Blz[:, k], lf.pyy_at(k), Dc, Yb, q,
+                sketches, yy_off=tb.yy_off)
+        else:
+            Lc, Llz = _merge(Lc, Llz, lf.B[:, k], lf.Blz[:, k], lf.pyy_at(k),
+                             trunc, Dc, Yb, q, method, sketches, tb.yy_off)
+    B3 = _f_bp_partial(Lc.reshape(Nb, T1, Dc, Dc, Yb, q), phi_b,
+                       Py_b[..., None, :])
+    return mpem3_lognorm(B3, Llz)[0]
+
+
+def belief_lognorms(bp: MPBP, trunc: SVDTrunc | None = None,
+                    Dcav: int | None = None, method: str = "qr",
+                    sketches=None) -> torch.Tensor:
+    """log z_i: the normalization of each node's belief rebuilt from the
+    stored messages (reference ``logz_i = log(normalization(bp.b[i]))``,
+    ``mpbp.jl:135``; ``bp.py:1315-1385``), [N], without changing the
+    state.  Per degree bucket and ``prob_yy`` group, batched: the sweep's
+    lift, the full fold with ``method``'s merge (``"sketch"``: the merge W
+    and F scans; ``"qr"``, ``"randomized"``: the SVD merges truncated by
+    ``trunc``, default ``TruncThresh(0)``) at bond ``Dcav`` (default D),
+    the contraction with ``prob_y`` and the MPEM3's total sum, which the
+    MPEM2 conversion leaves unchanged.  ``sketches`` as :func:`bp_sweep`."""
+    trunc = TruncThresh(0.0) if trunc is None else trunc
+    _check_sweep_options(method, 0.0, bp.tables, bp.periodic)
+    Dc = bp.D if Dcav is None else Dcav
+    tb = bp.tables
+    sw = _Sweep(bp.garrays, tb, bp.graph.E, bp.phi, bp.psi)
+    out = bp.bel_logz.new_zeros((bp.N,))
+    for bidx, Kb in _degree_buckets(bp.graph):
+        Yb = _bucket_y(tb, Kb)
+        for gidx, P in _pyy_groups(tb, bidx, Kb, Yb):
+            lz = _belief_lognorm_nodes(sw, gidx, Kb, Yb, P,
+                                       (bp.msg_cores, bp.msg_logz), trunc,
+                                       Dc, method, sketches)
+            out[torch.as_tensor(gidx, dtype=torch.int64,
+                                device=out.device)] = lz
+    return out
+
+
+def bethe_free_energy_pair(bp: MPBP, trunc: SVDTrunc | None = None,
+                           Dcav: int | None = None, method: str = "qr",
+                           sketches=None) -> torch.Tensor:
+    """Bethe free energy through the pair route,
+    F = sum_i [ -log z_i + 1/2 sum_{j in di} log z_ij ], with z_i from
+    :func:`belief_lognorms` (its ``method`` and ``sketches``) and z_ij from
+    :func:`pair_lognorms`.  At a BP fixed point it equals
+    :func:`bethe_free_energy` (``bp.py:1388-1411``)."""
+    lz_i = belief_lognorms(bp, trunc=trunc, Dcav=Dcav, method=method,
+                           sketches=sketches)
+    lz_e = pair_lognorms(bp)
+    ga = bp.garrays
+    lz_pad = torch.cat([lz_e, lz_e.new_zeros((1,))])
+    half = 0.5 * torch.where(ga.in_mask, lz_pad[ga.in_edges],
+                             torch.zeros((), dtype=lz_e.dtype,
+                                         device=lz_e.device)).sum(dim=1)
+    return (-lz_i + half).sum()
+
+
+# ---------------------------------------------------------------------------
+# trajectories, resets and accessors
+# ---------------------------------------------------------------------------
+
+def logprob(bp: MPBP, x) -> float:
+    """Log posterior weight of a trajectory x[N, T1] (reference
+    ``logprob``, ``mpbp.jl:301-324``; unnormalized: the observations enter
+    as weights), on the state's device and accumulated in float64."""
+    from .factors import transition_probs
+    _open_only(bp, "logprob")
+    g, dev = bp.graph, bp.device
+    x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                        device=dev).long()
+    N, T1 = x.shape
+    ar = torch.arange(N, device=dev)
+    nbr = torch.as_tensor(np.minimum(g.nbr, g.N - 1), dtype=torch.int64,
+                          device=dev)
+    tables = bp.tables.to(dtype=torch.float64)
+    phi = bp.phi.double()
+    tt = torch.arange(T1, device=dev)
+    lp = torch.log(phi[ar[:, None], tt[None, :], x]).sum()
+    for t in range(T1 - 1):
+        p = transition_probs(tables, bp.garrays.in_mask, x[:, t][nbr],
+                             x[:, t])
+        lp = lp + torch.log(p[ar, x[:, t + 1]]).sum()
+    src = torch.as_tensor(g.edge_src, dtype=torch.int64, device=dev)
+    dst = torch.as_tensor(g.edge_dst, dtype=torch.int64, device=dev)
+    ae = torch.arange(g.E, device=dev)
+    lp = lp + 0.5 * torch.log(bp.psi.double()[
+        ae[:, None], tt[None, :], x[src], x[dst]]).sum()
+    return float(lp)
+
+
+def reset_messages(bp: MPBP) -> MPBP:
+    """``bp`` with every message flat again (``mpbp.jl:72-80``)."""
+    return dataclasses.replace(
+        bp, msg_cores=_flat_cores(bp.graph.E, bp.T + 1, bp.D, (bp.q, bp.q),
+                                  bp.msg_cores.dtype, bp.device),
+        msg_logz=torch.zeros_like(bp.msg_logz))
+
+
+def reset_beliefs(bp: MPBP) -> MPBP:
+    """``bp`` with every belief flat again (``mpbp.jl:82-90``)."""
+    return dataclasses.replace(
+        bp, bel_cores=_flat_cores(bp.N, bp.T + 1, bp.D, (bp.q,),
+                                  bp.bel_cores.dtype, bp.device),
+        bel_logz=torch.zeros_like(bp.bel_logz))
+
+
+def reset_observations(bp: MPBP) -> MPBP:
+    """``bp`` with phi and psi all ones (``mpbp.jl:92-95``)."""
+    return dataclasses.replace(bp, phi=torch.ones_like(bp.phi),
+                               psi=torch.ones_like(bp.psi))
+
+
+def reset(bp: MPBP, messages: bool = True, beliefs: bool = True,
+          observations: bool = False) -> MPBP:
+    """Combined reset (reference ``reset!``, ``mpbp.jl:97-102``)."""
+    if messages:
+        bp = reset_messages(bp)
+    if beliefs:
+        bp = reset_beliefs(bp)
+    if observations:
+        bp = reset_observations(bp)
+    return bp
+
+
+def is_periodic(bp: MPBP) -> bool:
+    """Reference ``is_periodic`` (``mpbp.jl:113-114``)."""
+    return bp.periodic
+
+
+def is_free_dynamics(bp: MPBP) -> bool:
+    """True iff no reweighting: every phi_i^t but t=0 is constant in x
+    (reference ``is_free_dynamics``, ``mpbp.jl:105-111``)."""
+    sl = bp.phi if bp.periodic else bp.phi[:, 1:]
+    return bool((sl == sl[..., :1]).all())
+
+
+def getT(bp: MPBP) -> int:
+    """Final time index T (trains have T+1 cores; ``mpbp.jl:35``)."""
+    return bp.T
+
+
+def getN(bp: MPBP) -> int:
+    return bp.N
+
+
+def nstates(bp: MPBP, i: int | None = None) -> int:
+    """Single-variable states of node ``i`` (``mpbp.jl:37``): the per-node
+    count of heterogeneous-q states, else ``q``."""
+    if i is not None and bp.qs is not None:
+        return int(bp.qs[i])
+    return bp.q
+
+
+def expectation(f, p):
+    """<f(x)> under a vector pmf, or <f(xi) f(xj)> under a matrix pmf
+    (reference ``expectation``, ``mpbp.jl:241-243``); ``f`` a callable on
+    the 0-indexed state or an array of per-state values, ``p`` numpy."""
+    p = np.asarray(p)
+    q = p.shape[-1]
+    v = np.asarray([f(x) for x in range(q)], dtype=p.dtype) \
+        if callable(f) else np.asarray(f, dtype=p.dtype)
+    if p.ndim == 2 and p.shape == (q, q):
+        return np.einsum("ij,i,j->", p, v, v)
+    return np.einsum("...i,i->...", p, v)
+
+
+class CB_BP:
+    """Per-sweep callback (reference ``CB_BP``, ``mpbp.jl:157-183``): pass
+    as ``callback=`` to :func:`iterate`; records each sweep's mean
+    trajectories ``m`` (host numpy [N, T1]) and convergence deltas
+    ``Delta``."""
+
+    def __init__(self, values=None):
+        self.values = values
+        self.m: list = []
+        self.Delta: list = []
+
+    def __call__(self, bp: MPBP, it: int, delta: float) -> float:
+        self.m.append(means(bp, self.values).cpu().numpy())
+        self.Delta.append(delta)
+        return delta

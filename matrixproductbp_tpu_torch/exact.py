@@ -1,6 +1,6 @@
 """Exhaustive-enumeration oracle for tiny instances.
 
-Counterpart of ``matrixproductbp_tpu/exact.py:29-122``: enumerate every
+Counterpart of ``matrixproductbp_tpu/exact.py``: enumerate every
 trajectory of the reweighted dynamics, accumulate log-factors from the dense
 factor tables (``factors.transition_probs``) and normalize.  It shares no
 code path with the BP sweep.  Runs on the host in float64 whatever the
@@ -16,7 +16,13 @@ import torch
 from .bp import MPBP
 from .factors import transition_probs
 
-__all__ = ["exact_prob", "exact_marginals"]
+__all__ = [
+    "exact_prob", "site_marginals", "exact_marginals",
+    "exact_pair_marginals", "exact_alternate_marginals",
+    "exact_autocorrelations", "exact_autocovariances",
+    "exact_marginal_expectations", "exact_pair_marginal_expectations",
+    "exact_alternate_marginal_expectations",
+]
 
 
 def _decode_all(Q: int, q: int, N: int, T1: int) -> np.ndarray:
@@ -62,6 +68,20 @@ def exact_prob(bp: MPBP):
     return np.exp(logp - logZ), np.exp(logZ)
 
 
+def site_marginals(bp: MPBP, p=None):
+    """Full per-site trajectory marginals: a list of [q]*T1 arrays."""
+    if p is None:
+        p, _ = exact_prob(bp)
+    N, T1, q = bp.N, bp.T + 1, bp.q
+    X = _decode_all(len(p), q, N, T1)
+    out = []
+    for i in range(N):
+        m = np.zeros((q,) * T1)
+        np.add.at(m, tuple(X[:, i, t] for t in range(T1)), p)
+        out.append(m)
+    return out
+
+
 def exact_marginals(bp: MPBP, p=None) -> np.ndarray:
     """[N, T1, q] single-site single-time marginals."""
     if p is None:
@@ -73,3 +93,84 @@ def exact_marginals(bp: MPBP, p=None) -> np.ndarray:
         for t in range(T1):
             np.add.at(out[i, t], X[:, i, t], p)
     return out
+
+
+def _values(q: int, values) -> np.ndarray:
+    return np.arange(q, dtype=float) if values is None else np.asarray(values)
+
+
+def exact_pair_marginals(bp: MPBP, p=None) -> np.ndarray:
+    """[E, T1, q, q] same-time pair marginals per directed edge, legs
+    (x_src, x_dst)."""
+    if p is None:
+        p, _ = exact_prob(bp)
+    g = bp.graph
+    N, T1, q = bp.N, bp.T + 1, bp.q
+    X = _decode_all(len(p), q, N, T1)
+    out = np.zeros((g.E, T1, q, q))
+    for e in range(g.E):
+        i, j = int(g.edge_src[e]), int(g.edge_dst[e])
+        for t in range(T1):
+            np.add.at(out[e, t], (X[:, i, t], X[:, j, t]), p)
+    return out
+
+
+def exact_alternate_marginals(bp: MPBP, p=None) -> np.ndarray:
+    """[E, T1-1, q, q]: p(x_i^t, x_j^{t+1}) per directed edge (i, j)."""
+    if p is None:
+        p, _ = exact_prob(bp)
+    g = bp.graph
+    N, T1, q = bp.N, bp.T + 1, bp.q
+    X = _decode_all(len(p), q, N, T1)
+    out = np.zeros((g.E, T1 - 1, q, q))
+    for e in range(g.E):
+        i, j = int(g.edge_src[e]), int(g.edge_dst[e])
+        for t in range(T1 - 1):
+            np.add.at(out[e, t], (X[:, i, t], X[:, j, t + 1]), p)
+    return out
+
+
+def exact_autocorrelations(bp: MPBP, values=None, p=None) -> np.ndarray:
+    """[N, T1, T1] <f(x^t) f(x^u)> for t < u (zero elsewhere)."""
+    if p is None:
+        p, _ = exact_prob(bp)
+    N, T1, q = bp.N, bp.T + 1, bp.q
+    v = _values(q, values)
+    X = _decode_all(len(p), q, N, T1)
+    out = np.zeros((N, T1, T1))
+    for i in range(N):
+        fv = v[X[:, i, :]]                            # [Q, T1]
+        for t in range(T1):
+            for u in range(t + 1, T1):
+                out[i, t, u] = np.sum(fv[:, t] * fv[:, u] * p)
+    return out
+
+
+def exact_marginal_expectations(bp: MPBP, values=None, p=None) -> np.ndarray:
+    """[N, T1] <f(x_i^t)>."""
+    return exact_marginals(bp, p) @ _values(bp.q, values)
+
+
+def exact_autocovariances(bp: MPBP, values=None, p=None) -> np.ndarray:
+    """[N, T1, T1] autocorrelations minus the product of means, t < u."""
+    if p is None:
+        p, _ = exact_prob(bp)
+    r = exact_autocorrelations(bp, values, p)
+    mu = exact_marginal_expectations(bp, values, p)
+    c = r - mu[:, :, None] * mu[:, None, :]
+    T1 = mu.shape[1]
+    return c * np.triu(np.ones((T1, T1), bool), k=1)[None]
+
+
+def exact_pair_marginal_expectations(bp: MPBP, values=None, p=None
+                                     ) -> np.ndarray:
+    """[E, T1] <f(x_i^t) f(x_j^t)> per directed edge."""
+    v = _values(bp.q, values)
+    return np.einsum("etab,a,b->et", exact_pair_marginals(bp, p), v, v)
+
+
+def exact_alternate_marginal_expectations(bp: MPBP, values=None, p=None
+                                          ) -> np.ndarray:
+    """[E, T1-1] <f(x_i^t) f(x_j^{t+1})> per directed edge."""
+    v = _values(bp.q, values)
+    return np.einsum("etab,a,b->et", exact_alternate_marginals(bp, p), v, v)

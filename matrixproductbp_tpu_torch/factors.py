@@ -319,38 +319,66 @@ def build_tables_t(graph: Graph, specs_t, dtype=np.float64):
                               "(ROADMAP Queue 1 item 6)")
 
 
+def _rows(table: torch.Tensor, n_idx, *idx) -> torch.Tensor:
+    """``table[n % N', i1, i2, ...]`` for index tensors broadcast to one
+    shape: the leading axes flattened into rows, picked by one row index
+    instead of a multi-tensor advanced index."""
+    lead = table.shape[:1 + len(idx)]
+    flat = table.reshape(-1, int(np.prod(table.shape[1 + len(idx):])))
+    row = n_idx % lead[0]
+    for i, d in zip(idx, lead[1:]):
+        row = row * d + i
+    return flat[row].reshape(row.shape + table.shape[1 + len(idx):])
+
+
 def transition_probs(tables: RecursiveFactorTables, in_mask, x_nbr, x
                      ) -> torch.Tensor:
     """P(x_i^{t+1} | x_nbrs, x_i) for every node and any leading batch of
-    configurations: x_nbr i[..., N, K] padded neighbour states, x i[..., N]
-    -> [..., N, q].  Used by the enumeration oracle."""
+    configurations (particles, enumerated trajectories): x_nbr i[..., N, K]
+    padded neighbour states, x i[..., N] -> [..., N, q], on the tables'
+    device.  Used by the enumeration oracle, ``bp.logprob`` and the
+    samplers.  Each slot folds ``prob_yy`` over both y legs for every
+    value of x_i at once (one batched product) and then picks x_i, so no
+    per-configuration copy of the table is made."""
     if tables.time_varying:
         raise NotImplementedError("time-varying tables are not ported yet "
                                   "(ROADMAP Queue 1 item 6)")
+    dev = tables.Py.device
+    x_nbr = torch.as_tensor(x_nbr, device=dev).long()
+    x = torch.as_tensor(x, device=dev).long()
     N, K = x_nbr.shape[-2:]
-    Y = tables.Y
-    ar = torch.arange(N)
-    sel = lambda t: t[ar % t.shape[0]]                    # noqa: E731
-    v = sel(tables.Py0).transpose(1, 2)[ar, x]            # [..., N, Y]
-    Pxy = sel(tables.Pxy)                                 # [N, K, Y, q, q]
-    mask = torch.as_tensor(in_mask)
+    q, Y = tables.q, tables.Y
+    n_idx = torch.arange(N, device=dev)
+    mask = torch.as_tensor(in_mask, device=dev)
+    v = _rows(tables.Py0.transpose(1, 2), n_idx, x)        # [..., N, Y]
+    Pxy = tables.Pxy.permute(0, 1, 3, 4, 2)                 # [N', K, xn, x, Y]
     if tables.yy_off is not None:
         # sum type: v2[y] = sum_b v[y + off - b] pxy[b]
-        idx = (torch.arange(Y)[:, None] + tables.yy_off
-               - torch.arange(Y)[None, :])
+        iy = torch.arange(Y, device=dev)
+        idx = iy[:, None] + tables.yy_off - iy[None, :]
         ok = ((idx >= 0) & (idx < Y)).to(v.dtype)
         idx = idx.clamp(0, Y - 1)
     else:
-        Pyy = sel(tables.Pyy)                             # [N, K', Y, Y, Y, q]
+        # W[n, k', (a, b), (y, x)] = Pyy[n, k', y, a, b, x]
+        W = tables.Pyy.permute(0, 1, 3, 4, 2, 5).reshape(
+            tables.Pyy.shape[:2] + (Y * Y, Y * q))
     for k in range(K):
-        pxy = Pxy[:, k].permute(0, 2, 3, 1)[ar, x_nbr[..., k], x]  # [..,N,Y]
+        pxy = _rows(Pxy[:, k], n_idx, x_nbr[..., k], x)     # [..., N, Y]
         if tables.yy_off is not None:
-            vt = v[..., idx] * ok                         # [..., N, Y, Y]
+            vt = v[..., idx] * ok                           # [..., N, Y, Y]
             v2 = torch.einsum("...nyb,...nb->...ny", vt, pxy)
         else:
-            pyy = Pyy[:, min(k, Pyy.shape[1] - 1)].permute(0, 4, 1, 2, 3)
-            pyy = pyy[ar, x]
-            v2 = torch.einsum("...nyab,...na,...nb->...ny", pyy, v, pxy)
+            u = (v[..., :, None] * pxy[..., None, :]).reshape(
+                v.shape[:-1] + (Y * Y,))
+            Wk = W[:, min(k, W.shape[1] - 1)]
+            if Wk.shape[0] == 1:
+                full = u @ Wk[0]                            # [..., N, Y*q]
+            else:
+                full = torch.einsum("nay,...na->...ny", Wk[n_idx % Wk.shape[0]],
+                                    u)
+            v2 = torch.gather(full.reshape(full.shape[:-1] + (Y, q)), -1,
+                              x[..., None, None].expand(
+                                  x.shape + (Y, 1)))[..., 0]
         v = torch.where(mask[:, k][:, None], v2, v)
-    Py = sel(tables.Py).permute(0, 2, 1, 3)[ar, x]        # [..., N, q, Y]
-    return torch.einsum("...npy,...ny->...np", Py, v)
+    Py = _rows(tables.Py.permute(0, 2, 1, 3), n_idx, x)     # [..., N, q, Y]
+    return (Py * v[..., None, :]).sum(dim=-1)

@@ -8,8 +8,6 @@ from __future__ import annotations
 
 import numpy as np
 
-import dataclasses
-
 from .. import bp as bpmod
 from ..ops.truncation import TruncBond
 
@@ -22,7 +20,7 @@ def find_infected_bp(bp, trunc=None, tol=1e-3, maxiter=100,
     (``inference.jl:3-24``).  Returns guesses[t] = node indices sorted by
     decreasing P(infected at t)."""
     trunc = TruncBond(5) if trunc is None else trunc
-    bp = _reset_messages(bp)
+    bp = bpmod.reset_messages(bp)
     bp, iters, _ = bpmod.iterate(bp, maxiter=maxiter, trunc=trunc, tol=tol)
     if require_convergence and iters == maxiter:
         raise RuntimeError("BP did not converge")
@@ -30,15 +28,6 @@ def find_infected_bp(bp, trunc=None, tol=1e-3, maxiter=100,
     T1 = b.shape[1]
     guesses = [np.argsort(b[:, t, 0]) for t in range(T1)]  # ascending P(S)
     return guesses, bp
-
-
-def _reset_messages(bp):
-    """``bp`` with every message flat again (reference ``reset_messages!``,
-    ``mpbp.jl:72-80``)."""
-    fresh = bpmod.mpbp(bp.graph, bp.tables, bp.T, bp.D, dtype=bp.phi.dtype,
-                       device=bp.device)
-    return dataclasses.replace(bp, msg_cores=fresh.msg_cores,
-                               msg_logz=fresh.msg_logz)
 
 
 def roc(guess_zp, true_zp):

@@ -15,7 +15,7 @@ import torch
 
 from .tensortrain import TensorTrain, _fit_axis, _maxabs, batched_svd
 
-__all__ = ["mpem3_to_mpem2", "evaluate_mpem3"]
+__all__ = ["mpem3_to_mpem2", "mpem3_lognorm", "evaluate_mpem3"]
 
 
 def _regroup(A: torch.Tensor) -> torch.Tensor:
@@ -57,6 +57,26 @@ def mpem3_to_mpem2(B: torch.Tensor, logz: torch.Tensor) -> TensorTrain:
     cores = torch.stack([_fit_axis(C0, -3, Dmid)] + mids
                         + [_fit_axis(last, -2, Dmid)], dim=-4)
     return TensorTrain(cores, lg, (qi, qj))
+
+
+def mpem3_lognorm(B: torch.Tensor, logz: torch.Tensor):
+    """(log |Z|, sign) of the total sum of MPEM3s ``B [..., T1, Db, Db, qi,
+    qj, qi]`` (the last ``xi'`` at index 0), contracted directly: the
+    environment ``v[n, xi']`` carries the shared ``xi`` leg from one core to
+    the next, rescaled to max-abs 1 each step.  Equals ``lognorm`` of
+    :func:`mpem3_to_mpem2`'s trains, without their SVDs."""
+    batch = B.shape[:-6]
+    T1, Db, _, qi = B.shape[-6:-2]
+    v = B.new_zeros(batch + (Db, qi))
+    v[..., 0, :] = 1.0
+    lg = logz
+    for t in range(T1 - 1):
+        v = torch.einsum("...mi,...mnijr->...nr", v, B[..., t, :, :, :, :, :])
+        m = _maxabs(v, 2)
+        v = v / m[..., None, None]
+        lg = lg - torch.log(m)
+    z = torch.einsum("...mi,...mij->...", v, B[..., -1, :, 0, :, :, 0])
+    return torch.log(z.abs()) - lg, torch.sign(z)
 
 
 def evaluate_mpem3(B: torch.Tensor, logz, xi, xj) -> torch.Tensor:

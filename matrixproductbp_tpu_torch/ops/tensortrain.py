@@ -21,10 +21,10 @@ import torch
 from . import smallsvd
 from .truncation import SVDTrunc, TruncThresh
 
-__all__ = ["TensorTrain", "flat_tt", "evaluate", "lognorm", "normalize",
-           "normalize_eachmatrix", "marginals", "orthogonalize_left",
-           "orthogonalize_right", "compress", "tt_sum", "tt_dot",
-           "batched_svd"]
+__all__ = ["TensorTrain", "flat_tt", "rand_tt", "evaluate", "lognorm",
+           "normalization", "normalize", "normalize_eachmatrix", "marginals",
+           "twovar_marginals", "orthogonalize_left", "orthogonalize_right",
+           "compress", "tt_sum", "tt_dot", "bond_ranks", "batched_svd"]
 
 
 @dataclasses.dataclass
@@ -49,6 +49,30 @@ def flat_tt(T1: int, D: int, phys: Sequence[int], dtype=torch.float64,
     cores[:, 0, 0, :] = 1.0
     return TensorTrain(cores, torch.zeros((), dtype=dtype, device=device),
                        tuple(phys))
+
+
+def rand_tt(generator: torch.Generator | None, T1: int, D: int,
+            phys: Sequence[int], bond: int | None = None,
+            dtype=torch.float64, periodic: bool = False, device=None
+            ) -> TensorTrain:
+    """Random positive train with effective bond ``bond`` (default ``D``),
+    uniform entries drawn from ``generator`` (``rand_tt`` of
+    ``tensortrain.py:120-132``, which takes a key)."""
+    if periodic:
+        raise NotImplementedError("periodic trains are not ported yet "
+                                  "(ROADMAP Queue 1 item 6)")
+    P = int(math.prod(phys)) if phys else 1
+    bond = D if bond is None else bond
+    if generator is not None:
+        device = generator.device
+    vals = torch.rand((T1, D, D, P), generator=generator, dtype=dtype,
+                      device=device)
+    mask = torch.zeros((T1, D, D, 1), dtype=dtype, device=device)
+    mask[:, :bond, :bond] = 1.0
+    mask[0, 1:] = 0.0                     # first core: row 0 only
+    mask[-1, :, 1:] = 0.0                 # last core: column 0 only
+    return TensorTrain(vals * mask, torch.zeros((), dtype=dtype,
+                                                device=device), tuple(phys))
 
 
 def _safe_scale(m: torch.Tensor) -> torch.Tensor:
@@ -109,6 +133,12 @@ def lognorm(tt: TensorTrain):
     return torch.log(z.abs()) + logs[..., -1] - tt.logz, torch.sign(z)
 
 
+def normalization(tt: TensorTrain) -> torch.Tensor:
+    """Z = sum_x p(x) (may overflow for long horizons; prefer ``lognorm``)."""
+    lg, sg = lognorm(tt)
+    return sg * torch.exp(lg)
+
+
 def normalize(tt: TensorTrain):
     """Rescale so the total sum is 1; return (tt', log-norm).  The sign of
     ``Z`` goes into the first core (``tensortrain.py:252``)."""
@@ -134,6 +164,35 @@ def marginals(tt: TensorTrain) -> torch.Tensor:
     p = torch.einsum("...tm,...tmnp,...tn->...tp", L[..., :-1, :], tt.cores,
                      R[..., 1:, :])
     return p / p.sum(dim=-1, keepdim=True)
+
+
+def twovar_marginals(tt: TensorTrain, maxdist: int | None = None
+                     ) -> torch.Tensor:
+    """Two-time marginals ``[..., T1, T1, P, P]``: entry (t, u) for
+    t < u <= t + maxdist, each normalized to sum 1, the rest zero
+    (``tensortrain.py:287-339``, open trains).  Every step runs over the
+    whole batch; the propagated environment is rescaled to max-abs 1 each
+    step, which the normalization removes."""
+    cores = tt.cores
+    batch, (T1, D, _, P) = cores.shape[:-4], cores.shape[-4:]
+    maxdist = T1 if maxdist is None else maxdist
+    transfer = cores.sum(dim=-1)
+    L, _ = _accumulate(cores, reverse=False)
+    R, _ = _accumulate(cores, reverse=True)
+    out = cores.new_zeros(batch + (T1, T1, P, P))
+    for t in range(T1 - 1):
+        # E[x, n] = L[t] . cores[t][:, :, x], then propagated over u
+        E = torch.einsum("...m,...mnp->...pn", L[..., t, :],
+                         cores[..., t, :, :, :])
+        for u in range(t + 1, min(t + maxdist, T1 - 1) + 1):
+            p = torch.einsum("...pm,...mnq,...n->...pq", E,
+                             cores[..., u, :, :, :], R[..., u + 1, :])
+            s = p.sum(dim=(-2, -1), keepdim=True)
+            out[..., t, u, :, :] = p / torch.where(s != 0, s,
+                                                   torch.ones_like(s))
+            E = E @ transfer[..., u, :, :]
+            E = E / _safe_scale(E.abs().amax(dim=(-2, -1)))[..., None, None]
+    return out
 
 
 def evaluate(tt: TensorTrain, x: torch.Tensor) -> torch.Tensor:
@@ -329,3 +388,12 @@ def tt_dot(a: TensorTrain, b: TensorTrain) -> torch.Tensor:
         E = torch.einsum("...mk,...mnp,...kjp->...nj", E,
                          a.cores[..., t, :, :, :], b.cores[..., t, :, :, :])
     return E[..., 0, 0] * torch.exp(-a.logz - b.logz)
+
+
+def bond_ranks(tt: TensorTrain, tol: float = 0.0) -> torch.Tensor:
+    """Effective bond dimensions (diagnostic, ``tensortrain.py:646-652``):
+    after a right-orthogonal gauge and an untruncated left-to-right SVD
+    sweep, the rows of each core with an entry above ``tol`` -> [..., T1]."""
+    o = orthogonalize_right(tt)
+    c = compress(o, TruncThresh(0.0), assume="right")
+    return (c.cores.abs() > tol).any(dim=-1).any(dim=-1).sum(dim=-1)

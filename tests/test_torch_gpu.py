@@ -21,7 +21,9 @@ where the plain scans are (N's last step is the full product with the
 one-hot); the banded Glauber merges at Y = 3, 5 and 10 and the q = 3
 SIRS merges and conversions (f32, 1e-4 of max-abs); and the chunked sweep
 against the monolithic one, the flat Jacobi sweep bit for bit against the
-chunked one.  Marked ``gpu``; skips
+chunked one; ``transition_probs`` on the card against the CPU on a batch
+of particles; ``belief_lognorms(method="sketch")`` on the merge kernels
+against the plain scans (f32, 1e-3).  Marked ``gpu``; skips
 from its fixture when no CUDA device is present.  Needs no JAX: on the
 card run it with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``.
@@ -808,3 +810,60 @@ def test_chunked_sweep_on_the_card(cuda):
     b = tp.beliefs(seidel)
     assert bool(torch.isfinite(b).all())
     assert float((b.sum(-1) - 1).abs().max()) <= 1e-5
+
+
+def test_transition_probs_on_the_card(cuda):
+    """``factors.transition_probs`` with the tables, the mask and a batch of
+    64 particles on the card equals the CPU result (SIS on a random tree
+    with a degree-5 node, and the banded Glauber tables)."""
+    import numpy as np
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.models import (SIS, mpbp_sis, Glauber,
+                                                  Ising, mpbp_glauber)
+    g = tp.random_tree(40, np.random.default_rng(1))
+    states = [mpbp_sis(SIS(g, 0.2, 0.1, T=2, gamma=0.3), D=2,
+                       device="cpu"),
+              mpbp_glauber(Glauber(Ising(g, J=[0.5] * (g.E // 2),
+                                         h=[0.1] * g.N, beta=0.7), T=2),
+                           D=2, device="cpu")]
+    rng = np.random.default_rng(0)
+    nbr = np.minimum(g.nbr, g.N - 1)
+    for bp in states:
+        x = torch.as_tensor(rng.integers(0, 2, size=(64, g.N)))
+        ref = tp.transition_probs(bp.tables, g.in_mask, x[:, nbr], x)
+        out = tp.transition_probs(bp.tables.to(device=cuda),
+                                  torch.as_tensor(g.in_mask, device=cuda),
+                                  x[:, nbr].to(cuda), x.to(cuda))
+        assert out.device.type == "cuda"
+        assert float((out.cpu() - ref).abs().max()) <= 1e-12
+
+
+def test_belief_lognorms_sketch_on_the_kernels(cuda, monkeypatch):
+    """``belief_lognorms(method="sketch")`` at a small size (SIS on a
+    random tree of 80 nodes, buckets up to K=8, T=5, D=6, f32): on the
+    merge kernels, with no plain-scan call, within 1e-3 of the same call
+    on the plain scans with the same sketches."""
+    import numpy as np
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.models import SIS, mpbp_sis
+    from matrixproductbp_tpu_torch.ops import stta
+    g = tp.random_tree(80, np.random.default_rng(0))
+    bp = mpbp_sis(SIS(g, 0.2, 0.1, T=5, gamma=0.3), D=6,
+                  dtype=torch.float32)
+    bp, _, _ = tp.iterate(bp, maxiter=4, trunc=tp.TruncBond(6), tol=0.0,
+                          method="sketch")
+    calls = []
+    for name in ("merge_wscan_plain", "merge_fscan_plain"):
+        for mod in (fs, stta):
+            fn = getattr(mod, name)
+            monkeypatch.setattr(mod, name,
+                                lambda *a, _f=fn, **k: (calls.append(1),
+                                                        _f(*a, **k))[1])
+    before = fs.merge_fscan.launches
+    lz = tp.belief_lognorms(bp, trunc=tp.TruncBond(6), method="sketch")
+    assert fs.merge_fscan.launches > before and not calls
+    for name in ("merge_wscan", "merge_fscan"):
+        monkeypatch.setattr(fs, name, getattr(fs, name + "_plain"))
+    ref = tp.belief_lognorms(bp, trunc=tp.TruncBond(6), method="sketch")
+    assert bool(torch.isfinite(lz).all())
+    assert float((lz - ref).abs().max()) <= 1e-3
