@@ -16,10 +16,15 @@ and D=20, through per-node tables; the bench state swept in chunks, Jacobi
 and in place, against the monolithic sweep; the Glauber state by the
 shuffled Gauss-Seidel ``iterate``; SIS inference on a tree of 4096
 nodes with 256 soft observations, through every observable, the
-soft-margin sampler and SMC; and the scale target, SIS on an
-Erdos-Renyi graph of 10^5 nodes, T=50, D=10, swept in place by
-``bigsweep.bp_sweep_flat``), checks the results, and times each kernel
-beside its bound.
+soft-margin sampler and SMC; time-varying SIS on the bench graph (a
+lockdown lowers lam at t=8; tables from ``build_tables_t``) at D=10 and
+D=20, every merge F launch reading one ``prob_yy`` a step; periodic SIS on
+a 3-regular graph of 1024 nodes, T=10, D=8, ``qr``; the modes' accuracy
+gates (the infinite 3-regular graph's golden vector and the time-varying
+tree against enumeration; periodic SIS on a path reported); and the
+scale target, SIS on an Erdos-Renyi graph of 10^5 nodes, T=50, D=10, swept
+in place by ``bigsweep.bp_sweep_flat``), checks the results, and times each
+kernel beside its bound.
 Each path runs with the launch counts set to 0 just before it and read
 just after.  One JSON line per phase; any failed phase raises.
 The second-to-last line is the ``kernels`` record, the line before it the
@@ -90,6 +95,31 @@ TOL_MC_FLOOR = 8e-3         # the sampler's gate: 6 max(err, 8e-3)
 TOL_SUMS = 1e-5             # pair, alternate and two-time marginals sum to 1
 PAIR_PEAK_BYTES = 4e9       # pair_beliefs' peak (the D^2 cores: 21 GB)
 TOL_LOGNORM_PLAIN = 1e-3    # belief_lognorms on the kernels vs plain scans
+# time-varying SIS on the bench graph: lam drops from TV_LAM to
+# TV_LAM_LOCKDOWN at t = TV_SWITCH (rho, the prior and the graph as the
+# bench's); stacked constant tables (one spec a step) held to the constant
+# tables' sweep on the same sketches
+TV_LAM, TV_LAM_LOCKDOWN, TV_SWITCH = 0.2, 0.05, 8
+TIMED_SWEEPS_TV = {10: 3, 20: 2}
+TOL_TV_STACKED = 1e-6
+# periodic SIS (qr) on random_regular_graph(PERIODIC_N, 3): timed sweeps;
+# one sweep against the same sweep on the host with every SVD through
+# torch.linalg.svd, and against the host's float64 sweep, at
+# PERIODIC_CHECK_N nodes (the host's sweep takes ~15 s there)
+PERIODIC_N, PERIODIC_T, PERIODIC_D = 1024, 10, 8
+PERIODIC_CHECK_N = 256
+TIMED_SWEEPS_PERIODIC = 2
+TOL_PERIODIC_SUMS = 1e-5
+# the modes' accuracy gates: the golden vector (rtol), periodic Glauber on
+# the infinite 3-regular graph against periodic K4 (beliefs and pair
+# beliefs, both iterates converged within INF_K4_MAXITER sweeps), periodic
+# SIS on the observed 3-node path against periodic enumeration (D=16,
+# TruncThresh(1e-12): exact there) and the time-varying tree against
+# enumeration (qr in f64, the sketch in f32)
+TOL_GOLDEN_RTOL = 2e-8
+TOL_INF_K4, INF_K4_MAXITER = 1e-6, 150
+TOL_PERIODIC_EXACT = 1e-10
+TOL_TV_QR, TOL_TV_SKETCH = 1e-9, 1e-3
 # one randomized sweep at the bench shape: 3 merge calls (one bucket, K=3,
 # the direct all-pairs cavity), each with one CholQR per time step 0..T-1
 # and one SVD per step of its truncating sweep; the message and belief
@@ -388,7 +418,8 @@ def per_shape_builds():
     kernels at both conversions of the D=10 and D=20 sketch sweeps, at
     q = 2 and (SIRS) q = 3, and the merge F kernel ``merge_f_geometry``
     picks for each bucket of the Glauber sweep (Y = 3, 5, 9, 10) and for
-    the SIRS merges at D=10."""
+    the SIRS merges at D=10, and the time-varying sweeps' merge F builds
+    (``MF_TV=1``: staged at D=10, cluster at D=20)."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     from matrixproductbp_tpu_torch.ops import kernels
@@ -415,6 +446,10 @@ def per_shape_builds():
         picked = fs.merge_f_geometry(*shape)[0]
         if picked != "base":
             out.append(fs._merge_f_target(picked, shape))
+    for D in (10, 20):
+        shape = (*merge_dims(D).values(), torch.float32, True)
+        out.append(fs._merge_f_target(
+            fs.merge_f_geometry(*shape[:7], None, True)[0], shape))
     return list(dict.fromkeys(out))
 
 
@@ -732,6 +767,7 @@ def reset_counts():
     for w in _wrappers().values():
         w.launches = 0
     fs.merge_fscan.variant_launches.update(staged=0, cluster=0, base=0)
+    fs.merge_fscan.tv_launches.update(staged=0, cluster=0, base=0)
     fs.merge_wscan.variant_launches.update(staged=0, base=0)
     fs.mpem3_wscan.variant_launches.update(staged=0, base=0)
     fs.mpem3_fscan.variant_launches.update(staged=0, base=0)
@@ -2052,6 +2088,381 @@ def glauber_kernel_times(gres, reps=10):
         del out, ref
     return rows
 
+# ---------------------------------------------------------------------------
+# time-varying tables, periodic trains, infinite graphs
+# ---------------------------------------------------------------------------
+
+def tv_lams():
+    """lam of each step t = 0..T: the lockdown lowers it at TV_SWITCH."""
+    return [TV_LAM if t < TV_SWITCH else TV_LAM_LOCKDOWN
+            for t in range(BENCH_T + 1)]
+
+
+def sis_tables_t(g, lams, rho=0.1):
+    """``build_tables_t`` of SIS with one lam a step, every node alike."""
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.models import SISFactorSpec
+    specs = [SISFactorSpec(lam=lam, rho=rho) for lam in lams]
+    return tp.build_tables_t(g, [specs] * g.N)
+
+
+def timed_sweeps(bp1, trunc, sweeps):
+    """(s a sweep, last state) of ``sweeps`` sketch sweeps from ``bp1``."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cur = bp1
+    for _ in range(sweeps):
+        cur = tp.bp_sweep(cur, trunc, method="sketch")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / sweeps, cur
+
+
+def phase_tv_sis_rrg():
+    """Time-varying SIS on the bench graph (N=4096, T=15, f32, sketch): lam
+    0.2 until t=8, then 0.05 (a lockdown); rho 0.1, prior 0.3; tables from
+    ``build_tables_t``.  At D=10 (3 timed sweeps) and D=20 (2), each after
+    a warm-up, with the launch counts set to 0 just before and read just
+    after: every merge F launch a time-varying one (one ``prob_yy`` a step)
+    on the staged (D=10) or cluster (D=20) kernel, every merge W and
+    conversion on its kernel, no plain-scan call.  One sweep against the
+    same sweep on the plain scans (TOL_SWEEP_BELIEFS); tables stacked from
+    one spec a step against the constant tables' sweep (TOL_TV_STACKED);
+    the constant tables' s/sweep, timed right after on the same graph,
+    beside the time-varying one."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.models import SIS, sis_tables
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    g = tp.random_regular_graph(BENCH_N, BENCH_DEG, np.random.default_rng(0))
+    phi = SIS(g, lam=TV_LAM, rho=0.1, T=BENCH_T, gamma=0.3).default_phi()
+    t0 = time.perf_counter()
+    tables = {"tv": sis_tables_t(g, tv_lams()),
+              "stacked": sis_tables_t(g, [TV_LAM] * (BENCH_T + 1)),
+              "const": sis_tables(g, TV_LAM, 0.1)}
+    build_s = time.perf_counter() - t0
+    out = {}
+    for D in (10, 20):
+        torch.cuda.empty_cache()
+        trunc = tp.TruncBond(D)
+        states = {k: tp.mpbp(g, tb, BENCH_T, D, phi=phi,
+                             dtype=torch.float32, device="cuda")
+                  for k, tb in tables.items()}
+        bp0 = states["tv"]
+        bp1 = tp.bp_sweep(bp0, trunc, method="sketch")
+        reset_counts()
+        with count_plain_scans() as plain_calls:
+            dt, cur = timed_sweeps(bp1, trunc, TIMED_SWEEPS_TV[D])
+        counts = read_counts()
+        tv_counts = dict(fs.merge_fscan.tv_launches)
+        n = TIMED_SWEEPS_TV[D]
+        per_sweep = {k: v / n for k, v in counts.items()}
+        f_kernel = "merge_f_staged" if D == 10 else "merge_f_cluster"
+        want = {**merge_w_wants(D), "merge_f": 0, "merge_f_staged": 0,
+                "merge_f_cluster": 0, f_kernel: 3, **MPEM3_WANTS,
+                "cholqr": 0, "cholqr_staged": 0, "jacobi_eigh": 0}
+        b = tp.beliefs(cur)
+        with plain_scans():
+            bp1p = tp.bp_sweep(bp0, trunc, method="sketch")
+        diff_plain = float((tp.beliefs(bp1) - tp.beliefs(bp1p)).abs().max())
+        one = {k: tp.bp_sweep(states[k], trunc, method="sketch")
+               for k in ("stacked", "const")}
+        diff_stacked = float((tp.beliefs(one["stacked"])
+                              - tp.beliefs(one["const"])).abs().max())
+        c1 = tp.bp_sweep(states["const"], trunc, method="sketch")
+        const_dt, _ = timed_sweeps(c1, trunc, n)
+        res = {"D": D, "N": BENCH_N, "E": g.E, "T": BENCH_T,
+               "lams": tv_lams(), "sweeps": n, "s_per_sweep": dt,
+               "const_s_per_sweep": const_dt,
+               "tables_build_s": build_s, "launches": counts,
+               "launches_per_sweep": per_sweep,
+               "merge_f_tv_launches": tv_counts,
+               "plain_scan_calls": dict(plain_calls),
+               "one_sweep_belief_diff_vs_plain": diff_plain,
+               "tol": TOL_SWEEP_BELIEFS,
+               "stacked_vs_constant_belief_diff": diff_stacked,
+               "tol_stacked": TOL_TV_STACKED}
+        emit(f"tv_sis_rrg_d{D}", **res)
+        check(per_sweep == want,
+              f"time-varying D={D}: launches per sweep {per_sweep}, want "
+              f"{want}")
+        check(tv_counts[f_kernel[len("merge_f_"):]] == counts[f_kernel]
+              and sum(tv_counts.values()) == counts[f_kernel],
+              f"time-varying D={D}: merge F launches {counts[f_kernel]}, "
+              f"of them with one Pyy a step {tv_counts}")
+        check(not any(plain_calls.values()),
+              f"time-varying D={D}: plain scans called {plain_calls}")
+        check(bool(torch.isfinite(b).all()),
+              f"time-varying D={D}: beliefs not finite")
+        check(diff_plain <= TOL_SWEEP_BELIEFS,
+              f"time-varying D={D}: kernel sweep vs plain: {diff_plain}")
+        check(diff_stacked <= TOL_TV_STACKED,
+              f"time-varying D={D}: stacked vs constant: {diff_stacked}")
+        out[D] = res
+        del states, bp0, bp1, bp1p, cur, one, c1
+    return out
+
+
+def periodic_state(N, dtype, device):
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.models import SIS, periodic_mpbp_sis
+    g = tp.random_regular_graph(N, BENCH_DEG, np.random.default_rng(0))
+    return periodic_mpbp_sis(SIS(g, lam=0.2, rho=0.1, T=PERIODIC_T,
+                                 gamma=0.3), D=PERIODIC_D, dtype=dtype,
+                             device=device)
+
+
+def svd_routes():
+    """SVD batches by route (the Jacobi kernel's Gram route, or
+    torch.linalg.svd), Jacobi eigen launches and torch.linalg.qr batches
+    of the periodic sweep, so far."""
+    from matrixproductbp_tpu_torch.ops import smallsvd, tensortrain
+    return {**{f"svd_{k}": v for k, v in tensortrain.batched_svd.calls.items()},
+            "jacobi_eigh": smallsvd.eigh_desc.launches,
+            "qr": tensortrain._right_orth.qr_calls}
+
+
+def phase_periodic_sis_rrg():
+    """``periodic_mpbp_sis`` on random_regular_graph(1024, 3), T=10, D=8,
+    f32, ``qr`` (every periodic merge is the Kronecker product compressed
+    by the cut-and-rotate sweep, every conversion the periodic SVD sweep):
+    a warm-up and 2 timed sweeps, their SVD batches by route and their QR
+    batches counted; beliefs finite and summing to 1 (TOL_PERIODIC_SUMS).
+    At PERIODIC_CHECK_N nodes, one sweep on the card against the same
+    sweep on the host in f32, where every SVD is torch.linalg.svd
+    (TOL_SWEEP_BELIEFS), and the distance of the card's f32 sweep from the
+    host's f64 one."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    torch.cuda.empty_cache()
+    trunc = tp.TruncBond(PERIODIC_D)
+    bp0 = periodic_state(PERIODIC_N, torch.float32, "cuda")
+    t0 = time.perf_counter()
+    bp1 = tp.bp_sweep(bp0, trunc, method="qr")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reset_counts()
+    before = svd_routes()
+    t0 = time.perf_counter()
+    cur = bp1
+    for _ in range(TIMED_SWEEPS_PERIODIC):
+        cur = tp.bp_sweep(cur, trunc, method="qr")
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TIMED_SWEEPS_PERIODIC
+    routes = {k: (v - before[k]) / TIMED_SWEEPS_PERIODIC
+              for k, v in svd_routes().items()}
+    counts = read_counts()
+    b = tp.beliefs(cur)
+    sums = float((b.sum(-1) - 1).abs().max())
+    # the check at PERIODIC_CHECK_N: card (f32), host f32 (linalg.svd),
+    # host f64
+    small = {dev_dt: periodic_state(PERIODIC_CHECK_N, dev_dt[1], dev_dt[0])
+             for dev_dt in (("cuda", torch.float32), ("cpu", torch.float32),
+                            ("cpu", torch.float64))}
+    t0 = time.perf_counter()
+    swept = {k: tp.beliefs(tp.bp_sweep(v, trunc, method="qr")).double().cpu()
+             for k, v in small.items()}
+    host_s = time.perf_counter() - t0
+    card = swept[("cuda", torch.float32)]
+    diff_linalg = float((card - swept[("cpu", torch.float32)]).abs().max())
+    diff_f64 = float((card - swept[("cpu", torch.float64)]).abs().max())
+    res = {"N": PERIODIC_N, "T": PERIODIC_T, "D": PERIODIC_D,
+           "E": bp0.graph.E, "method": "qr", "warmup_s": warm_s,
+           "sweeps": TIMED_SWEEPS_PERIODIC, "s_per_sweep": dt,
+           "edge_updates_per_s": bp0.graph.E / dt,
+           "per_sweep": routes, "scan_launches": counts,
+           "belief_sum_err": sums, "tol_sums": TOL_PERIODIC_SUMS,
+           "check_N": PERIODIC_CHECK_N, "check_host_s": host_s,
+           "one_sweep_vs_linalg_svd_host_f32": diff_linalg,
+           "tol": TOL_SWEEP_BELIEFS,
+           "one_sweep_f32_vs_f64_host": diff_f64}
+    emit("periodic_sis_rrg", **res)
+    check(bool(torch.isfinite(b).all()), "periodic: beliefs not finite")
+    check(sums <= TOL_PERIODIC_SUMS, f"periodic: beliefs sum off 1 by {sums}")
+    check(routes["jacobi_eigh"] > 0 and routes["qr"] == 0,
+          f"periodic: SVDs and QRs by route {routes}")
+    check(diff_linalg <= TOL_SWEEP_BELIEFS,
+          f"periodic: card sweep vs linalg.svd sweep: {diff_linalg}")
+    return res
+
+
+def phase_modes_accuracy():
+    """On the card: SIS on the infinite 3-regular graph (T=6, D=10, f64) to
+    the reference's golden vector (``tests/test_sis_infinite_graph.py``,
+    rtol TOL_GOLDEN_RTOL); periodic Glauber on the infinite 3-regular graph
+    against periodic K4 from the same message (T=2, D=10, f64, damping 0.2,
+    ``tests/test_infinite_and_equilibrium.py:99-129``): both iterates
+    converge (tol 1e-12) within INF_K4_MAXITER sweeps and their beliefs and
+    pair beliefs agree to TOL_INF_K4; periodic SIS on the observed 3-node
+    path of ``tests/test_periodic.py`` (T=2, D=16, f64) against periodic
+    enumeration, beliefs and Bethe free energy to TOL_PERIODIC_EXACT, with
+    ``TruncThresh(1e-12)``: with ``TruncThresh(0.0)`` the sweep keeps
+    noise-level singular directions and its fixed point moves with the
+    SVD's rounding (``tools/probe_periodic.py``); the time-varying 4-node
+    tree of ``tests/test_time_varying.py`` against enumeration, ``qr`` in
+    f64 (TOL_TV_QR) and the sketch in f32 (TOL_TV_SKETCH)."""
+    import dataclasses
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch import exact
+    from matrixproductbp_tpu_torch.models import (
+        HomogeneousGlauberFactorSpec, SISFactorSpec, sis_tables)
+    golden = np.array([
+        [0.9000000001671186, 0.0999999998328814],
+        [0.8932690998131098, 0.10673090018689023],
+        [0.8899420329322244, 0.11005796706777556],
+        [0.8884643888492034, 0.11153561115079656],
+        [0.8880305235706524, 0.1119694764293476],
+        [0.8882121515614524, 0.11178784843854758],
+        [0.8887717202217936, 0.1112282797782064]])
+    res = {}
+    t0 = time.perf_counter()
+    gi = tp.infinite_regular_graph(3)
+    phi = np.ones((1, 7, 2))
+    phi[0, 0] = [0.9, 0.1]
+    bp = tp.mpbp_infinite_graph(3, tp.build_tables(
+        gi, [SISFactorSpec(0.1, 0.2)]), 6, D=10, phi=phi, device="cuda")
+    bp, it, _ = tp.iterate(bp, maxiter=200, trunc=tp.TruncBond(10),
+                           tol=1e-14)
+    b = tp.beliefs(bp)[0].cpu().numpy()
+    res["golden"] = {"rel_err": float(np.abs(b / golden - 1).max()),
+                     "iterations": it, "s": time.perf_counter() - t0}
+    # periodic Glauber: the infinite 3-regular graph against K4
+    t0 = time.perf_counter()
+    spec = HomogeneousGlauberFactorSpec(1.0, 0.0, 1.0)
+    phi1 = np.ones((1, 3, 2))
+    phi1[0] = [[0.75, 0.25], [0.4, 0.6], [0.95, 0.05]]
+    bpi = tp.periodic_mpbp_infinite_graph(
+        3, tp.build_tables(tp.infinite_regular_graph(3), [spec]), 2, D=10,
+        phi=phi1, device="cuda")
+    g4 = tp.graph_from_edges(4, [(i, j) for i in range(4) for j in range(i)])
+    bp4 = tp.periodic_mpbp(g4, tp.build_tables(g4, [spec] * 4), 2, D=10,
+                           phi=np.broadcast_to(phi1, (4, 3, 2)).copy(),
+                           device="cuda")
+    bp4 = dataclasses.replace(bp4, msg_cores=bpi.msg_cores.expand(
+        (g4.E,) + bpi.msg_cores.shape[1:]).clone())
+    its = []
+    for st in (bpi, bp4):
+        st, it, _ = tp.iterate(st, maxiter=INF_K4_MAXITER,
+                               trunc=tp.TruncBond(10), tol=1e-12, damp=0.2)
+        its.append((st, it))
+    (bpi, it_i), (bp4, it_4) = its
+    res["periodic_inf_vs_k4"] = {
+        "beliefs": float((tp.beliefs(bpi)[0] - tp.beliefs(bp4)[0])
+                         .abs().max()),
+        "pair_beliefs": float((tp.pair_beliefs(bpi)[0][0]
+                               - tp.pair_beliefs(bp4)[0][0]).abs().max()),
+        "iterations": [it_i, it_4], "s": time.perf_counter() - t0}
+    # periodic SIS on the observed 3-node path against enumeration
+    t0 = time.perf_counter()
+    g3 = tp.graph_from_edges(3, [(0, 1), (1, 2)])
+    phi3 = np.ones((3, 3, 2))
+    phi3[0, 1] = [0.8, 0.2]
+    phi3[2, 0] = [0.3, 0.7]
+    st = tp.periodic_mpbp(g3, sis_tables(g3, 0.35, 0.25), 2, D=16,
+                          phi=phi3, device="cuda")
+    st, it, _ = tp.iterate(st, maxiter=12, trunc=tp.TruncThresh(1e-12),
+                           tol=1e-13)
+    p3, Z3 = exact.exact_prob(st)
+    res["periodic_path_vs_exact"] = {
+        "beliefs": float(np.abs(tp.beliefs(st).cpu().numpy()
+                                - exact.exact_marginals(st, p3)).max()),
+        "free_energy": abs(-float(tp.bethe_free_energy(st)) - np.log(Z3)),
+        "iterations": it, "s": time.perf_counter() - t0}
+    # the time-varying tree against enumeration
+    t0 = time.perf_counter()
+    g = tp.graph_from_edges(4, [(0, 1), (1, 2), (1, 3)])
+    specs = [SISFactorSpec(lam=0.15 + 0.1 * t, rho=0.3 + 0.05 * t)
+             for t in range(4)]
+    tables = tp.build_tables_t(g, [specs] * 4)
+    phi = np.random.default_rng(5).uniform(0.3, 1.0, size=(4, 4, 2))
+    ref = tp.mpbp(g, tables, 3, 12, phi=phi, device="cpu")
+    p, _ = exact.exact_prob(ref)
+    m_ex = exact.exact_marginals(ref, p)
+    tv = {}
+    for method, dtype in (("qr", torch.float64), ("sketch", torch.float32)):
+        st = tp.mpbp(g, tables, 3, 12, phi=phi, dtype=dtype, device="cuda")
+        st, _, _ = tp.iterate(st, maxiter=12, trunc=tp.TruncBond(12),
+                              tol=1e-13, method=method)
+        tv[method] = float(np.abs(tp.beliefs(st).double().cpu().numpy()
+                                  - m_ex).max())
+    res["tv_tree_vs_exact"] = {**tv, "s": time.perf_counter() - t0}
+    emit("modes_accuracy", **res, tol_golden_rtol=TOL_GOLDEN_RTOL,
+         tol_inf_k4=TOL_INF_K4, inf_k4_maxiter=INF_K4_MAXITER,
+         tol_periodic_exact=TOL_PERIODIC_EXACT,
+         tol_tv_qr=TOL_TV_QR, tol_tv_sketch=TOL_TV_SKETCH)
+    check(res["golden"]["rel_err"] <= TOL_GOLDEN_RTOL,
+          f"golden vector off: {res['golden']}")
+    ik = res["periodic_inf_vs_k4"]
+    check(max(ik["iterations"]) < INF_K4_MAXITER
+          and ik["beliefs"] <= TOL_INF_K4
+          and ik["pair_beliefs"] <= TOL_INF_K4,
+          f"periodic infinite graph vs K4: {ik}")
+    pe = res["periodic_path_vs_exact"]
+    check(pe["beliefs"] <= TOL_PERIODIC_EXACT
+          and pe["free_energy"] <= TOL_PERIODIC_EXACT,
+          f"periodic path vs enumeration: {pe}")
+    check(tv["qr"] <= TOL_TV_QR and tv["sketch"] <= TOL_TV_SKETCH,
+          f"time-varying tree vs enumeration: {tv}")
+    return res
+
+
+def tv_kernel_times(tv, reps=10):
+    """The merge F kernels of the time-varying sweeps at their bench shape
+    ([8192, 15], one random ``Pyy`` a step): the staged kernel at D=10 and
+    the cluster kernel at D=20, against the plain scan on the same inputs,
+    CUDA events over ``reps`` launches, beside the bound and the plain
+    scan's time; ``launches`` are the time-varying sweeps'."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    dev = torch.device("cuda")
+    rows = []
+    for D, variant, name in ((10, "staged", "merge_f_staged_tv"),
+                             (20, "cluster", "merge_f_cluster_tv_d20")):
+        md = merge_dims(D)
+        S = BENCH_T
+        L1, B1, Th, _, Phi, S_init = merge_inputs(
+            2 * BENCH_N, S, **md, dtype=torch.float32, device=dev,
+            seed=21 + D)
+        g = torch.Generator(device="cpu").manual_seed(22 + D)
+        Y, q = md["Y"], md["q"]
+        Pyy = torch.rand((S, Y, Y, Y, q), generator=g,
+                         dtype=torch.float64).to(dev, torch.float32)
+        Ws = fs.merge_wscan(L1, B1, Th)
+        check(fs.merge_f_geometry(*md.values(), torch.float32, None,
+                                  True)[0] == variant,
+              f"D={D} time-varying merge F: not the {variant} kernel")
+
+        def kern():
+            return fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S_init)
+
+        def plain():
+            return fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, scale = max_err(out, ref)
+        check(err <= TOL_F32_REL * scale,
+              f"{name} disagrees with its plain version: {err} > "
+              f"{TOL_F32_REL} * {scale}")
+        flops, nbytes = work_merge_f(2 * BENCH_N, S, **md, esize=4)
+        nbytes += 4 * (S - 1) * Y * Y * Y * q      # a Pyy a step
+        bms, by = bound_ms(flops, nbytes)
+        src, line = MERGE_F_ROWS[variant][1:]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "matrixproductbp_tpu_torch/csrc/" + src,
+            "replaces": "matrixproductbp_tpu/ops/fused_stta.py" + line,
+            "launches": tv[D]["merge_f_tv_launches"][variant],
+            "max_abs_err": err, "ms": time_cuda(kern, reps),
+            "plain_ms": time_cuda(plain, 2), "bound_ms": bms,
+            "bound_by": by, "library_ms": None, "flops": flops,
+            "bytes": nbytes, "D": D, "pyy_step": Y * Y * Y * q,
+            "launches_from": f"tv_sis_rrg_d{D}"})
+        emit(f"kernel_time_tv_d{D}", **rows[-1])
+        del out, ref, L1, B1, Th, Phi, S_init, Ws, Pyy
+    return rows
+
 
 def time_cuda(fn, n):
     import torch
@@ -2330,6 +2741,9 @@ def main():
     phase_glauber_seidel()
     phase_sis_er_seidel()
     phase_inference_tree()
+    tv = phase_tv_sis_rrg()
+    phase_periodic_sis_rrg()
+    phase_modes_accuracy()
     scale = phase_scale_er_1e5()
     # the kernels record: every kernel that a main path launches, each at
     # the bench shape of the sweep that launches it (merge_f_kernel, which
@@ -2357,6 +2771,9 @@ def main():
         rows.append({**r, "name": r["name"] + "_q3"})
     # the scale sweep's shapes (T=50, a chunk of its largest bucket)
     rows += scale_kernel_times(scale)
+    # the merge F kernels at the time-varying sweeps' shapes (one Pyy a
+    # step): staged at D=10, cluster at D=20
+    rows += tv_kernel_times(tv)
     emit("done", seconds=time.perf_counter() - t0)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

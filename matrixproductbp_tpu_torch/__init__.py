@@ -16,7 +16,11 @@ Gauss-Seidel, and ``bigsweep`` sweeps large graphs in place with
 marginal-only beliefs.  The observables (two-time, pair and alternate
 marginals, the pair-route free energy, ``logprob``), the enumeration
 oracles (``exact``), the observation builders, the soft-margin sampler
-(``sampling``) and SMC (``smc``) read a state on its device.  The hand-written CUDA kernels (``csrc/*.cu``: the
+(``sampling``) and SMC (``smc``) read a state on its device.  Time-varying
+tables (``build_tables_t``), periodic (trace-closed) states
+(``periodic_mpbp``, ``periodic=True``) and the symmetry-collapsed infinite
+graphs of ``infinite`` run through the same calls.  The hand-written CUDA
+kernels (``csrc/*.cu``: the
 sketch sweep's four time scans, the randomized merge's CholQR, and the
 batched Jacobi eigensolver behind the card's small SVDs) are built with
 ``nvcc`` at first use; on CPU tensors their plain PyTorch versions run
@@ -37,9 +41,10 @@ from .ops.tensortrain import (TensorTrain, flat_tt, rand_tt, evaluate,
                               twovar_marginals, orthogonalize_left,
                               orthogonalize_right, compress, tt_sum, tt_dot,
                               bond_ranks)
-from .ops.mpem import mpem3_to_mpem2, evaluate_mpem3
+from .ops.mpem import (mpem3_to_mpem2, mpem3_to_mpem2_periodic,
+                       evaluate_mpem3, evaluate_mpem3_periodic)
 from .ops.stta import SeededSketches
-from .bp import (MPBP, mpbp, bp_sweep, bp_sweep_chunked, iterate, beliefs,
+from .bp import (MPBP, mpbp, periodic_mpbp, bp_sweep, bp_sweep_chunked, iterate, beliefs,
                  beliefs_tu, pair_beliefs, pair_beliefs_as_tt,
                  pair_beliefs_as_mpem, pair_lognorms, belief_lognorms,
                  bethe_free_energy_pair, bethe_free_energy, means,
@@ -51,6 +56,10 @@ from .bp import (MPBP, mpbp, bp_sweep, bp_sweep_chunked, iterate, beliefs,
 from .observations import (pair_observations_directed,
                            pair_observations_nondirected,
                            pair_obs_undirected_to_directed)
+from .infinite import (infinite_regular_graph, infinite_bipartite_graph,
+                       mpbp_infinite_graph, periodic_mpbp_infinite_graph,
+                       mpbp_infinite_bipartite_graph,
+                       bethe_free_energy_infinite_bipartite)
 from .utils import mean_with_uncertainty
 from . import bigsweep
 from . import exact
@@ -80,7 +89,11 @@ __all__ = [
     "lognorm", "normalization", "normalize", "normalize_eachmatrix",
     "marginals", "twovar_marginals", "orthogonalize_left",
     "orthogonalize_right", "compress", "tt_sum", "tt_dot", "bond_ranks",
-    "mpem3_to_mpem2", "evaluate_mpem3", "SeededSketches", "MPBP", "mpbp",
+    "mpem3_to_mpem2", "mpem3_to_mpem2_periodic", "evaluate_mpem3",
+    "evaluate_mpem3_periodic", "SeededSketches", "MPBP", "mpbp",
+    "periodic_mpbp", "infinite_regular_graph", "infinite_bipartite_graph",
+    "mpbp_infinite_graph", "periodic_mpbp_infinite_graph",
+    "mpbp_infinite_bipartite_graph", "bethe_free_energy_infinite_bipartite",
     "bp_sweep", "bp_sweep_chunked", "iterate", "beliefs", "beliefs_tu",
     "pair_beliefs", "pair_beliefs_as_tt", "pair_beliefs_as_mpem",
     "pair_lognorms", "belief_lognorms", "bethe_free_energy_pair",

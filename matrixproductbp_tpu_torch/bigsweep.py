@@ -90,8 +90,11 @@ def bp_sweep_flat(graph: Graph, tables: RecursiveFactorTables,
     dtype are copied there on every call, and per-node tables then
     regroup their nodes by ``prob_yy`` on every call: convert them once
     (``tables.to(device=..., dtype=...)``), as :func:`iterate_flat`
-    does."""
-    _check_sweep_options(method, damp, tables)
+    does.  Time-varying tables raise, as in the JAX package
+    (``bigsweep.py:265``)."""
+    _check_sweep_options(method, damp)
+    if tables.time_varying:
+        raise NotImplementedError("bp_sweep_flat: time-varying tables")
     dev, dtype = fs.msg_cores.device, fs.msg_cores.dtype
     q, T1 = tables.q, T + 1
     tb = tables.to(device=dev, dtype=dtype)

@@ -34,9 +34,19 @@ of ``build_tables``) run each degree bucket as groups of nodes whose cropped
 table.  ``bp_sweep_chunked`` bounds the temporaries by updating each bucket
 in chunks of nodes, read from the pre-sweep messages (Jacobi) or from those
 earlier chunks wrote (Gauss-Seidel), optionally in a shuffled order; the
-in-place sweep of ``bigsweep.py`` runs on the same chunks.  The port covers
-open trains with time-constant tables; options not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+in-place sweep of ``bigsweep.py`` runs on the same chunks.
+
+Time-varying tables (``factors.build_tables_t``) run through the same
+batched steps with a time axis on every table: the lift, the embeds, each
+merge's ``prob_yy`` (the sketch merge hands the merge F kernels one table a
+step) and the contractions with ``prob_y`` and ``prob_y_partial``.
+Periodic (trace-closed) trains, ``periodic=True``, take on every method the
+Kronecker merge and the periodic SVD conversion, each compressed by the
+cut-and-rotate sweep (``ops/tensortrain.py``), as the JAX package's
+periodic sweep does; their observables close every environment with a
+trace.  Symmetry-collapsed infinite graphs (``infinite.py``) alias one
+stored edge to several slots; the sweep keeps the last slot's message,
+which is the one the JAX package's scatter keeps.
 """
 from __future__ import annotations
 
@@ -50,15 +60,17 @@ from torch.utils.weak import WeakIdKeyDictionary
 from .factors import RecursiveFactorTables
 from .graph import Graph
 from .ops import fused_stta
-from .ops.mpem import mpem3_lognorm, mpem3_to_mpem2
+from .ops.mpem import (mpem3_lognorm, mpem3_to_mpem2,
+                       mpem3_to_mpem2_periodic)
 from .ops.randomized import merge_rounded
 from .ops.sumy import y_expand
 from .ops.tensortrain import (TensorTrain, _fit_axis, _safe_scale, compress,
-                              flat_tt, marginals, normalize,
+                              flat_tt, lognorm, marginals, normalize,
                               normalize_eachmatrix, tt_sum, twovar_marginals)
 from .ops.truncation import SVDTrunc, TruncThresh, default_truncator
 
-__all__ = ["GraphArrays", "MPBP", "mpbp", "bp_sweep", "bp_sweep_chunked",
+__all__ = ["GraphArrays", "MPBP", "mpbp", "periodic_mpbp", "bp_sweep",
+           "bp_sweep_chunked",
            "iterate", "beliefs", "beliefs_tu", "pair_beliefs",
            "pair_beliefs_as_tt", "pair_beliefs_as_mpem", "pair_lognorms",
            "belief_lognorms", "bethe_free_energy_pair", "bethe_free_energy",
@@ -143,11 +155,12 @@ def _not_ported(what: str, item: int):
 def mpbp(graph: Graph, tables: RecursiveFactorTables, T: int, D: int,
          phi=None, psi=None, dtype=torch.float64, periodic: bool = False,
          qs=None, device=None) -> MPBP:
-    """Flat-initialised state on ``device`` (default: the CUDA card)."""
-    if periodic:
-        raise _not_ported("periodic=True", 6)
-    if tables.time_varying:
-        raise _not_ported("time-varying tables", 6)
+    """Flat-initialised state on ``device`` (default: the CUDA card);
+    ``periodic`` makes every train trace-closed.  Time-varying tables need
+    T + 1 steps."""
+    if tables.time_varying and tables.Py.shape[1] != T + 1:
+        raise ValueError(f"time-varying tables have {tables.Py.shape[1]} "
+                         f"steps, T + 1 = {T + 1}")
     dev = resolve_device(device)
     N, E, q = graph.N, graph.E, tables.q
     T1 = T + 1
@@ -171,7 +184,7 @@ def mpbp(graph: Graph, tables: RecursiveFactorTables, T: int, D: int,
         tables.to(device=dev, dtype=dtype), phi.to(dev), psi.to(dev),
         _flat_cores(E, T1, D, (q, q), dtype, dev), zeros(E),
         _flat_cores(N, T1, D, (q,), dtype, dev), zeros(N),
-        zeros(N), graph_arrays(graph, dev), graph, False, qs)
+        zeros(N), graph_arrays(graph, dev), graph, periodic, qs)
 
 
 def _flat_cores(n: int, T1: int, D: int, phys, dtype, device):
@@ -188,14 +201,17 @@ def _flat_cores(n: int, T1: int, D: int, phys, dtype, device):
 # ---------------------------------------------------------------------------
 
 def _merge(Lc, Llz, Rc, Rlz, pyy, trunc: SVDTrunc, Dout: int, Y: int, q: int,
-           method: str = "qr", sketches=None, yy_off: int | None = None):
+           method: str = "qr", sketches=None, yy_off: int | None = None,
+           periodic: bool = False):
     """op for the SVD methods, batched (``bp.py:178-211``): Hadamard on x_i,
     ``prob_yy`` contraction on y (the band where ``yy_off`` is set; ``pyy``
-    is then not read), Kronecker on bonds, then truncate.
+    is then not read), Kronecker on bonds, then truncate (periodic trains
+    always so, by the cut-and-rotate sweep).
 
-    Lc [B, T1, DL, DL, Y*q], Rc [B, T1, DR, DR, Y*q], pyy [Y, Y, Y, q] shared
-    -> (cores [B, T1, Dout, Dout, Y*q], logz [B])."""
-    if method == "randomized":
+    Lc [B, T1, DL, DL, Y*q], Rc [B, T1, DR, DR, Y*q], pyy [T1, Y, Y, Y, q]
+    (one a step; a stride-0 view for constant tables) -> (cores [B, T1,
+    Dout, Dout, Y*q], logz [B])."""
+    if method == "randomized" and not periodic:
         return merge_rounded(Lc, Llz, Rc, Rlz, pyy, trunc, Dout, Y, q,
                              sketches, yy_off=yy_off)
     Bn, T1, DL = Lc.shape[:3]
@@ -206,10 +222,10 @@ def _merge(Lc, Llz, Rc, Rlz, pyy, trunc: SVDTrunc, Dout: int, Y: int, q: int,
         # tmp[z, t, m, n, y, b, x] = L[z, t, m, n, y + off - b, x]
         tmp = y_expand(L, yy_off, axis=4, mode="diff")
     else:
-        tmp = torch.einsum("yabx,ztmnax->ztmnybx", pyy, L)
+        tmp = torch.einsum("tyabx,ztmnax->ztmnybx", pyy, L)
     M = torch.einsum("ztmnybx,ztuvbx->ztmunvyx", tmp, R)
     tt = TensorTrain(M.reshape(Bn, T1, DL * DR, DL * DR, Y * q), Llz + Rlz,
-                     (Y, q))
+                     (Y, q), periodic)
     tt = normalize_eachmatrix(compress(tt, trunc, Dout=Dout))
     return tt.cores, tt.logz
 
@@ -219,7 +235,7 @@ class _Lifted(NamedTuple):
     B: torch.Tensor          # [Nb, K, T1, Dm, Dm, Y*q]; padded slots = ident
     Blz: torch.Tensor        # [Nb, K]
     ident: torch.Tensor      # [Nb, T1, Dm, Dm, Y*q], the prob_y0 one-hot
-    pyy_at: object           # d1 -> prob_yy [Y, Y, Y, q]
+    pyy_at: object           # d1 -> prob_yy [T1, Y, Y, Y, q]
     embed_first: object      # op(init, B): a y-relabelling
     embed_second: object     # op(B, init)
     pad_dc: object           # embed a Dm-bond train into capacity Dc
@@ -229,40 +245,41 @@ def _lift(msgs_in_c, msgs_in_lz, psi_out, mask, Pxy_b, Py0_b, pyy_b,
           Dc: int, yy_off: int | None = None) -> _Lifted:
     """Lift a bucket's incoming messages to y-space
     (``recursive_bp_factor.jl:108-115``); padded slots become the identity
-    element of op.  ``Pxy_b``, ``Py0_b`` carry a node axis of Nb (expanded
-    by :func:`_expand`); ``pyy_b[0]`` is shared across nodes, and where
-    ``yy_off`` is set it is a placeholder: the embeds relabel along the band
-    (``bp.py:533-548``)."""
+    element of op.  ``Pxy_b [Nb, K, T1, Y, q, q]``, ``Py0_b [Nb, T1, Y, q]``
+    carry a node axis of Nb (expanded by :func:`_expand`) and the T1 axis
+    of :func:`_group_inputs` (the embeds are per step, ``bp.py:214-251``);
+    ``pyy_b[0]`` is shared across nodes, and where ``yy_off`` is set it is
+    a placeholder: the embeds relabel along the band (``bp.py:533-548``)."""
     Nb, K, T1, Dm = msgs_in_c.shape[:4]
     q = psi_out.shape[-1]
     Y = Py0_b.shape[-2]
     A = msgs_in_c.reshape(Nb, K, T1, Dm, Dm, q, q)
-    B = torch.einsum("zkyci,zktic,zktmnci->zktmnyi", Pxy_b, psi_out, A)
+    B = torch.einsum("zktyci,zktic,zktmnci->zktmnyi", Pxy_b, psi_out, A)
     ident = B.new_zeros((Nb, T1, Dm, Dm, Y, q))
-    ident[:, :, 0, 0] = Py0_b[:, None]
+    ident[:, :, 0, 0] = Py0_b
     B = torch.where(mask[:, :, None, None, None, None, None], B,
                     ident[:, None])
     Blz = torch.where(mask, msgs_in_lz, torch.zeros_like(msgs_in_lz))
-    pyy0 = pyy_b[0]                          # [K', Y, Y, Y, q] shared
+    pyy0 = pyy_b[0]                          # [K', T1, Y, Y, Y, q] shared
 
     def pyy_at(d1):
         return pyy0[min(d1, pyy0.shape[0] - 1)]
 
     def band():
-        # W[z, y, b, x] = Py0[z, y + off - b, x]
-        return y_expand(Py0_b, yy_off, axis=1, mode="diff")
+        # W[z, t, y, b, x] = Py0[z, t, y + off - b, x]
+        return y_expand(Py0_b, yy_off, axis=2, mode="diff")
 
     def embed_first(Bc, Blz_):
         W = band() if yy_off is not None else torch.einsum(
-            "yabx,zax->zybx", pyy_at(0), Py0_b)
-        out = torch.einsum("zybx,ztmnbx->ztmnyx", W,
+            "tyabx,ztax->ztybx", pyy_at(0), Py0_b)
+        out = torch.einsum("ztybx,ztmnbx->ztmnyx", W,
                            Bc.reshape(Nb, T1, Dm, Dm, Y, q))
         return out.reshape(Nb, T1, Dm, Dm, Y * q), Blz_
 
     def embed_second(Bc, Blz_):
         W = band() if yy_off is not None else torch.einsum(
-            "yabx,zbx->zyax", pyy_at(1), Py0_b)
-        out = torch.einsum("zyax,ztmnax->ztmnyx", W,
+            "tyabx,ztbx->ztyax", pyy_at(1), Py0_b)
+        out = torch.einsum("ztyax,ztmnax->ztmnyx", W,
                            Bc.reshape(Nb, T1, Dm, Dm, Y, q))
         return out.reshape(Nb, T1, Dm, Dm, Y * q), Blz_
 
@@ -350,7 +367,7 @@ def _finish_messages(mu: TensorTrain, logz_ks, old_c, old_lz, mask,
     out_cores, out_lz = mu.cores, mu.logz
     if damp > 0.0:
         old = TensorTrain(old_c.reshape((Nb * K,) + old_c.shape[2:]),
-                          old_lz.reshape(Nb * K), mu.phys)
+                          old_lz.reshape(Nb * K), mu.phys, mu.periodic)
         mixed = tt_sum(mu, old, damp / (1.0 - damp))
         mixed, _ = normalize(compress(mixed, trunc, Dout=mu.cores.shape[-3]))
         out_cores, out_lz = mixed.cores, mixed.logz
@@ -364,12 +381,16 @@ def _bucket_update_batched(msgs_in_c, msgs_in_lz, msgs_out_old_c,
                            msgs_out_old_lz, psi_out, mask, Py_b, Pyp_b,
                            Pxy_b, Py0_b, phi_b, deg_b, pyy_b, trunc: SVDTrunc,
                            Dm: int, Dc: int, damp: float, sketches=None,
-                           yy_off: int | None = None):
+                           yy_off: int | None = None, pad_k3: bool = False):
     """Whole-bucket sketch update (``bp.py:469-696``).
 
     msgs_in_c: [Nb, K, T1, Dm, Dm, q*q]; tables bucket-cropped with node
-    axis 1 (broadcast) or Nb; ``pyy_b[0]`` is shared across nodes.  Returns
-    (out_cores [Nb, K, ...], out_logz [Nb, K], bel_cores, bel_logz, f)."""
+    axis 1 (broadcast) or Nb and the T1 axis of :func:`_group_inputs` (each
+    merge hands the merge F kernels one ``prob_yy`` a step, a stride-0 one
+    for constant tables); ``pyy_b[0]`` is shared across nodes.  ``pad_k3``
+    pads the direct K = 3 cavity's bare slots, as the JAX package's vmapped
+    node update (which runs time-varying sweeps) does.  Returns (out_cores
+    [Nb, K, ...], out_logz [Nb, K], bel_cores, bel_logz, f)."""
     Nb, K, T1 = msgs_in_c.shape[:3]
     q = phi_b.shape[-1]
     Y = Py0_b.shape[-2]
@@ -381,7 +402,7 @@ def _bucket_update_batched(msgs_in_c, msgs_in_lz, msgs_out_old_c,
         return fused_stta.merge_stta_fused(lc, llz, rc, rlz, lf.pyy_at(d1),
                                            Dc, Y, q, sketches, yy_off=yy_off)
 
-    Cs_c, Cs_lz, full_c, full_lz = _cavity_folds(lf, mrg, True, False)
+    Cs_c, Cs_lz, full_c, full_lz = _cavity_folds(lf, mrg, True, pad_k3)
 
     # ---- outgoing messages: f_bp_partial -> MPEM3 sketch -> normalize ------
     # B3_tm[t, (z,k), (i,j,p,m,n)] = sum_y Pyp[z,k,p,i,j,y] C[z,k,t,m,n,y,i]
@@ -389,8 +410,8 @@ def _bucket_update_batched(msgs_in_c, msgs_in_lz, msgs_out_old_c,
     Dcc = Cs_c.shape[-3]
     T = T1 - 1
     C = Cs_c.reshape(Nb, K, T1, Dcc, Dcc, Y, q)
-    main = torch.einsum("zkpijy,zktmnyi,zti->tzkijpmn", Pyp_b, C[:, :, :-1],
-                        phi_b[:, :-1])
+    main = torch.einsum("zktpijy,zktmnyi,zti->tzkijpmn", Pyp_b[:, :, :-1],
+                        C[:, :, :-1], phi_b[:, :-1])
     main = main.reshape(T, Nb * K, q * q * q * Dcc * Dcc)
     lastC = torch.einsum("zkmnyi,zi->zkimn", C[:, :, -1], phi_b[:, -1])
     last = lastC[:, :, :, None, None].expand(Nb, K, q, q, q, Dcc, Dcc)
@@ -408,8 +429,8 @@ def _bucket_update_batched(msgs_in_c, msgs_in_lz, msgs_out_old_c,
     # ---- belief from the full fold ------------------------------------------
     Dcf = full_c.shape[-3]
     Cf = full_c.reshape(Nb, T1, Dcf, Dcf, Y, q)
-    mainb = torch.einsum("zpiy,ztmnyi,zti->ztmnip", Py_b, Cf[:, :-1],
-                         phi_b[:, :-1])
+    mainb = torch.einsum("ztpiy,ztmnyi,zti->ztmnip", Py_b[:, :-1],
+                         Cf[:, :-1], phi_b[:, :-1])
     lastb = torch.einsum("zmnyi,zi->zmni", Cf[:, -1], phi_b[:, -1])
     lastb = lastb[..., None].expand(Nb, Dcf, Dcf, q, q)
     B3b = torch.cat([mainb, lastb[:, None]], dim=1)[:, :, :, :, :, None, :]
@@ -422,14 +443,17 @@ def _bucket_update_batched(msgs_in_c, msgs_in_lz, msgs_out_old_c,
     return out_cores, out_lz, bel1.cores, bel1.logz, f_i
 
 
-def _f_bp_partial(C, phi_b, W):
-    """MPEM3 stacks of a batch of cavity trains (``bp.py:253-283``, open
-    trains): C [Z, T1, Dc, Dc, Y, q], phi_b [Z, T1, q], W [Z, q(p), q(i), qj,
-    Y] -> B3 [Z, T1, Dc, Dc, q, qj, q(p)].  The last step has no transition
-    factor (uniform in xj and p)."""
+def _f_bp_partial(C, phi_b, W, periodic: bool = False):
+    """MPEM3 stacks of a batch of cavity trains (``bp.py:253-283``):
+    C [Z, T1, Dc, Dc, Y, q], phi_b [Z, T1, q], W [Z, T1, q(p), q(i), qj, Y]
+    -> B3 [Z, T1, Dc, Dc, q, qj, q(p)].  An open
+    train's last step has no transition factor (uniform in xj and p); a
+    periodic one applies it at every step (the wrap)."""
     Z, T1, Dc = C.shape[:3]
     q, qj = W.shape[-3], W.shape[-2]
-    main = torch.einsum("zpijy,ztmnyi,zti->ztmnijp", W, C[:, :-1],
+    if periodic:
+        return torch.einsum("ztpijy,ztmnyi,zti->ztmnijp", W, C, phi_b)
+    main = torch.einsum("ztpijy,ztmnyi,zti->ztmnijp", W[:, :-1], C[:, :-1],
                         phi_b[:, :-1])
     lastC = torch.einsum("zmnyi,zi->zmni", C[:, -1], phi_b[:, -1])
     last = lastC[..., None, None].expand(Z, Dc, Dc, q, qj, q)
@@ -440,11 +464,13 @@ def _node_update(msgs_in_c, msgs_in_lz, msgs_out_old_c, msgs_out_old_lz,
                  psi_out, mask, Py_b, Pyp_b, Pxy_b, Py0_b, phi_b, deg_b,
                  pyy_b, trunc: SVDTrunc, trunc_cav: SVDTrunc, Dm: int, Dc: int,
                  damp: float, method: str, sketches=None,
-                 direct_k3: bool = True, yy_off: int | None = None):
+                 direct_k3: bool = True, yy_off: int | None = None,
+                 periodic: bool = False):
     """Whole-bucket update for the SVD methods, ``method="qr"`` or
-    ``"randomized"`` (the JAX package's vmapped ``_node_update``,
-    ``bp.py:286-466``, with the node axis threaded through every step).
-    Arguments and results as :func:`_bucket_update_batched`."""
+    ``"randomized"``, and for periodic trains on every method (the JAX
+    package's vmapped ``_node_update``, ``bp.py:286-466``, with the node
+    axis threaded through every step).  Arguments and results as
+    :func:`_bucket_update_batched`."""
     Nb, K, T1 = msgs_in_c.shape[:3]
     q = phi_b.shape[-1]
     Y = Py0_b.shape[-2]
@@ -454,9 +480,10 @@ def _node_update(msgs_in_c, msgs_in_lz, msgs_out_old_c, msgs_out_old_lz,
 
     def mrg(lc, llz, rc, rlz, d1):
         return _merge(lc, llz, rc, rlz, lf.pyy_at(d1), trunc_cav, Dc, Y, q,
-                      method, sketches, yy_off)
+                      method, sketches, yy_off, periodic)
 
     Cs_c, Cs_lz, full_c, full_lz = _cavity_folds(lf, mrg, direct_k3, True)
+    to_mpem2 = mpem3_to_mpem2_periodic if periodic else mpem3_to_mpem2
 
     # ---- outgoing messages: f_bp_partial -> mpem2 -> compress -> normalize
     #      -> damping (recursive_bp_factor.jl:154-158, 168-179) -------------
@@ -465,7 +492,7 @@ def _node_update(msgs_in_c, msgs_in_lz, msgs_out_old_c, msgs_out_old_lz,
     W = Pyp_b.reshape((Nb * K,) + Pyp_b.shape[2:])
     phi_k = phi_b[:, None].expand((Nb, K) + phi_b.shape[1:]) \
         .reshape((Nb * K,) + phi_b.shape[1:])
-    mu = mpem3_to_mpem2(_f_bp_partial(C, phi_k, W), Cs_lz.reshape(Nb * K))
+    mu = to_mpem2(_f_bp_partial(C, phi_k, W, periodic), Cs_lz.reshape(Nb * K))
     mu = normalize_eachmatrix(compress(mu, trunc, Dout=Dm, assume="left"))
     mu, logz_ks = normalize(mu)
     out_cores, out_lz, sum_logz = _finish_messages(
@@ -474,11 +501,11 @@ def _node_update(msgs_in_c, msgs_in_lz, msgs_out_old_c, msgs_out_old_lz,
     # ---- belief: f_bp_partial on the full fold, then sum the dummy leg ----
     Dcf = full_c.shape[-3]
     B3b = _f_bp_partial(full_c.reshape(Nb, T1, Dcf, Dcf, Y, q), phi_b,
-                        Py_b[..., None, :])
-    bel2 = compress(mpem3_to_mpem2(B3b, full_lz), trunc, Dout=Dm,
-                    assume="left")
+                        Py_b[..., None, :], periodic)
+    bel2 = compress(to_mpem2(B3b, full_lz), trunc, Dout=Dm, assume="left")
     bel1, logz_i = normalize(TensorTrain(
-        bel2.cores.reshape(Nb, T1, Dm, Dm, q, 1).sum(-1), bel2.logz, (q,)))
+        bel2.cores.reshape(Nb, T1, Dm, Dm, q, 1).sum(-1), bel2.logz, (q,),
+        periodic))
 
     d_i = deg_b.to(logz_i.dtype)
     f_i = (d_i / 2.0 - 1.0) * logz_i - 0.5 * sum_logz
@@ -508,17 +535,11 @@ def _degree_buckets(graph: Graph):
     return buckets
 
 
-def _check_sweep_options(method: str, damp: float,
-                         tables: RecursiveFactorTables,
-                         periodic: bool = False):
+def _check_sweep_options(method: str, damp: float):
     if method not in ("sketch", "qr", "randomized"):
         raise ValueError(f"unknown method {method!r}")
     if not 0.0 <= damp < 1.0:
         raise ValueError(f"damp must lie in [0, 1): {damp}")
-    if periodic:
-        raise _not_ported("periodic trains", 6)
-    if tables.time_varying:
-        raise _not_ported("time-varying tables", 6)
 
 
 #: per-node ``prob_yy`` tensor -> {(Kb, Yb, node bytes): its groups}
@@ -565,6 +586,8 @@ class _Sweep(NamedTuple):
     E: int
     phi: torch.Tensor            # [N, T1, q]
     psi: torch.Tensor | None     # [E, T1, q, q]; None: all ones
+    periodic: bool = False       # trace-closed trains
+    infinite: bool = False       # edges aliased to several slots
 
 
 class _Update(NamedTuple):
@@ -578,12 +601,24 @@ class _Update(NamedTuple):
     f: torch.Tensor              # [Nb]
 
 
-def _group_inputs(sw: _Sweep, idx, Kb: int, Yb: int, src):
+def _per_step(t: torch.Tensor, axis: int, T1: int, varying: bool):
+    """A table with its T1 axis at ``axis``: time-varying tables have it,
+    a constant one gets a stride-0 view of T1 steps."""
+    if varying:
+        return t
+    t = t.unsqueeze(axis)
+    return t.expand(t.shape[:axis] + (T1,) + t.shape[axis + 1:])
+
+
+def _group_inputs(sw: _Sweep, idx, Kb: int, Yb: int, src, Pyy_b):
     """What a node update reads for the nodes ``idx`` of a degree bucket
-    (slots Kb, y-axis cropped to Yb) from the messages ``src = (cores,
-    logz)``: (node ids, out-edge ids (E on padded slots), their clamped
-    indices, (in-messages, their logz, psi on the out-edges, slot mask,
-    Py, Pyp, Pxy, Py0 cropped to the bucket, phi, degrees))."""
+    (slots Kb, y-axis cropped to Yb, shared ``prob_yy`` ``Pyy_b``) from the
+    messages ``src = (cores, logz)``: (node ids, out-edge ids (E on padded
+    slots), their clamped indices, (in-messages, their logz, psi on the
+    out-edges, slot mask, Py, Pyp, Pxy, Py0 cropped to the bucket, phi,
+    degrees, Pyy_b)).  Every table comes with a T1 axis after its slot axes,
+    a stride-0 one where the tables are constant: the one place that tells
+    the two apart."""
     ga, tb, E = sw.garrays, sw.tables, sw.E
     msg_c, msg_lz = src
     nb = torch.as_tensor(idx, dtype=torch.int64, device=msg_c.device)
@@ -601,11 +636,14 @@ def _group_inputs(sw: _Sweep, idx, Kb: int, Yb: int, src):
                msg_c.new_ones((Nb, Kb, T1, q, q)))
     phi_b = (sw.phi[nb] if sw.phi.shape[0] > 1 else
              sw.phi.expand(Nb, -1, -1).contiguous())
+    tv = tb.time_varying
     return nb, out_e, out_idx, (
         msg_c[in_idx], msg_lz[in_idx], psi_out, in_m,
-        nsel(tb.Py)[..., :Yb], nsel(tb.Pyp)[:, :Kb][..., :Yb],
-        nsel(tb.Pxy)[:, :Kb][..., :Yb, :, :], nsel(tb.Py0)[..., :Yb, :],
-        phi_b, ga.degree[nb])
+        _per_step(nsel(tb.Py)[..., :Yb], 1, T1, tv),
+        _per_step(nsel(tb.Pyp)[:, :Kb][..., :Yb], 2, T1, tv),
+        _per_step(nsel(tb.Pxy)[:, :Kb][..., :Yb, :, :], 2, T1, tv),
+        _per_step(nsel(tb.Py0)[..., :Yb, :], 1, T1, tv),
+        phi_b, ga.degree[nb], _per_step(Pyy_b.contiguous(), 2, T1, tv))
 
 
 def _update_nodes(sw: _Sweep, idx, Kb: int, Yb: int, Pyy_b, src,
@@ -617,23 +655,33 @@ def _update_nodes(sw: _Sweep, idx, Kb: int, Yb: int, Pyy_b, src,
     tb, E = sw.tables, sw.E
     msg_c, msg_lz = src
     nb, out_e, out_idx, (in_c, in_lz, *rest) = _group_inputs(
-        sw, idx, Kb, Yb, src)
+        sw, idx, Kb, Yb, src, Pyy_b)
     Nb = len(idx)
     old = ((msg_c[out_idx], msg_lz[out_idx]) if damp > 0.0 else (None, None))
-    args = (in_c, in_lz, *old, *rest, Pyy_b)
-    if method == "sketch":
+    args = (in_c, in_lz, *old, *rest)
+    if method == "sketch" and not sw.periodic:
         out_c, out_lz, bel_c, bel_lz, f = _bucket_update_batched(
-            *args, trunc, Dm, Dcav, damp, sketches, tb.yy_off)
+            *args, trunc, Dm, Dcav, damp, sketches, tb.yy_off,
+            tb.time_varying)
     else:
+        # periodic trains take the Kronecker merge and the SVD conversion
+        # on every method (bp.py:189-193, 428-431)
         out_c, out_lz, bel_c, bel_lz, f = _node_update(
-            *args, trunc, trunc_cav, Dm, Dcav, damp, method, sketches,
-            direct_k3=direct_k3, yy_off=tb.yy_off)
+            *args, trunc, trunc_cav, Dm, Dcav, damp,
+            "qr" if sw.periodic else method, sketches,
+            direct_k3=direct_k3, yy_off=tb.yy_off, periodic=sw.periodic)
     # padded slots carry out-edge id E and are dropped
     flat = out_e.reshape(-1)
-    valid = flat < E
-    return _Update(flat[valid],
-                   out_c.reshape((Nb * Kb,) + out_c.shape[2:])[valid],
-                   out_lz.reshape(-1)[valid], nb, bel_c, bel_lz, f)
+    keep = flat < E
+    if sw.infinite:
+        # an aliased edge is written by each of its slots: keep the last
+        # one (what the JAX package's scatter keeps), so that no two rows
+        # of the store name one edge
+        later = flat[None, :] == flat[:, None]
+        keep &= ~torch.triu(later, diagonal=1).any(dim=1)
+    return _Update(flat[keep],
+                   out_c.reshape((Nb * Kb,) + out_c.shape[2:])[keep],
+                   out_lz.reshape(-1)[keep], nb, bel_c, bel_lz, f)
 
 
 def _sweep(sw: _Sweep, graph: Graph, src, store, nodes_per_chunk, rng,
@@ -675,7 +723,7 @@ def _sweep_state(bp: MPBP, nodes_per_chunk, rng, seidel: bool,
                  sketches) -> MPBP:
     """A sweep of ``bp`` into fresh copies of its state (the caller's stays
     intact), read from the copies themselves when ``seidel``."""
-    _check_sweep_options(method, damp, bp.tables, bp.periodic)
+    _check_sweep_options(method, damp)
     trunc_cav = trunc if trunc_cav is None else trunc_cav
     Dm = bp.D
     Dcav = Dm if Dcav is None else Dcav
@@ -689,7 +737,8 @@ def _sweep_state(bp: MPBP, nodes_per_chunk, rng, seidel: bool,
         bel_lz.index_copy_(0, u.nodes, u.bel_lz)
         f.index_copy_(0, u.nodes, u.f)
 
-    sw = _Sweep(bp.garrays, bp.tables, bp.graph.E, bp.phi, bp.psi)
+    sw = _Sweep(bp.garrays, bp.tables, bp.graph.E, bp.phi, bp.psi,
+                bp.periodic, bp.graph.infinite)
     src = (new_c, new_lz) if seidel else (bp.msg_cores, bp.msg_logz)
     _sweep(sw, bp.graph, src, store, nodes_per_chunk, rng, direct_k3_max,
            trunc, trunc_cav, Dm, Dcav, damp, method, sketches)
@@ -766,7 +815,7 @@ def iterate(bp: MPBP, maxiter: int = 5, trunc: SVDTrunc | None = None,
     trunc = default_truncator() if trunc is None else trunc
     if schedule not in ("jacobi", "seidel"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    _check_sweep_options(method, damp, bp.tables, bp.periodic)
+    _check_sweep_options(method, damp)
     if (polish > 0 and bp.device.type == "cuda"
             and torch.backends.cuda.matmul.allow_tf32):
         raise RuntimeError("polish sweeps need full float32 matmuls: set "
@@ -805,7 +854,8 @@ def iterate(bp: MPBP, maxiter: int = 5, trunc: SVDTrunc | None = None,
 
 def beliefs(bp: MPBP) -> torch.Tensor:
     """Single-site time marginals [N, T1, q] (reference ``beliefs``)."""
-    return marginals(TensorTrain(bp.bel_cores, bp.bel_logz, (bp.q,)))
+    return marginals(TensorTrain(bp.bel_cores, bp.bel_logz, (bp.q,),
+                                 bp.periodic))
 
 
 def _values(bp: MPBP, values) -> torch.Tensor:
@@ -832,8 +882,8 @@ def bethe_free_energy(bp: MPBP) -> torch.Tensor:
 def beliefs_tu(bp: MPBP, maxdist: int | None = None) -> torch.Tensor:
     """Two-time marginals [N, T1, T1, q, q], entries t < u <= t + maxdist
     (reference ``beliefs_tu``)."""
-    return twovar_marginals(TensorTrain(bp.bel_cores, bp.bel_logz, (bp.q,)),
-                            maxdist)
+    return twovar_marginals(TensorTrain(bp.bel_cores, bp.bel_logz, (bp.q,),
+                                        bp.periodic), maxdist)
 
 
 def autocorrelations(bp: MPBP, values=None, maxdist: int | None = None
@@ -872,10 +922,10 @@ def _pair_factors(bp: MPBP, t: int):
 
 
 def _rescale(env: torch.Tensor):
-    """Environments [E, D, D] scaled to max-abs 1, and the logs of the
+    """Environments [E, ...] scaled to max-abs 1 each, and the logs of the
     scales."""
-    m = _safe_scale(env.abs().amax(dim=(-2, -1)))
-    return env / m[:, None, None], torch.log(m)
+    m = _safe_scale(env.reshape(env.shape[0], -1).abs().amax(dim=1))
+    return env / m.reshape((-1,) + (1,) * (env.ndim - 1)), torch.log(m)
 
 
 def _pair_left(bp: MPBP, keep: bool = True):
@@ -920,16 +970,44 @@ def _normalized(p: torch.Tensor) -> torch.Tensor:
     return p / p.sum(dim=(-2, -1), keepdim=True)
 
 
-def _open_only(bp: MPBP, what: str):
-    if bp.periodic:
-        raise _not_ported(f"{what} of periodic trains", 6)
+def _ring_env(bp: MPBP, start: int, n: int):
+    """The pair factors ``start, start+1, ..., start+n-1`` (mod T1) of a
+    periodic state multiplied into a matrix environment ``env[e, b0, d0, a,
+    c]`` (from the left bond (b0, d0) of factor ``start`` to the right bond
+    (a, c) of the last), rescaled to max-abs 1 each step, and the log of
+    the scales [E].  One ``[D^2, D^2]`` matrix an edge, grown factor by
+    factor (O(D^5 q^2) a step), never a pair core."""
+    E, D, T1 = bp.graph.E, bp.D, bp.T + 1
+    env = torch.eye(D * D, dtype=bp.msg_cores.dtype, device=bp.device) \
+        .reshape(1, D * D, D, D).expand(E, -1, -1, -1)
+    lg = bp.msg_cores.new_zeros((E,))
+    for k in range(n):
+        A, Bp = _pair_factors(bp, (start + k) % T1)
+        X = torch.einsum("eBac,eabij->eBcbij", env, A)
+        env, lm = _rescale(torch.einsum("eBcbij,ecdij->eBbd", X, Bp))
+        lg = lg + lm
+    return env.reshape(E, D, D, D, D), lg
+
+
+def _rev_index(bp: MPBP) -> torch.Tensor:
+    return torch.as_tensor(bp.graph.rev_edge, dtype=torch.int64,
+                           device=bp.device)
+
+
+def _pair_lognorms_periodic(bp: MPBP) -> torch.Tensor:
+    """log z_ij of periodic states: the trace of the whole ring."""
+    env, lg = _ring_env(bp, 0, bp.T + 1)
+    z = torch.einsum("eacac->e", env)
+    return (torch.log(z.abs()) + lg - bp.msg_logz
+            - bp.msg_logz[_rev_index(bp)])
 
 
 def pair_lognorms(bp: MPBP) -> torch.Tensor:
     """log normalization of every directed-edge pair belief,
     log z_ij = log sum_{x_i, x_j} mu_ij mu_ji psi_ij, [E]
-    (``bp.py:1293-1312``)."""
-    _open_only(bp, "pair_lognorms")
+    (``bp.py:1293-1312``; periodic: the trace of the ring)."""
+    if bp.periodic:
+        return _pair_lognorms_periodic(bp)
     return _pair_left(bp, keep=False)[1]
 
 
@@ -949,16 +1027,26 @@ def pair_beliefs(bp: MPBP):
     """Per-directed-edge pair marginals [E, T1, q, q] (legs x_i, x_j) and
     per-node logz contributions [N] (reference ``pair_beliefs``,
     ``mpbp.jl:200-235``).  One left and one right environment sweep,
-    O(D^3 q^2) an edge and step."""
-    _open_only(bp, "pair_beliefs")
-    Ls, lz = _pair_left(bp)
-    Rs = _pair_right(bp)
-    marg = []
-    for t in range(bp.T + 1):
-        A, Bp = _pair_factors(bp, t)
-        X = torch.einsum("eac,eabij->ecbij", Ls[t], A)
-        Z = torch.einsum("ecdij,ebd->ecbij", Bp, Rs[t + 1])
-        marg.append(_normalized((X * Z).sum(dim=(1, 2))))
+    O(D^3 q^2) an edge and step.  Periodic states close each time's
+    factor with the ring of the others (:func:`_ring_env`, built anew for
+    each t: O(T1^2 D^5 q^2) an edge)."""
+    if bp.periodic:
+        lz = _pair_lognorms_periodic(bp)
+        marg = []
+        for t in range(bp.T + 1):
+            A, Bp = _pair_factors(bp, t)
+            R, _ = _ring_env(bp, t + 1, bp.T)
+            marg.append(_normalized(torch.einsum(
+                "eabij,ecdij,ebdac->eij", A, Bp, R)))
+    else:
+        Ls, lz = _pair_left(bp)
+        Rs = _pair_right(bp)
+        marg = []
+        for t in range(bp.T + 1):
+            A, Bp = _pair_factors(bp, t)
+            X = torch.einsum("eac,eabij->ecbij", Ls[t], A)
+            Z = torch.einsum("ecdij,ebd->ecbij", Bp, Rs[t + 1])
+            marg.append(_normalized((X * Z).sum(dim=(1, 2))))
     dst = torch.as_tensor(bp.graph.edge_dst, dtype=torch.int64,
                           device=bp.device)
     logz_nodes = lz.new_zeros((bp.N,)).index_add_(
@@ -969,8 +1057,20 @@ def pair_beliefs(bp: MPBP):
 def alternate_marginals(bp: MPBP) -> torch.Tensor:
     """p(x_i^t, x_j^{t+1}) per directed edge, [E, T, q, q] (reference
     ``alternate_marginals``, ``mpbp.jl:270-280``): the (t, t+1) block of
-    the pair belief from the same environments as :func:`pair_beliefs`."""
-    _open_only(bp, "alternate_marginals")
+    the pair belief from the same environments as :func:`pair_beliefs`
+    (periodic: closed by the ring of the other factors)."""
+    if bp.periodic:
+        out = []
+        for t in range(bp.T):
+            A, Bp = _pair_factors(bp, t)
+            A1, Bp1 = _pair_factors(bp, t + 1)
+            R, _ = _ring_env(bp, t + 2, bp.T - 1)    # [e, b', d', a, c]
+            X = torch.einsum("eBDac,eabij->eBDcbij", R, A)
+            X = torch.einsum("eBDcbij,ecdij->eBDbdi", X, Bp)
+            X = torch.einsum("eBDbdi,ebBkl->eDdikl", X, A1)
+            out.append(_normalized(torch.einsum("eDdikl,edDkl->eil", X,
+                                                Bp1)))
+        return torch.stack(out, dim=1)
     Ls, _ = _pair_left(bp)
     Rs = _pair_right(bp)
     out = []
@@ -992,8 +1092,8 @@ def pair_beliefs_as_tt(bp: MPBP):
     (reference ``pair_beliefs_as_mpem``, ``mpbp.jl:208-216``).  The cores
     are the output, so this builds them: E * T1 * D^4 * q^2 entries (21 GB
     in f32 at E=8,190, T1=16, D=10, q=2).  The other pair observables
-    contract the same factors without them."""
-    _open_only(bp, "pair_beliefs_as_tt")
+    contract the same factors without them.  The trains are periodic where
+    the state is."""
     E, T1, D, q = bp.graph.E, bp.T + 1, bp.D, bp.q
     rev = torch.as_tensor(bp.graph.rev_edge, dtype=torch.int64,
                           device=bp.device)
@@ -1029,10 +1129,12 @@ def _belief_lognorm_nodes(sw: _Sweep, idx, Kb: int, Yb: int, Pyy_b, src,
     """log z_i of the nodes ``idx`` of a bucket (Kb slots, y cropped to Yb,
     shared ``prob_yy`` ``Pyy_b``): lift the in-messages as the sweep does,
     fold all of them (op(init, B_0), then one merge a slot), contract the
-    fold with ``prob_y`` into the belief's MPEM3 and take its total sum."""
+    fold with ``prob_y`` into the belief's MPEM3 and take its total sum
+    (periodic: the Kronecker merges, and the lognorm of the periodic MPEM2,
+    as the JAX package computes it)."""
     tb = sw.tables
     _, _, _, (in_c, in_lz, psi_out, in_m, Py_b, _, Pxy_b, Py0_b, phi_b,
-              _) = _group_inputs(sw, idx, Kb, Yb, src)
+              _, Pyy_b) = _group_inputs(sw, idx, Kb, Yb, src, Pyy_b)
     Nb, T1, q = len(idx), in_c.shape[2], tb.q
     Py_b, Pxy_b, Py0_b = _expand(Nb, Py_b, Pxy_b, Py0_b)
     lf = _lift(in_c, in_lz, psi_out, in_m, Pxy_b, Py0_b, Pyy_b, Dc,
@@ -1040,15 +1142,19 @@ def _belief_lognorm_nodes(sw: _Sweep, idx, Kb: int, Yb: int, Pyy_b, src,
     Lc, Llz = lf.embed_first(lf.B[:, 0], lf.Blz[:, 0])
     Lc = lf.pad_dc(Lc)
     for k in range(1, Kb):
-        if method == "sketch":
+        if method == "sketch" and not sw.periodic:
             Lc, Llz = fused_stta.merge_stta_fused(
                 Lc, Llz, lf.B[:, k], lf.Blz[:, k], lf.pyy_at(k), Dc, Yb, q,
                 sketches, yy_off=tb.yy_off)
         else:
             Lc, Llz = _merge(Lc, Llz, lf.B[:, k], lf.Blz[:, k], lf.pyy_at(k),
-                             trunc, Dc, Yb, q, method, sketches, tb.yy_off)
+                             trunc, Dc, Yb, q,
+                             "qr" if sw.periodic else method, sketches,
+                             tb.yy_off, sw.periodic)
     B3 = _f_bp_partial(Lc.reshape(Nb, T1, Dc, Dc, Yb, q), phi_b,
-                       Py_b[..., None, :])
+                       Py_b[..., None, :], sw.periodic)
+    if sw.periodic:
+        return lognorm(mpem3_to_mpem2_periodic(B3, Llz))[0]
     return mpem3_lognorm(B3, Llz)[0]
 
 
@@ -1065,10 +1171,10 @@ def belief_lognorms(bp: MPBP, trunc: SVDTrunc | None = None,
     the contraction with ``prob_y`` and the MPEM3's total sum, which the
     MPEM2 conversion leaves unchanged.  ``sketches`` as :func:`bp_sweep`."""
     trunc = TruncThresh(0.0) if trunc is None else trunc
-    _check_sweep_options(method, 0.0, bp.tables, bp.periodic)
+    _check_sweep_options(method, 0.0)
     Dc = bp.D if Dcav is None else Dcav
     tb = bp.tables
-    sw = _Sweep(bp.garrays, tb, bp.graph.E, bp.phi, bp.psi)
+    sw = _Sweep(bp.garrays, tb, bp.graph.E, bp.phi, bp.psi, bp.periodic)
     out = bp.bel_logz.new_zeros((bp.N,))
     for bidx, Kb in _degree_buckets(bp.graph):
         Yb = _bucket_y(tb, Kb)
@@ -1107,9 +1213,10 @@ def bethe_free_energy_pair(bp: MPBP, trunc: SVDTrunc | None = None,
 def logprob(bp: MPBP, x) -> float:
     """Log posterior weight of a trajectory x[N, T1] (reference
     ``logprob``, ``mpbp.jl:301-324``; unnormalized: the observations enter
-    as weights), on the state's device and accumulated in float64."""
+    as weights), on the state's device and accumulated in float64.  Step t
+    reads the tables of step t; a periodic state adds the wrap x^T -> x^0
+    with the last step's (``exact.jl:24-26``)."""
     from .factors import transition_probs
-    _open_only(bp, "logprob")
     g, dev = bp.graph, bp.device
     x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                         device=dev).long()
@@ -1121,16 +1228,25 @@ def logprob(bp: MPBP, x) -> float:
     phi = bp.phi.double()
     tt = torch.arange(T1, device=dev)
     lp = torch.log(phi[ar[:, None], tt[None, :], x]).sum()
-    for t in range(T1 - 1):
-        p = transition_probs(tables, bp.garrays.in_mask, x[:, t][nbr],
-                             x[:, t])
-        lp = lp + torch.log(p[ar, x[:, t + 1]]).sum()
+    for t in range(T1 if bp.periodic else T1 - 1):
+        p = transition_probs(tables.at_time(t), bp.garrays.in_mask,
+                             x[:, t][nbr], x[:, t])
+        lp = lp + torch.log(p[ar, x[:, (t + 1) % T1]]).sum()
     src = torch.as_tensor(g.edge_src, dtype=torch.int64, device=dev)
     dst = torch.as_tensor(g.edge_dst, dtype=torch.int64, device=dev)
     ae = torch.arange(g.E, device=dev)
     lp = lp + 0.5 * torch.log(bp.psi.double()[
         ae[:, None], tt[None, :], x[src], x[dst]]).sum()
     return float(lp)
+
+
+def periodic_mpbp(graph: Graph, tables: RecursiveFactorTables, T: int,
+                  D: int, phi=None, psi=None, dtype=torch.float64,
+                  device=None) -> MPBP:
+    """Trace-closed (periodic-in-time) state (reference ``periodic_mpbp``,
+    ``mpbp.jl:399-409``)."""
+    return mpbp(graph, tables, T, D, phi=phi, psi=psi, dtype=dtype,
+                periodic=True, device=device)
 
 
 def reset_messages(bp: MPBP) -> MPBP:

@@ -66,9 +66,6 @@ def from_numpy_state(arrays: dict, meta: dict | None = None,
     if meta.get("format_version") != _FORMAT_VERSION:
         raise ValueError(
             f"unsupported state format {meta.get('format_version')}")
-    if meta.get("periodic"):
-        raise NotImplementedError("periodic trains are not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
     dev = resolve_device(device)
     graph = Graph(meta["graph.N"], meta["graph.E"], meta["graph.dmax"],
                   *(np.asarray(arrays["graph." + n]) for n in _GRAPH_LEAVES),
@@ -81,4 +78,4 @@ def from_numpy_state(arrays: dict, meta: dict | None = None,
     state = {n: torch.as_tensor(np.asarray(arrays["state." + n]), device=dev)
              for n in _STATE_LEAVES}
     return MPBP(tables=tables, garrays=graph_arrays(graph, dev), graph=graph,
-                periodic=False, **state)
+                periodic=bool(meta.get("periodic", False)), **state)

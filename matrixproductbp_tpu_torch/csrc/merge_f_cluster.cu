@@ -56,10 +56,11 @@
 // a step ahead (W_t / W_{t+1} in two rotating buffers, each block holding
 // the whole W; L_t, B_t, Phi_t double-buffered).
 //
-// Built once per shape.  The sizes, the element type and the blocks an SM
-// should hold are macros (MF_T, MF_DL, MF_DB, MF_Y, MF_Q, MF_SR, MF_SL,
-// MF_MINB) from fused_stta.py::merge_f_cluster_macros, which ops/build.py
-// passes to nvcc at the shape's first use.
+// Built once per shape.  The sizes, the element type, the blocks an SM
+// should hold and, for time-varying tables, MF_TV=1 are macros (MF_T,
+// MF_DL, MF_DB, MF_Y, MF_Q, MF_SR, MF_SL, MF_MINB[, MF_TV]) from
+// fused_stta.py::merge_f_cluster_macros, which ops/build.py passes to nvcc
+// at the shape's first use.
 //
 // Shared memory per block (elements of T; fused_stta.py::_smem_merge_f_cluster
 // computes the same sum): 2*nWp + 2*nLp + 2*nBq (W_t and W_{t+1}; L_t and B_t
@@ -68,7 +69,9 @@
 // of one x, R1 = DB*Y|1; Xs, 20 words for each of the S2T tiles of S2,
 // reuses it) + Y*E0*DL*DB (t2 of one x, both y) + DB^2*Y*Y*q (Bp, all
 // pairs) + 2*sl^2*Y*q (Phi_t for two steps) + Y^3*q (Pyy) + E0*sr (M)
-// + E0*Y*q*sr (N).  D=20, f32, sl=24, E0=12: 16000 + 3200 + 3200 + 4812
+// + E0*Y*q*sr (N) [+ Y^3*q, the odd steps' Pyy where the tables vary:
+// a build with MF_TV=1 stages step t's table, pyy_step apart, with Phi_t,
+// as merge_f_staged.cu does].  D=20, f32, sl=24, E0=12: 16000 + 3200 + 3200 + 4812
 // + 9840 + 9600 + 3200 + 4608 + 16 + 240 + 960 = 55676 floats = 217.5 KiB,
 // one block an SM.
 // Shared layouts: W [2][nWp], L [2][nLp], B [2][nBq] (16-byte aligned);
@@ -85,11 +88,15 @@
     !defined(MF_Q) || !defined(MF_SR) || !defined(MF_SL) || !defined(MF_MINB)
 #error "merge_f_cluster.cu is built per shape: define MF_T, MF_DL, MF_DB, MF_Y, MF_Q, MF_SR, MF_SL and MF_MINB"
 #endif
+#ifndef MF_TV
+#define MF_TV 0                        // one shared Pyy
+#endif
 
 namespace cg = cooperative_groups;
 
 typedef MF_T T;
 constexpr int NT = 480;                // threads a block (15 warps)
+constexpr bool TV = MF_TV;             // a Pyy a step
 constexpr int NWARP = NT / 32;
 constexpr int DL = MF_DL, DB = MF_DB, Y = MF_Y, q = MF_Q, sr = MF_SR,
               sl = MF_SL;
@@ -154,7 +161,8 @@ __device__ __forceinline__ void s2_partial(T (&acc)[S2R][2][10],
 __global__ void __launch_bounds__(NT, MF_MINB)
 merge_f_cluster_kernel(const T* __restrict__ L, Str6 sL,
                        const T* __restrict__ Bm, Str6 sB,
-                       const T* __restrict__ Pyy, const T* __restrict__ Phi,
+                       const T* __restrict__ Pyy, i64 pyy_step,
+                       const T* __restrict__ Phi,
                        const T* __restrict__ Ws, const T* __restrict__ Sinit,
                        T* __restrict__ Ns, T* __restrict__ Ms, int S) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -182,6 +190,7 @@ merge_f_cluster_kernel(const T* __restrict__ L, Str6 sL,
   T* Ps = Fs + 2 * nF;
   T* Mo = Ps + nP;
   T* No = Mo + E0 * sr;
+  T* Ps1 = No + E0 * P * sr;       // the odd steps' Pyy (TV)
   T* Xs = t1;                      // S2 partials for the peer's rows f
   cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank(), peer = rank ^ 1;
@@ -202,9 +211,15 @@ merge_f_cluster_kernel(const T* __restrict__ L, Str6 sL,
   const Gemm gn = {el, sr, DLB, Y, 1,   DLB, 1, T2Y, 0,
                    sr, 1, 0, 0,   P * sr, 1, q * sr, 0};
   // issue the copies of step t's L_t, B_t and Phi_t (transposed to
-  // Fs[x][y][e][f]) into buffer t & 1
+  // Fs[x][y][e][f]), and of its Pyy where the tables vary, into buffer t & 1
   auto stage_step = [&](int t) {
     const int buf = t & 1;
+    if (TV) {
+      const T* py = Pyy + t * pyy_step;
+      T* pd = buf ? Ps1 : Ps;
+      for (int i = tid; i < nP; i += NT)
+        __pipeline_memcpy_async(pd + i, py + i, sizeof(T));
+    }
     async_stage4(Ls + buf * nLp, L + z * sL.s[0] + t * sL.s[1], sL.s, DL, DL,
                  Y, q);
     async_stage4(Bs + buf * nBq, Bm + z * sB.s[0] + t * sB.s[1], sB.s, DB,
@@ -222,7 +237,8 @@ merge_f_cluster_kernel(const T* __restrict__ L, Str6 sL,
   async_copy(Wb, Ws + z * S * (i64)nW, nW);                   // W_1
   stage_step(0);
   __pipeline_commit();
-  for (int i = tid; i < nP; i += NT) Ps[i] = Pyy[i];
+  if (!TV)
+    for (int i = tid; i < nP; i += NT) Ps[i] = Pyy[i];
   for (int i = tid; i < el * sE; i += NT) {                   // pads stay 0
     const int e = i / sE, c = i - e * sE;
     Sb[i] = c < DLB ? Sinit[z * nS + (e0 + e) * DLB + c] : T(0);
@@ -235,6 +251,7 @@ merge_f_cluster_kernel(const T* __restrict__ L, Str6 sL,
     const T* Lc = Ls + (s & 1) * nLp;
     const T* Bc = Bs + (s & 1) * nBq;
     const T* Fc = Fs + (s & 1) * nF;
+    const T* Pc = (TV && (s & 1)) ? Ps1 : Ps;
     if (!last) async_copy(Wt1, Ws + (row + 1) * nW, nW);       // W_{t+1}
     __pipeline_commit();
     if (!last) stage_step(s + 1);
@@ -252,7 +269,7 @@ merge_f_cluster_kernel(const T* __restrict__ L, Str6 sL,
       const int x = r / Y;
       T acc = T(0);
       for (int v = 0; v < Y; ++v)
-        acc += Ps[((y * Y + uu) * Y + v) * q + x] *
+        acc += Pc[((y * Y + uu) * Y + v) * q + x] *
                Bc[((m * DB + j) * Y + v) * q + x];
       Bp[i] = acc;
     }
@@ -418,16 +435,18 @@ extern "C" int merge_f_cluster_occupancy(long long smem) {
 
 // The launcher: a grid of 2 x Bn blocks in clusters of two.  Returns
 // cudaGetLastError() (or the error of the set-up calls) as an int, and
-// cudaErrorInvalidValue for a shape other than the one this library was
-// built for.
+// cudaErrorInvalidValue for a shape (or a pyy_step, 0 or not) other than
+// the one this library was built for.
 extern "C" int merge_f_cluster(const void* L, const i64* sL, const void* B,
                                const i64* sB, const void* Pyy,
-                               const void* Phi, const void* Ws,
+                               long long pyy_step, const void* Phi,
+                               const void* Ws,
                                const void* Sinit, void* Ns, void* Ms, int Bn,
                                int S, int DL_, int DB_, int Y_, int q_,
                                int sr_, int sl_, long long smem,
                                void* stream) {
-  if (DL_ != DL || DB_ != DB || Y_ != Y || q_ != q || sr_ != sr || sl_ != sl)
+  if (DL_ != DL || DB_ != DB || Y_ != Y || q_ != q || sr_ != sr ||
+      sl_ != sl || (pyy_step != 0) != TV)
     return (int)cudaErrorInvalidValue;
   Str6 a, b;
   for (int i = 0; i < 6; ++i) { a.s[i] = sL[i]; b.s[i] = sB[i]; }
@@ -440,8 +459,8 @@ extern "C" int merge_f_cluster(const void* L, const i64* sL, const void* B,
       cluster_config(2 * Bn, smem, (cudaStream_t)stream, &attr);
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, merge_f_cluster_kernel, (const T*)L, a, (const T*)B, b,
-      (const T*)Pyy, (const T*)Phi, (const T*)Ws, (const T*)Sinit, (T*)Ns,
-      (T*)Ms, S);
+      (const T*)Pyy, (i64)pyy_step, (const T*)Phi, (const T*)Ws,
+      (const T*)Sinit, (T*)Ns, (T*)Ms, S);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

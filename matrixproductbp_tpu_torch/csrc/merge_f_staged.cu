@@ -12,12 +12,13 @@
 // sketch merge up to D=15, measured faster than merge_f_kernel at each D
 // from 4 to 15 (PERF.md).
 //
-// Built once per shape.  The sizes, the element type and the blocks an SM
-// should hold are macros (MF_T, MF_DL, MF_DB, MF_Y, MF_Q, MF_SR, MF_SL,
-// MF_MINB), which ops/build.py passes to nvcc at the shape's first use and
-// caches the library by; with every size a constant, the products' task
-// decodes, strides and K loops fold into the code (with run-time sizes they
-// cost about as much as the products themselves; PERF.md).  MF_MINB is the
+// Built once per shape.  The sizes, the element type, the blocks an SM
+// should hold and, for time-varying tables, MF_TV=1 are macros (MF_T,
+// MF_DL, MF_DB, MF_Y, MF_Q, MF_SR, MF_SL, MF_MINB[, MF_TV]), which
+// ops/build.py passes to nvcc at the shape's first use and caches the
+// library by; with every size a constant, the products' task decodes,
+// strides and K loops fold into the code (with run-time sizes they cost
+// about as much as the products themselves; PERF.md).  MF_MINB is the
 // number of blocks whose shared memory fits on one SM (at most 3): the
 // register budget __launch_bounds__ gives ptxas.
 //
@@ -43,14 +44,21 @@
 // are padded to odd strides, against bank conflicts.  M and N are written to
 // shared memory and stored to Ms and Ns coalesced.
 //
+// Time-varying tables (MF_TV=1; a Pyy a step, pyy_step apart): step t's
+// table is staged with Phi_t, by cp.async a step ahead, into the buffer of
+// step t's parity: the shared table's buffer for even t, a second one after
+// M for odd t.  A build for one shared table (MF_TV undefined, pyy_step =
+// 0) loads it once; the time-varying code compiles out, and its macros are
+// those of the build before time-varying tables.
+//
 // Shared memory per block (elements of T; fused_stta.py::_smem_merge_f_staged
 // computes the same sum): 2*nWp + 2*nLp + 2*nBq (W_t and W_{t+1}; L_t and B_t
 // for two steps; DL*DB*sr, DL^2*Y*q and DB^2*Y*q, each rounded up to 16
 // bytes) + sl*sE (S, S2 over it; sE = DL*DB|1) + max(sl*DL*R1, sl*Y*q*sr)
 // (t1 for both x, R1 = DB*Y*q|1; N reuses it) + sl*DL*DB*Y*q (t2, all pairs)
 // + DB^2*Y*Y*q (Bp, all pairs) + 2*sl^2*Y*q (Phi_t for two steps) + Y^3*q
-// + sl*sr (M).  D=10, f32, sl=14: 18878 floats = 73.7 KiB, 3 blocks an SM;
-// D=15, sl=19: 211.3 KiB, one.
+// + sl*sr (M) [+ Y^3*q, the odd steps' Pyy].  D=10, f32, sl=14: 18878
+// floats = 73.7 KiB, 3 blocks an SM; D=15, sl=19: 211.3 KiB, one.
 // Shared layouts: W [2][nWp], L [2][nLp], B [2][nBq] (16-byte aligned);
 // S [e][k][m] (row stride sE); t1 [e][n][m][u][x] (row (e,n) stride R1);
 // t2 [y][x][e][n][j]; Bp [x][y][m][u][j]; Fs [2][y][x][e][f]; Mo [e][a];
@@ -62,14 +70,19 @@
     !defined(MF_Q) || !defined(MF_SR) || !defined(MF_SL) || !defined(MF_MINB)
 #error "merge_f_staged.cu is built per shape: define MF_T, MF_DL, MF_DB, MF_Y, MF_Q, MF_SR, MF_SL and MF_MINB"
 #endif
+#ifndef MF_TV
+#define MF_TV 0                        // one shared Pyy
+#endif
 
 typedef MF_T T;
 constexpr int NT = 256;                // threads a block
+constexpr bool TV = MF_TV;             // a Pyy a step
 
 __global__ void __launch_bounds__(NT, MF_MINB)
 merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
                       const T* __restrict__ Bm, Str6 sB,
-                      const T* __restrict__ Pyy, const T* __restrict__ Phi,
+                      const T* __restrict__ Pyy, i64 pyy_step,
+                      const T* __restrict__ Phi,
                       const T* __restrict__ Ws, const T* __restrict__ Sinit,
                       T* __restrict__ Ns, T* __restrict__ Ms, int S) {
   constexpr int NWARP = NT / 32;
@@ -97,6 +110,7 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
   T* Fs = Bp + nBp * P;
   T* Ps = Fs + 2 * nF;
   T* Mo = Ps + nP;
+  T* Ps1 = Mo + nM;                // the odd steps' Pyy (TV)
   T* No = t1;                      // t1 is dead once t2 is formed
   const i64 z = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -112,9 +126,15 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
   const Gemm gs = {sl, DLB, P * sl, 1, 1,   1, sl, 0, 0,
                    DLB, 1, 0, 0,   sE, 1, 0, 0};
   // issue the copies of step t's L_t, B_t and Phi_t (transposed to
-  // Fs[(y,x)][e][f]) into buffer t & 1
+  // Fs[(y,x)][e][f]), and of its Pyy where the tables vary, into buffer t & 1
   auto stage_step = [&](int t) {
     const int buf = t & 1;
+    if (TV) {
+      const T* py = Pyy + t * pyy_step;
+      T* pd = buf ? Ps1 : Ps;
+      for (int i = tid; i < nP; i += NT)
+        __pipeline_memcpy_async(pd + i, py + i, sizeof(T));
+    }
     async_stage4(Ls + buf * nLp, L + z * sL.s[0] + t * sL.s[1], sL.s, DL, DL,
                  Y, q);
     async_stage4(Bs + buf * nBq, Bm + z * sB.s[0] + t * sB.s[1], sB.s, DB,
@@ -130,7 +150,8 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
   async_copy(Wb, Ws + z * S * (i64)nW, nW);                   // W_1
   stage_step(0);
   __pipeline_commit();
-  for (int i = tid; i < nP; i += NT) Ps[i] = Pyy[i];
+  if (!TV)
+    for (int i = tid; i < nP; i += NT) Ps[i] = Pyy[i];
   for (int i = tid; i < nSp; i += NT) {                        // pads stay 0
     const int e = i / sE, c = i - e * sE;
     Sb[i] = c < DLB ? Sinit[z * nS + e * DLB + c] : T(0);
@@ -143,6 +164,7 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
     const T* Lc = Ls + (s & 1) * nLp;
     const T* Bc = Bs + (s & 1) * nBq;
     const T* Fc = Fs + (s & 1) * nF;
+    const T* Pc = (TV && (s & 1)) ? Ps1 : Ps;
     if (!last) async_copy(Wt1, Ws + (row + 1) * nW, nW);       // W_{t+1}
     __pipeline_commit();
     if (!last) stage_step(s + 1);
@@ -160,7 +182,7 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
       const int x = r / Y;
       T acc = T(0);
       for (int v = 0; v < Y; ++v)
-        acc += Ps[((y * Y + uu) * Y + v) * q + x] *
+        acc += Pc[((y * Y + uu) * Y + v) * q + x] *
                Bc[((m * DB + j) * Y + v) * q + x];
       Bp[i] = acc;
     }
@@ -206,15 +228,17 @@ merge_f_staged_kernel(const T* __restrict__ L, Str6 sL,
 
 // The launcher: returns cudaGetLastError() (or the error of the
 // shared-memory attribute call) as an int, and cudaErrorInvalidValue for a
-// shape other than the one this library was built for.
+// shape (or a pyy_step, 0 or not) other than the one this library was built
+// for.
 extern "C" int merge_f_staged(const void* L, const i64* sL, const void* B,
-                              const i64* sB, const void* Pyy, const void* Phi,
+                              const i64* sB, const void* Pyy,
+                              long long pyy_step, const void* Phi,
                               const void* Ws, const void* Sinit, void* Ns,
                               void* Ms, int Bn, int S, int DL, int DB, int Y,
                               int q, int sr, int sl, long long smem,
                               void* stream) {
   if (DL != MF_DL || DB != MF_DB || Y != MF_Y || q != MF_Q || sr != MF_SR ||
-      sl != MF_SL)
+      sl != MF_SL || (pyy_step != 0) != TV)
     return (int)cudaErrorInvalidValue;
   Str6 a, b;
   for (int i = 0; i < 6; ++i) { a.s[i] = sL[i]; b.s[i] = sB[i]; }
@@ -223,7 +247,7 @@ extern "C" int merge_f_staged(const void* L, const i64* sL, const void* B,
   if (e) return e;
   if (threads != NT) return (int)cudaErrorInvalidConfiguration;
   merge_f_staged_kernel<<<Bn, NT, (size_t)smem, (cudaStream_t)stream>>>(
-      (const T*)L, a, (const T*)B, b, (const T*)Pyy, (const T*)Phi,
-      (const T*)Ws, (const T*)Sinit, (T*)Ns, (T*)Ms, S);
+      (const T*)L, a, (const T*)B, b, (const T*)Pyy, (i64)pyy_step,
+      (const T*)Phi, (const T*)Ws, (const T*)Sinit, (T*)Ns, (T*)Ms, S);
   return (int)cudaGetLastError();
 }

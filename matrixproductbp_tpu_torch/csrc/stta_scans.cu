@@ -299,11 +299,14 @@ __global__ void merge_w_kernel(const T* __restrict__ L, Str6 sL,
 //   t2[e,n,j]  = sum_{m,u} t1[e,n,m,u] Bp[m,u,j]
 //   N[e,y,x,b] = sum_{n,j} t2[e,n,j] W_{t+1}[n,j,b]          (one-hot at s=S-1)
 //   S2[f,n,j] += sum_e Phi_t[e,f,y,x] t2[e,n,j];   S <- S2 / scale
+// Pyy is step s's table at Pyy + s * pyy_step (pyy_step = Y^3*q for
+// time-varying tables, copied in with the step's other inputs; 0 for one
+// shared table, copied in once).
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void merge_f_kernel(const T* __restrict__ L, Str6 sL,
                                const T* __restrict__ Bm, Str6 sB,
-                               const T* __restrict__ Pyy,
+                               const T* __restrict__ Pyy, i64 pyy_step,
                                const T* __restrict__ Phi,
                                const T* __restrict__ Ws,
                                const T* __restrict__ Sinit,
@@ -354,6 +357,8 @@ __global__ void merge_f_kernel(const T* __restrict__ L, Str6 sL,
   copy_block(Ps, Pyy, nP);
   copy_block(Sc, Sinit + z * (i64)nS, nS);
   for (int s = 0; s < S; ++s) {
+    // every reader of the last step's Ps has passed its final barrier
+    if (pyy_step && s) copy_block(Ps, Pyy + s * pyy_step, nP);
     stage4(Ls, L + z * sL.s[0] + s * sL.s[1], sL.s, DL, DL, Y, q);
     stage4(Bs, Bm + z * sB.s[0] + s * sB.s[1], sB.s, DB, DB, Y, q);
     copy_block(Fs, Phi + (i64)s * nF, nF);
@@ -573,7 +578,8 @@ static int merge_w_launch(const void* L, const i64* sL, const void* B,
 
 template <typename T>
 static int merge_f_launch(const void* L, const i64* sL, const void* B,
-                          const i64* sB, const void* Pyy, const void* Phi,
+                          const i64* sB, const void* Pyy, i64 pyy_step,
+                          const void* Phi,
                           const void* Ws, const void* Sinit, void* Ns,
                           void* Ms, int Bn, int S, int DL, int DB, int Y,
                           int q, int sr, int sl, int threads, size_t smem,
@@ -583,8 +589,9 @@ static int merge_f_launch(const void* L, const i64* sL, const void* B,
   int e = prepare(merge_f_kernel<T>, smem, &threads);
   if (e) return e;
   merge_f_kernel<T><<<Bn, threads, smem, st>>>(
-      (const T*)L, a, (const T*)B, b, (const T*)Pyy, (const T*)Phi,
-      (const T*)Ws, (const T*)Sinit, (T*)Ns, (T*)Ms, S, DL, DB, Y, q, sr, sl);
+      (const T*)L, a, (const T*)B, b, (const T*)Pyy, pyy_step,
+      (const T*)Phi, (const T*)Ws, (const T*)Sinit, (T*)Ns, (T*)Ms, S, DL,
+      DB, Y, q, sr, sl);
   return (int)cudaGetLastError();
 }
 
@@ -629,16 +636,19 @@ int stta_merge_w(int dtype, const void* L, const i64* sL, const void* B,
 }
 
 int stta_merge_f(int dtype, const void* L, const i64* sL, const void* B,
-                 const i64* sB, const void* Pyy, const void* Phi,
+                 const i64* sB, const void* Pyy, long long pyy_step,
+                 const void* Phi,
                  const void* Ws, const void* Sinit, void* Ns, void* Ms,
                  int Bn, int S, int DL, int DB, int Y, int q, int sr, int sl,
                  int threads, long long smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   return dtype == 0
-      ? merge_f_launch<float>(L, sL, B, sB, Pyy, Phi, Ws, Sinit, Ns, Ms, Bn,
+      ? merge_f_launch<float>(L, sL, B, sB, Pyy, pyy_step, Phi, Ws, Sinit,
+                              Ns, Ms, Bn,
                               S, DL, DB, Y, q, sr, sl, threads, (size_t)smem,
                               st)
-      : merge_f_launch<double>(L, sL, B, sB, Pyy, Phi, Ws, Sinit, Ns, Ms, Bn,
+      : merge_f_launch<double>(L, sL, B, sB, Pyy, pyy_step, Phi, Ws, Sinit,
+                               Ns, Ms, Bn,
                                S, DL, DB, Y, q, sr, sl, threads, (size_t)smem,
                                st);
 }

@@ -33,10 +33,9 @@ def _decode_all(Q: int, q: int, N: int, T1: int) -> np.ndarray:
 
 
 def exact_prob(bp: MPBP):
-    """(p[Q], Z): exact trajectory distribution and partition function."""
-    if bp.periodic:
-        raise NotImplementedError("periodic trains are not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
+    """(p[Q], Z): exact trajectory distribution and partition function.
+    Step t reads the tables of step t (``tables.at_time``); a periodic state
+    adds the wrap x^T -> x^0 with the last step's (``exact.py:75-83``)."""
     g = bp.graph
     N, T1, q = bp.N, bp.T + 1, bp.q
     if N * (T1 - 1) > 16:
@@ -53,11 +52,12 @@ def exact_prob(bp: MPBP):
         logp = np.zeros(Q)
         for t in range(T1):
             logp += np.log(phi[ar, t, X[:, :, t]]).sum(axis=1)
-        for t in range(T1 - 1):
+        for t in range(T1 if bp.periodic else T1 - 1):
             xt = torch.as_tensor(X[:, :, t])
-            p = transition_probs(tables, mask, xt[:, nbr], xt).numpy()
+            p = transition_probs(tables.at_time(t), mask, xt[:, nbr],
+                                 xt).numpy()
             logp += np.log(p[np.arange(Q)[:, None], ar,
-                             X[:, :, t + 1]]).sum(axis=1)
+                             X[:, :, (t + 1) % T1]]).sum(axis=1)
         src, dst = g.edge_src, g.edge_dst
         for t in range(T1):
             logp += 0.5 * np.log(

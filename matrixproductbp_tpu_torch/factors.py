@@ -15,8 +15,14 @@ tables with the same host loops as the JAX package, so the two packages'
 tables agree bit for bit.  Factors whose ``prob_yy`` is the sum type
 ``y == y1 + y2 - off`` (every Glauber variant) set ``sum_y_offset``; their
 tables carry ``yy_off`` and a placeholder ``Pyy``, and the sweep merges by
-the banded (Toeplitz) contraction.  Time-varying tables
-(``build_tables_t``) are not ported yet.
+the banded (Toeplitz) contraction.
+
+Time-varying tables (``build_tables_t``, the reference's ``w[i][t]``) insert
+a T1 axis after the slot axes: ``Py [N, T1, q, q, Y]``, ``Pyp [N, K, T1, q,
+q, q, Y]``, ``Pxy [N, K, T1, Y, q, q]``, ``Pyy [N, K, T1, Y, Y, Y, q]``,
+``Py0 [N, T1, Y, q]``; entry t governs the transition x^t -> x^{t+1}, and
+entry T only the periodic wrap.  ``at_time(t)`` gives the time-constant
+slice.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ __all__ = ["RecursiveFactorTables", "FactorSpec", "TraceFactorSpec",
 
 @dataclasses.dataclass
 class RecursiveFactorTables:
-    """Dense, time-constant factor tables (torch tensors)."""
+    """Dense factor tables (torch tensors), time-constant or, with a T1
+    axis after the slot axes, time-varying (module docstring)."""
 
     Py: torch.Tensor
     Pyp: torch.Tensor
@@ -67,6 +74,15 @@ class RecursiveFactorTables:
     @property
     def K(self) -> int:
         return self.Pxy.shape[1]
+
+    def at_time(self, t: int) -> "RecursiveFactorTables":
+        """The time-constant tables of step ``t`` (the tables themselves
+        when they are time-constant)."""
+        if not self.time_varying:
+            return self
+        return RecursiveFactorTables(self.Py[:, t], self.Pyp[:, :, t],
+                                     self.Pxy[:, :, t], self.Pyy[:, :, t],
+                                     self.Py0[:, t], self.yy_off, self.ydims)
 
     def to(self, device=None, dtype=None) -> "RecursiveFactorTables":
         return RecursiveFactorTables(
@@ -229,12 +245,62 @@ class DampedFactorSpec(FactorSpec):
         return (1 - self.p) * self.inner.w(xp, x_nbrs, x) + self.p * (xp == x)
 
 
+def _node_rows(s: FactorSpec, d: int, i: int, K: int, Y: int, q: int,
+               yy_off, Py, Pyp, Pxy, Pyy, Py0):
+    """Fill node i's rows of the tables from its spec ``s`` and degree
+    ``d``, by the JAX package's loops."""
+    # Pyy[i, d1][y, y_first, y_second, xi], d1 = #elements in the first.
+    # A merge of states the spec has (y1 < nstates(d1), y2 < nstates(1))
+    # never lands on a y beyond nstates(d1 + 1): the JAX package
+    # (factors.py:334-341) asks prob_yy there too, and a spec such as SIS's
+    # OR puts mass on those padded y
+    if yy_off is None:
+        for d1 in range(max(K, 1)):
+            n_out, n1, n2 = s.nstates(d1 + 1), s.nstates(d1), s.nstates(1)
+            for y in range(Y):
+                for y1 in range(Y):
+                    for y2 in range(Y):
+                        if y >= n_out and y1 < n1 and y2 < n2:
+                            continue
+                        for xi in range(q):
+                            Pyy[i, d1, y, y1, y2, xi] = \
+                                s.prob_yy(y, y1, y2, xi, d1, 1)
+    for xi in range(q):
+        for y in range(s.nstates(0)):
+            Py0[i, y, xi] = s.prob_y0(y, xi)
+        for xp in range(q):
+            for y in range(s.nstates(d)):
+                Py[i, xp, xi, y] = s.prob_y(xp, xi, y, d)
+    for k in range(d):
+        for y in range(s.nstates(1)):
+            for xk in range(q):
+                for xi in range(q):
+                    Pxy[i, k, y, xk, xi] = s.prob_xy(y, xk, xi, k)
+    # prob_y_partial: the spec's own, or the explicit sum over (y, y2)
+    for k in range(d):
+        for xp in range(q):
+            for xi in range(q):
+                for xk in range(q):
+                    for y1 in range(s.nstates(max(d - 1, 0))):
+                        if hasattr(s, "prob_y_partial"):
+                            v = s.prob_y_partial(xp, xi, xk, y1, d - 1, k)
+                        else:
+                            v = sum(
+                                s.prob_y(xp, xi, y, d)
+                                * s.prob_xy(y2, xk, xi, k)
+                                * s.prob_yy(y, y1, y2, xi, d - 1, 1)
+                                for y in range(s.nstates(d))
+                                for y2 in range(s.nstates(1)))
+                        Pyp[i, k, xp, xi, xk, y1] = v
+
+
 def build_tables(graph: Graph, specs: Sequence[FactorSpec],
                  dtype=np.float64, Y_pad: int | None = None
                  ) -> RecursiveFactorTables:
     """Dense tables from per-node specs, built on the host in numpy by the
-    JAX package's loops and returned as CPU torch tensors.  ``Y_pad`` forces
-    a larger y-axis."""
+    JAX package's loops (once for each distinct spec object and degree)
+    and returned as CPU torch tensors.  ``Y_pad`` forces a larger
+    y-axis."""
     N, K = graph.N, graph.dmax
     q = specs[0].q
     deg = graph.degree
@@ -261,62 +327,53 @@ def build_tables(graph: Graph, specs: Sequence[FactorSpec],
            else np.zeros((N, max(K, 1), Y, Y, Y, q), dtype))
     Py0 = np.zeros((N, Y, q), dtype)
 
+    # a node's rows depend on its spec and degree alone: nodes sharing both
+    # copy the first one's rows
+    first = {}
     for i in range(N):
-        s = specs[i]
-        # Pyy[i, d1][y, y_first, y_second, xi], d1 = #elements in the first.
-        # A merge of states the spec has (y1 < nstates(d1), y2 <
-        # nstates(1)) never lands on a y beyond nstates(d1 + 1): the JAX
-        # package (factors.py:334-341) asks prob_yy there too, and a spec
-        # such as SIS's OR puts mass on those padded y
-        if yy_off is None:
-            for d1 in range(max(K, 1)):
-                n_out, n1, n2 = (s.nstates(d1 + 1), s.nstates(d1),
-                                 s.nstates(1))
-                for y in range(Y):
-                    for y1 in range(Y):
-                        for y2 in range(Y):
-                            if y >= n_out and y1 < n1 and y2 < n2:
-                                continue
-                            for xi in range(q):
-                                Pyy[i, d1, y, y1, y2, xi] = \
-                                    s.prob_yy(y, y1, y2, xi, d1, 1)
-        d = int(deg[i])
-        for xi in range(q):
-            for y in range(s.nstates(0)):
-                Py0[i, y, xi] = s.prob_y0(y, xi)
-            for xp in range(q):
-                for y in range(s.nstates(d)):
-                    Py[i, xp, xi, y] = s.prob_y(xp, xi, y, d)
-        for k in range(d):
-            for y in range(s.nstates(1)):
-                for xk in range(q):
-                    for xi in range(q):
-                        Pxy[i, k, y, xk, xi] = s.prob_xy(y, xk, xi, k)
-        # prob_y_partial: the spec's own, or the explicit sum over (y, y2)
-        for k in range(d):
-            for xp in range(q):
-                for xi in range(q):
-                    for xk in range(q):
-                        for y1 in range(s.nstates(max(d - 1, 0))):
-                            if hasattr(s, "prob_y_partial"):
-                                v = s.prob_y_partial(xp, xi, xk, y1, d - 1, k)
-                            else:
-                                v = sum(
-                                    s.prob_y(xp, xi, y, d)
-                                    * s.prob_xy(y2, xk, xi, k)
-                                    * s.prob_yy(y, y1, y2, xi, d - 1, 1)
-                                    for y in range(s.nstates(d))
-                                    for y2 in range(s.nstates(1)))
-                            Pyp[i, k, xp, xi, xk, y1] = v
+        key = (id(specs[i]), int(deg[i]))
+        if key in first:
+            j = first[key]
+            for a in (Py, Pyp, Pxy, Py0) + ((Pyy,) if yy_off is None else ()):
+                a[i] = a[j]
+        else:
+            first[key] = i
+            _node_rows(specs[i], int(deg[i]), i, K, Y, q, yy_off, Py, Pyp,
+                       Pxy, Pyy, Py0)
     return RecursiveFactorTables(
         *(torch.from_numpy(a) for a in (Py, Pyp, Pxy, Pyy, Py0)), yy_off,
         ydims)
 
 
-def build_tables_t(graph: Graph, specs_t, dtype=np.float64):
-    """Time-varying tables: not ported yet."""
-    raise NotImplementedError("time-varying tables are not ported yet "
-                              "(ROADMAP Queue 1 item 6)")
+def build_tables_t(graph: Graph, specs_t: Sequence[Sequence[FactorSpec]],
+                   dtype=np.float64) -> RecursiveFactorTables:
+    """Time-varying tables: ``specs_t[i][t]`` is node i's factor for the
+    transition x^t -> x^{t+1} (T+1 of them a node; the last one matters
+    only to periodic trains).  Each step's slice is :func:`build_tables`
+    padded to the largest y-axis of all, stacked on the T1 axis of the
+    module docstring; every step must share the y-merge structure."""
+    N = graph.N
+    T1 = len(specs_t[0])
+    if any(len(s) != T1 for s in specs_t):
+        raise ValueError("every node needs the same number of factors")
+    deg = graph.degree
+    Y = max(max((specs_t[i][t].nstates(l) for l in range(int(deg[i]) + 1)),
+                default=1) for i in range(N) for t in range(T1))
+    Y = max(Y, 1)
+    slices = [build_tables(graph, [specs_t[i][t] for i in range(N)], dtype,
+                           Y_pad=Y) for t in range(T1)]
+    if any(s.yy_off != slices[0].yy_off for s in slices):
+        raise ValueError("time-varying factors must share the y-merge "
+                         "structure")
+    ydims = tuple(max(s.ydims[d] for s in slices)
+                  for d in range(len(slices[0].ydims)))
+    return RecursiveFactorTables(
+        torch.stack([s.Py for s in slices], dim=1),
+        torch.stack([s.Pyp for s in slices], dim=2),
+        torch.stack([s.Pxy for s in slices], dim=2),
+        torch.stack([s.Pyy for s in slices], dim=2),
+        torch.stack([s.Py0 for s in slices], dim=1),
+        slices[0].yy_off, ydims)
 
 
 def _rows(table: torch.Tensor, n_idx, *idx) -> torch.Tensor:
@@ -339,10 +396,10 @@ def transition_probs(tables: RecursiveFactorTables, in_mask, x_nbr, x
     device.  Used by the enumeration oracle, ``bp.logprob`` and the
     samplers.  Each slot folds ``prob_yy`` over both y legs for every
     value of x_i at once (one batched product) and then picks x_i, so no
-    per-configuration copy of the table is made."""
+    per-configuration copy of the table is made.  Time-varying tables are
+    sliced by the caller (``tables.at_time(t)``)."""
     if tables.time_varying:
-        raise NotImplementedError("time-varying tables are not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
+        raise ValueError("slice time-varying tables with at_time(t)")
     dev = tables.Py.device
     x_nbr = torch.as_tensor(x_nbr, device=dev).long()
     x = torch.as_tensor(x, device=dev).long()

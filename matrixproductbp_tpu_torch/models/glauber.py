@@ -265,22 +265,24 @@ def mpbp_glauber(gl: Glauber, D: int, force: str | None = None,
                  device=None) -> MPBP:
     """BP state for Glauber dynamics on ``device`` (default: the CUDA card);
     reference ``mpbp(::Glauber)`` (``glauber_bp.jl:94-100``).  The factor
-    variant is picked per node as :func:`glauber_factor_specs` does."""
-    if periodic:
-        raise _not_ported("periodic Glauber states", 6)
+    variant is picked per node as :func:`glauber_factor_specs` does;
+    ``periodic=True`` mirrors ``periodic_mpbp(::Glauber)``
+    (``glauber_bp.jl:102-108``)."""
     specs = glauber_factor_specs(gl.ising, force)
     tables = build_tables(gl.ising.graph, specs)
     return mpbp(gl.ising.graph, tables, gl.T, D, phi=gl.phi, psi=gl.psi,
-                dtype=dtype, device=device)
+                dtype=dtype, periodic=periodic, device=device)
 
 
 def periodic_mpbp_glauber(gl: Glauber, D: int, force: str | None = None,
                           dtype=torch.float64, device=None) -> MPBP:
-    """Reference ``periodic_mpbp(::Glauber)``: not ported yet."""
-    raise _not_ported("periodic Glauber states", 6)
+    """Reference ``periodic_mpbp(::Glauber)`` (``glauber_bp.jl:102-108``)."""
+    return mpbp_glauber(gl, D, force=force, dtype=dtype, periodic=True,
+                        device=device)
 
 
 def mpbp_stationary_glauber(gl: Glauber, D: int = 1,
                             force: str | None = None):
-    """Reference ``mpbp_stationary(::Glauber)``: not ported yet."""
+    """Reference ``mpbp_stationary(::Glauber)``: not ported yet
+    (``stationary.py``)."""
     raise _not_ported("stationary Glauber states", 6)

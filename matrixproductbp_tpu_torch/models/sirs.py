@@ -93,22 +93,21 @@ def mpbp_sirs(sirs: SIRS, D: int, dtype=torch.float64,
               periodic: bool = False, device=None) -> MPBP:
     """BP state for an SIRS model on ``device`` (default: the CUDA card);
     reference ``mpbp(::SIRS)`` (``sirs_bp.jl:22-26``).  The tables come
-    from :func:`build_tables`: per-node, with a dense ``prob_yy``."""
-    if periodic:
-        raise _not_ported("periodic SIRS states", 6)
+    from :func:`build_tables`: per-node, with a dense ``prob_yy``;
+    ``periodic`` makes the state trace-closed."""
     spec = SIRSFactorSpec(sirs.lam, sirs.rho, sirs.sigma, sirs.alpha)
     tables = build_tables(sirs.graph, [spec] * sirs.graph.N)
     phi = sirs.phi if sirs.phi is not None else sirs.default_phi()
     return mpbp(sirs.graph, tables, sirs.T, D, phi=phi, psi=sirs.psi,
-                dtype=dtype, device=device)
+                dtype=dtype, periodic=periodic, device=device)
 
 
 def periodic_mpbp_sirs(sirs: SIRS, D: int, dtype=torch.float64,
                        device=None) -> MPBP:
-    """Trace-closed SIRS state: not ported yet."""
-    raise _not_ported("periodic SIRS states", 6)
+    """Trace-closed SIRS state (reference ``periodic_mpbp(::SIRS)``)."""
+    return mpbp_sirs(sirs, D, dtype=dtype, periodic=True, device=device)
 
 
 def mpbp_stationary_sirs(sirs: SIRS, D: int = 1):
-    """Stationary SIRS state: not ported yet."""
+    """Stationary SIRS state: not ported yet (``stationary.py``)."""
     raise _not_ported("stationary SIRS states", 6)

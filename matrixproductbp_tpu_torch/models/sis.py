@@ -138,10 +138,11 @@ def mpbp_sis(sis: SIS, D: int, dtype=torch.float64, periodic: bool = False,
 
 def periodic_mpbp_sis(sis: SIS, D: int, dtype=torch.float64,
                       device=None) -> MPBP:
-    """Reference ``periodic_mpbp(::SIS)``: not ported yet."""
-    raise _not_ported("periodic SIS states", 6)
+    """Reference ``periodic_mpbp(::SIS)`` (``sis_bp.jl:49-53``)."""
+    return mpbp_sis(sis, D, dtype=dtype, periodic=True, device=device)
 
 
 def mpbp_stationary_sis(sis: SIS, D: int = 1):
-    """Reference ``mpbp_stationary(::SIS)``: not ported yet."""
+    """Reference ``mpbp_stationary(::SIS)``: not ported yet
+    (``stationary.py``)."""
     raise _not_ported("stationary SIS states", 6)

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..bp import MPBP, _not_ported, mpbp
+from ..bp import MPBP, mpbp
 from ..factors import FactorSpec, build_tables
 from ..graph import Graph
 from .sis import SUSCEPTIBLE, INFECTIOUS
@@ -91,9 +91,8 @@ def mpbp_sis_heterogeneous(m: SISHeterogeneous, D: int,
                            dtype=torch.float64, periodic: bool = False,
                            device=None) -> MPBP:
     """BP state for heterogeneous SIS on ``device`` (default: the CUDA
-    card): one spec a node, with the rates of its in-edges by slot."""
-    if periodic:
-        raise _not_ported("periodic heterogeneous-SIS states", 6)
+    card): one spec a node, with the rates of its in-edges by slot;
+    ``periodic`` makes the state trace-closed."""
     g = m.graph
     alpha = np.zeros(g.N) if m.alpha is None else np.asarray(m.alpha)
     specs = []
@@ -105,10 +104,11 @@ def mpbp_sis_heterogeneous(m: SISHeterogeneous, D: int,
     tables = build_tables(g, specs)
     phi = m.phi if m.phi is not None else m.default_phi()
     return mpbp(g, tables, m.T, D, phi=phi, psi=m.psi, dtype=dtype,
-                device=device)
+                periodic=periodic, device=device)
 
 
 def periodic_mpbp_sis_heterogeneous(m: SISHeterogeneous, D: int,
                                     dtype=torch.float64, device=None) -> MPBP:
-    """Reference ``periodic_mpbp(::SIS_heterogeneous)``: not ported yet."""
-    raise _not_ported("periodic heterogeneous-SIS states", 6)
+    """Reference ``periodic_mpbp(::SIS_heterogeneous)``."""
+    return mpbp_sis_heterogeneous(m, D, dtype=dtype, periodic=True,
+                                  device=device)

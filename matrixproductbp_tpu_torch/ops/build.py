@@ -45,7 +45,7 @@ _LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "stta_scans": {
         "stta_merge_w": [_I, _P, _LP, _P, _LP, _P, _P] + [_I] * 8 + [_L, _P],
-        "stta_merge_f": ([_I, _P, _LP, _P, _LP, _P, _P, _P, _P, _P, _P]
+        "stta_merge_f": ([_I, _P, _LP, _P, _LP, _P, _L, _P, _P, _P, _P, _P]
                          + [_I] * 9 + [_L, _P]),
         "stta_mpem3_w": [_I, _P, _LP, _P, _P] + [_I] * 7 + [_L, _P],
         "stta_mpem3_f": ([_I, _P, _LP, _P, _P, _P, _P, _P] + [_I] * 8
@@ -58,11 +58,11 @@ _SIGNATURES = {
         "jacobi_eigh": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
     },
     "merge_f_staged": {
-        "merge_f_staged": ([_P, _LP, _P, _LP, _P, _P, _P, _P, _P, _P]
+        "merge_f_staged": ([_P, _LP, _P, _LP, _P, _L, _P, _P, _P, _P, _P]
                            + [_I] * 8 + [_L, _P]),
     },
     "merge_f_cluster": {
-        "merge_f_cluster": ([_P, _LP, _P, _LP, _P, _P, _P, _P, _P, _P]
+        "merge_f_cluster": ([_P, _LP, _P, _LP, _P, _L, _P, _P, _P, _P, _P]
                             + [_I] * 8 + [_L, _P]),
         "merge_f_cluster_occupancy": [_L],
     },

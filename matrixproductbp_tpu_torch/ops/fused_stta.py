@@ -88,18 +88,22 @@ def _smem_merge_w(DL, DB, Y, q, sr):
             + sr * sr * Y * Y * q + 2 * DB * DL * Y * sr)
 
 
-def _smem_merge_f(DL, DB, Y, q, sr, sl):
+def _smem_merge_f(DL, DB, Y, q, sr, sl, tv=False):
+    """merge_f_kernel's buffers: S, S2, t1 (all y), t2, L_t, B_t, Bp, Phi_t
+    and Pyy (one step's, copied in at each step where ``tv``)."""
     nS = sl * DL * DB
     return (3 * nS + nS * Y + DL * DL * Y * q + DB * DB * Y * q
             + DB * DB * Y + sl * sl * Y * q + Y * Y * Y * q)
 
 
-def _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize):
+def _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize, tv=False):
     """merge_f_staged_kernel's buffers: W_t/W_{t+1}, and L_t, B_t and Phi_t
     double-buffered (the cp.async copies run a step ahead), W, L and B each
     padded to 16 bytes; S (S2 written over it) with rows padded to an odd
     stride; t1 for both x (rows padded to an odd stride; N of one step
-    reuses it); t2 and Bp for all (y, x) pairs; Pyy; M of one step."""
+    reuses it); t2 and Bp for all (y, x) pairs; Pyy, double-buffered where
+    ``tv`` (each step's table is staged with Phi_t, its second buffer after
+    M); M of one step."""
     DLB, P = DL * DB, Y * q
     v16 = 16 // esize
 
@@ -107,11 +111,11 @@ def _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize):
         return -(-n // v16) * v16
     return (2 * pad(DLB * sr) + 2 * pad(DL * DL * P) + 2 * pad(DB * DB * P)
             + sl * (DLB | 1) + max(sl * DL * ((DB * P) | 1), sl * P * sr)
-            + sl * DLB * P + DB * Y * DB * P + 2 * sl * sl * P + Y * Y * P
-            + sl * sr)
+            + sl * DLB * P + DB * Y * DB * P + 2 * sl * sl * P
+            + (1 + tv) * Y * Y * P + sl * sr)
 
 
-def _smem_merge_f_cluster(DL, DB, Y, q, sr, sl, esize):
+def _smem_merge_f_cluster(DL, DB, Y, q, sr, sl, esize, tv=False):
     """merge_f_cluster_kernel's buffers, a block (each of the two blocks of
     an instance owns ``E0 = ceil(sl/2)`` rows of the sketch, the second
     ``floor(sl/2)``, in buffers sized for ``E0``): W_t/W_{t+1}, and L_t and
@@ -119,7 +123,8 @@ def _smem_merge_f_cluster(DL, DB, Y, q, sr, sl, esize):
     odd stride; t1 of one x (rows padded to an odd stride; the S2 partials
     sent to the peer, 20 words for each 2x10 tile of S2, reuse it); t2 of
     one x for both y; Bp for all (y, x) pairs; Phi_t (all rows)
-    double-buffered; Pyy; M and N of one step, own rows."""
+    double-buffered; Pyy, double-buffered where ``tv`` (its second buffer
+    after N); M and N of one step, own rows."""
     DLB, P, E0 = DL * DB, Y * q, (sl + 1) // 2
     v16 = 16 // esize
 
@@ -129,13 +134,14 @@ def _smem_merge_f_cluster(DL, DB, Y, q, sr, sl, esize):
             + E0 * (DLB | 1)
             + max(E0 * DL * ((DB * Y) | 1), 20 * -(-sl // 2) * -(-DLB // 10))
             + Y * E0 * DLB
-            + DB * Y * DB * P + 2 * sl * sl * P + Y * Y * P + E0 * sr
-            + E0 * P * sr)
+            + DB * Y * DB * P + 2 * sl * sl * P + (1 + tv) * Y * Y * P
+            + E0 * sr + E0 * P * sr)
 
 
-def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
+def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None, tv=False):
     """(variant, threads a block, shared-memory bytes a block) of the merge F
-    kernel for one shape, the first whose buffers fit in ``SMEM_LIMIT`` of:
+    kernel for one shape (``tv``: reading one ``Pyy`` a step), the first
+    whose buffers fit in ``SMEM_LIMIT`` of:
     ``"staged"`` (``merge_f_staged_kernel``; f32 sketch merges up to D=15:
     it ran faster than ``merge_f_kernel`` at every D from 4 to 15, one
     block an SM included), ``"cluster"`` (``merge_f_cluster_kernel``, two
@@ -143,9 +149,10 @@ def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
     (``merge_f_kernel``).  ``variant`` forces one of the three.  Raises
     ``ValueError`` where none fits (or the forced one does not)."""
     esize = 4 if dtype == torch.float32 else 8
-    sizes = {"staged": _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize),
-             "cluster": _smem_merge_f_cluster(DL, DB, Y, q, sr, sl, esize),
-             "base": _smem_merge_f(DL, DB, Y, q, sr, sl)}
+    sizes = {"staged": _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize, tv),
+             "cluster": _smem_merge_f_cluster(DL, DB, Y, q, sr, sl, esize,
+                                              tv),
+             "base": _smem_merge_f(DL, DB, Y, q, sr, sl, tv)}
     threads = {"staged": _STAGED_THREADS, "cluster": _CLUSTER_THREADS}
     for name in (sizes if variant is None else (variant,)):
         nbytes = sizes[name] * esize
@@ -153,32 +160,36 @@ def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None):
             return name, threads.get(name, _merge_threads(nbytes)), nbytes
     raise ValueError(f"merge F scan: needs {nbytes} bytes of shared memory "
                      f"per block, over the {SMEM_LIMIT}-byte limit, at "
-                     f"DL={DL}, DB={DB}, Y={Y}, q={q}, sr={sr}, sl={sl}")
+                     f"DL={DL}, DB={DB}, Y={Y}, q={q}, sr={sr}, sl={sl}"
+                     + (", one Pyy a step" if tv else ""))
 
 
-def _merge_f_macros(variant, most, DL, DB, Y, q, sr, sl, dtype):
-    _, _, smem = merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant)
+def _merge_f_macros(variant, most, DL, DB, Y, q, sr, sl, dtype, tv=False):
+    _, _, smem = merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant, tv)
     minb = min(most, build.SMEM_PER_SM // (smem + build.SMEM_RESERVED))
     return (f"MF_T={'float' if dtype == torch.float32 else 'double'}",
             f"MF_DL={DL}", f"MF_DB={DB}", f"MF_Y={Y}", f"MF_Q={q}",
-            f"MF_SR={sr}", f"MF_SL={sl}", f"MF_MINB={minb}")
+            f"MF_SR={sr}", f"MF_SL={sl}", f"MF_MINB={minb}"
+            ) + (("MF_TV=1",) if tv else ())
 
 
-def merge_f_staged_macros(DL, DB, Y, q, sr, sl, dtype):
+def merge_f_staged_macros(DL, DB, Y, q, sr, sl, dtype, tv=False):
     """The macros ``merge_f_staged.cu`` is built with for one shape: its
     sizes, its element type and ``MF_MINB``, the blocks whose shared memory
     fits on one SM (at most ``_STAGED_MAX_BLOCKS``), which sets the
-    register budget ptxas gets."""
+    register budget ptxas gets.  A time-varying shape (``tv``: a ``Pyy`` a
+    step) adds ``MF_TV=1`` and so gets a build of its own; a shared table's
+    build has no ``MF_TV`` and compiles none of the per-step staging."""
     return _merge_f_macros("staged", _STAGED_MAX_BLOCKS, DL, DB, Y, q, sr, sl,
-                           dtype)
+                           dtype, tv)
 
 
-def merge_f_cluster_macros(DL, DB, Y, q, sr, sl, dtype):
+def merge_f_cluster_macros(DL, DB, Y, q, sr, sl, dtype, tv=False):
     """The macros ``merge_f_cluster.cu`` is built with for one shape, as
     :func:`merge_f_staged_macros` (``MF_MINB`` at most
     ``_CLUSTER_MAX_BLOCKS``)."""
     return _merge_f_macros("cluster", _CLUSTER_MAX_BLOCKS, DL, DB, Y, q, sr,
-                           sl, dtype)
+                           sl, dtype, tv)
 
 
 #: the per-shape merge F kernels: variant -> (source, its macros)
@@ -193,13 +204,13 @@ def _merge_f_target(variant, shape):
 
 def build_merge_f(shapes, variant=None):
     """Build, all at once, the per-shape merge F libraries (staged or
-    cluster) of the shapes ``(DL, DB, Y, q, sr, sl, dtype)``: the kernel
+    cluster) of the shapes ``(DL, DB, Y, q, sr, sl, dtype[, tv])``: the kernel
     :func:`merge_f_geometry` picks for each, or ``variant`` for all; a
     caller that knows its shapes ahead spares their serial builds at first
     use."""
     targets = []
     for shape in shapes:
-        v = variant or merge_f_geometry(*shape)[0]
+        v = variant or merge_f_geometry(*shape[:7], None, *shape[7:])[0]
         if v in _PER_SHAPE_MERGE_F:
             targets.append(_merge_f_target(v, shape))
     build.build_all(targets)
@@ -213,7 +224,7 @@ def _cluster_library(macros, smem):
     if the card cannot hold one cluster of two such blocks at once
     (``cudaOccupancyMaxActiveClusters``)."""
     lib = build.library("merge_f_cluster", macros)
-    if macros not in _CLUSTERS_CHECKED:
+    if (macros, smem) not in _CLUSTERS_CHECKED:
         n = lib.merge_f_cluster_occupancy(smem)
         if n < 0:
             _raise_on(-n, "merge F cluster set-up")
@@ -221,7 +232,7 @@ def _cluster_library(macros, smem):
             raise RuntimeError(
                 "merge F cluster kernel: a cluster of two blocks of "
                 f"{smem} bytes of shared memory cannot be scheduled")
-        _CLUSTERS_CHECKED.add(macros)
+        _CLUSTERS_CHECKED.add((macros, smem))
     return lib
 
 
@@ -650,28 +661,37 @@ def merge_wscan(L1, B1, Th, _variant=None):
 def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init, _variant=None):
     """Forward merge scan; arguments and results as
     :func:`merge_fscan_plain`.  On the card it launches the kernel
-    :func:`merge_f_geometry` picks (``_variant`` forces one, for tests)."""
+    :func:`merge_f_geometry` picks (``_variant`` forces one, for tests).
+    ``Pyy`` is [S, Y, Y, Y, q], one table a step, or [Y, Y, Y, q], one for
+    all; the kernels read step s's at ``Pyy + s * pyy_step``, with
+    ``pyy_step = Pyy.stride(0)``: 0 for a shared table (also one expanded
+    over S), and then they load it once."""
     if _on_cpu(L1, B1, Pyy, Phi, Ws, S_init):
         return merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init)
     code = _dtype_code(L1, B1, Pyy, Phi, Ws, S_init)
     Bn, S, DL, _, Y, q = L1.shape
     DB, sl, sr = B1.shape[2], Phi.shape[1], Ws.shape[-1]
     _check_shape("B1", B1, (Bn, S, DB, DB, Y, q))
-    _check_shape("Pyy", Pyy, (Y, Y, Y, q))
+    if Pyy.ndim == 4:
+        Pyy = Pyy.expand((S,) + Pyy.shape)
+    _check_shape("Pyy", Pyy, (S, Y, Y, Y, q))
+    pyy_step = Pyy.stride(0)
+    tv = pyy_step != 0
     _check_shape("Phi", Phi, (S, sl, sl, Y, q))
     _check_shape("Ws", Ws, (Bn, S, DL, DB, sr))
     _check_shape("S_init", S_init, (Bn, sl, DL, DB))
-    _check_contiguous(Pyy=Pyy, Phi=Phi, Ws=Ws, S_init=S_init)
+    _check_contiguous(Pyy=Pyy[:1], Phi=Phi, Ws=Ws, S_init=S_init)
     variant, threads, smem = merge_f_geometry(DL, DB, Y, q, sr, sl,
-                                              L1.dtype, _variant)
+                                              L1.dtype, _variant, tv)
     Ns = L1.new_empty((Bn, S, sl, Y, q, sr))
     Ms = L1.new_empty((Bn, S, sl, sr))
     if Bn == 0 or S == 0:
         return Ns, Ms
     args = (L1.data_ptr(), _strides(L1), B1.data_ptr(), _strides(B1),
-            Pyy.data_ptr(), Phi.data_ptr(), Ws.data_ptr(), S_init.data_ptr(),
-            Ns.data_ptr(), Ms.data_ptr(), Bn, S, DL, DB, Y, q, sr, sl)
-    shape = (DL, DB, Y, q, sr, sl, L1.dtype)
+            Pyy.data_ptr(), pyy_step, Phi.data_ptr(), Ws.data_ptr(),
+            S_init.data_ptr(), Ns.data_ptr(), Ms.data_ptr(), Bn, S, DL, DB,
+            Y, q, sr, sl)
+    shape = (DL, DB, Y, q, sr, sl, L1.dtype, tv)
     if variant == "staged":
         rc = build.library(*_merge_f_target(variant, shape)).merge_f_staged(
             *args, smem, _stream(L1))
@@ -684,6 +704,8 @@ def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init, _variant=None):
     _raise_on(rc, "merge F scan")
     merge_fscan.launches += 1
     merge_fscan.variant_launches[variant] += 1
+    if tv:
+        merge_fscan.tv_launches[variant] += 1
     return Ns, Ms
 
 
@@ -763,8 +785,9 @@ def mpem3_fscan(B1, Phi, Ws, S_init, _variant=None):
 for _w in (merge_wscan, merge_fscan, mpem3_wscan, mpem3_fscan):
     _w.launches = 0
 #: merge F launches by kernel: "staged", "cluster" and "base" (see
-#: merge_f_geometry)
+#: merge_f_geometry), and those of them that read a table a step
 merge_fscan.variant_launches = {"staged": 0, "cluster": 0, "base": 0}
+merge_fscan.tv_launches = {"staged": 0, "cluster": 0, "base": 0}
 #: merge W launches by kernel: "staged" and "base" (see merge_w_geometry)
 merge_wscan.variant_launches = {"staged": 0, "base": 0}
 #: MPEM3 W and F launches by kernel: "staged" and "base" (see
@@ -781,8 +804,9 @@ mpem3_fscan.variant_launches = {"staged": 0, "base": 0}
 def merge_stta_fused(Lc, Llz, Bc, Blz, pyy, Dout: int, Y: int, q: int,
                      sketches=None, oversample: int = 4, yy_off=None):
     """Cavity merge through the scan kernels: Lc [B, T1, DL, DL, Y*q],
-    Bc [B, T1, DB, DB, Y*q], pyy [Y, Y, Y, q] shared -> (cores
-    [B, T1, Dout, Dout, Y*q], logz [B] = Llz + Blz - sum log scales).
+    Bc [B, T1, DB, DB, Y*q], pyy [T1, Y, Y, Y, q] (or [Y, Y, Y, q] shared)
+    -> (cores [B, T1, Dout, Dout, Y*q], logz [B] = Llz + Blz - sum log
+    scales).
     ``yy_off`` selects the banded merge: the kernels take its banded ``Th``
     and the band as a dense ``Pyy`` (``pyy`` is not read)."""
     return merge_sketch(Lc, Llz, Bc, Blz, pyy, Dout, Y, q, sketches,

@@ -1,13 +1,15 @@
 """MPEM3 -> MPEM2 conversion: the left-to-right SVD regrouping sweep, batched.
 
-Counterpart of ``matrixproductbp_tpu/ops/mpem.py:29-81, 121-130``.  The BP
+Counterpart of ``matrixproductbp_tpu/ops/mpem.py``.  The BP
 update produces a 5-leg transfer object ``B[t][m, n, xi, xj, xi']`` (``xi'``
 is x_i at t+1); the sweep SVD-regroups ``(xi, xj)`` onto the left bond and
 pushes ``xi'`` into the next core, giving a left-orthogonal message train
 with legs ``(xi, xj)`` and bond capacity ``Dmid = qi * Db``, without
 truncation (the caller compresses with ``assume="left"``).  Each time step is
 one batched SVD over every instance (``tensortrain.batched_svd``); the
-per-step max-abs rescale accumulates into ``logz``.
+per-step max-abs rescale accumulates into ``logz``.  The periodic variant
+(:func:`mpem3_to_mpem2_periodic`) sweeps every core and folds the last
+carry into core 0, which closes the ring.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import torch
 
 from .tensortrain import TensorTrain, _fit_axis, _maxabs, batched_svd
 
-__all__ = ["mpem3_to_mpem2", "mpem3_lognorm", "evaluate_mpem3"]
+__all__ = ["mpem3_to_mpem2", "mpem3_to_mpem2_periodic", "mpem3_lognorm",
+           "evaluate_mpem3", "evaluate_mpem3_periodic"]
 
 
 def _regroup(A: torch.Tensor) -> torch.Tensor:
@@ -59,6 +62,32 @@ def mpem3_to_mpem2(B: torch.Tensor, logz: torch.Tensor) -> TensorTrain:
     return TensorTrain(cores, lg, (qi, qj))
 
 
+def mpem3_to_mpem2_periodic(B: torch.Tensor, logz: torch.Tensor
+                            ) -> TensorTrain:
+    """Periodic MPEM3s ``B [..., T1, Db, Db, qi, qj, qi]`` (the last ``xi'``
+    wraps to ``xi`` at time 0) -> periodic trains with phys ``(qi, qj)`` and
+    bond ``qi * Db`` (``mpem.py:84-118``): the sweep runs over all T1 cores
+    and the final carry folds into core 0, diagonal in its ``xi`` leg."""
+    batch = B.shape[:-6]
+    T1, Db, _, qi, qj, _ = B.shape[-6:]
+    Dmid = qi * Db
+    U, S, Vt, lg = _svd_step(_regroup(B[..., 0, :, :, :, :, :]), logz)
+    C0 = U.reshape(batch + (qi, qj, Db, Dmid)).movedim((-4, -3), (-2, -1))
+    C = (S[..., :, None] * Vt).reshape(batch + (Dmid, Db, qi))
+    cores = []
+    for t in range(1, T1):
+        A = torch.einsum("...kli,...lnijr->...knijr", C,
+                         B[..., t, :, :, :, :, :])
+        U, S, Vt, lg = _svd_step(_regroup(A), lg)
+        cores.append(U.reshape(batch + (qi, qj, Dmid, Dmid))
+                     .movedim((-4, -3), (-2, -1))
+                     .reshape(batch + (Dmid, Dmid, qi * qj)))
+        C = (S[..., :, None] * Vt).reshape(batch + (Dmid, Db, qi))
+    C0w = torch.einsum("...mli,...lnij->...mnij", C, C0)
+    cores.insert(0, C0w.reshape(batch + (Dmid, Dmid, qi * qj)))
+    return TensorTrain(torch.stack(cores, dim=-4), lg, (qi, qj), True)
+
+
 def mpem3_lognorm(B: torch.Tensor, logz: torch.Tensor):
     """(log |Z|, sign) of the total sum of MPEM3s ``B [..., T1, Db, Db, qi,
     qj, qi]`` (the last ``xi'`` at index 0), contracted directly: the
@@ -90,3 +119,14 @@ def evaluate_mpem3(B: torch.Tensor, logz, xi, xj) -> torch.Tensor:
     for t in range(T1):
         v = v @ B[t][:, :, int(xi[t]), int(xj[t]), int(xnext[t])]
     return v[0] * torch.exp(-torch.as_tensor(logz, dtype=B.dtype))
+
+
+def evaluate_mpem3_periodic(B: torch.Tensor, logz, xi, xj) -> torch.Tensor:
+    """Value of one periodic MPEM3 at ``(xi, xj)``: the last ``xi'`` wraps
+    to ``xi[0]`` and the product closes with the trace."""
+    T1 = B.shape[0]
+    xnext = list(xi[1:]) + [xi[0]]
+    M = torch.eye(B.shape[1], dtype=B.dtype, device=B.device)
+    for t in range(T1):
+        M = M @ B[t][:, :, int(xi[t]), int(xj[t]), int(xnext[t])]
+    return torch.trace(M) * torch.exp(-torch.as_tensor(logz, dtype=B.dtype))

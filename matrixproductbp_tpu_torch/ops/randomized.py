@@ -49,7 +49,8 @@ def merge_rounded(Lc, Llz, Bc, Blz, pyy, trunc: SVDTrunc, Dout: int, Y: int,
     """Merge two batches of cavity trains and round to bond ``Dout``.
 
     Lc [B, T1, DL, DL, Y*q], Bc [B, T1, DB, DB, Y*q], pyy [Y, Y, Y, q] shared
-    -> (cores [B, T1, Dout, Dout, Y*q], logz [B] from ``Llz + Blz``).
+    (or [T1, Y, Y, Y, q], one a step) -> (cores [B, T1, Dout, Dout, Y*q],
+    logz [B] from ``Llz + Blz``).
     ``sketches.normal`` supplies the Gaussian train ``[T1, s, s, Y, q]``,
     shared by every instance (the JAX package's unsplit ``PRNGKey(17)``);
     ``yy_off`` selects the banded merge, where ``pyy`` is not read."""
@@ -64,8 +65,11 @@ def merge_rounded(Lc, Llz, Bc, Blz, pyy, trunc: SVDTrunc, Dout: int, Y: int,
     theta = sk.normal((T1, s, s, Y, q), dtype, device)
     if yy_off is None:
         pyy = pyy.to(dtype)
-        Th = torch.einsum("tabyx,yuvx->tabuvx", theta, pyy)
+        if pyy.ndim == 4:
+            pyy = pyy.expand((T1,) + pyy.shape)
+        Th = torch.einsum("tabyx,tyuvx->tabuvx", theta, pyy)
     else:
+        pyy = Lc.new_zeros((T1, 1))             # placeholder, never read
         Th = y_expand(theta, yy_off, axis=3, mode="sum")
 
     # right-to-left sketch pass: Ws[t] = W_{t+1}, t = 0..T1-2
@@ -83,7 +87,7 @@ def merge_rounded(Lc, Llz, Bc, Blz, pyy, trunc: SVDTrunc, Dout: int, Y: int,
     lg = Llz + Blz
     cores = []
     for t in range(T1 - 1):
-        Z = _zstep(C, L[:, t], B[:, t], pyy, yy_off)  # [z, s, nL, nB, Y, q]
+        Z = _zstep(C, L[:, t], B[:, t], pyy[t], yy_off)  # [z, s, nL, nB, Y, q]
         m = _maxabs(Z, 5)
         Z = Z / m[:, None, None, None, None, None]
         lg = lg - torch.log(m)
@@ -93,7 +97,7 @@ def merge_rounded(Lc, Llz, Bc, Blz, pyy, trunc: SVDTrunc, Dout: int, Y: int,
         C = torch.einsum("zpyxa,zpnjyx->zanj", Q.reshape(Bn, s, Y, q, s), Z)
 
     # last core: absorb the carry; its right bond is column 0
-    Zl = _zstep(C, L[:, -1], B[:, -1], pyy, yy_off)
+    Zl = _zstep(C, L[:, -1], B[:, -1], pyy[-1], yy_off)
     last = Lc.new_zeros((Bn, s, s, P))
     last[:, :, 0, :] = Zl[:, :, 0, 0].reshape(Bn, s, P)
     cores.append(last)

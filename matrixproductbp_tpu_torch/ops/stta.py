@@ -140,7 +140,8 @@ def merge_wscan_plain(L1, B1, Th):
 def merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init):
     """Forward scan of the cavity merge.
 
-    Pyy [Y(y), Y(u), Y(v), q]; Phi [S, sl(e), sl(f), Y, q] (phi at times
+    Pyy [S, Y(y), Y(u), Y(v), q], step s reading ``Pyy[s]`` (a shared
+    [Y, Y, Y, q] is expanded over S); Phi [S, sl(e), sl(f), Y, q] (phi at times
     1..T1-1); Ws from :func:`merge_wscan_plain`; S_init [B, sl, DL, DB] ->
     (Ns [B, S, sl, Y, q, sr], Ms [B, S, sl, sr]).  Step s (time t = s+1)
     emits ``M = S W_t`` and ``N = t2 W_{t+1}`` (the one-hot at the last
@@ -149,7 +150,9 @@ def merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init):
     """
     Bn, S = L1.shape[:2]
     sl, sr = Phi.shape[1], Ws.shape[-1]
-    Y, q = Pyy.shape[0], Pyy.shape[-1]
+    Y, q = Pyy.shape[-4], Pyy.shape[-1]
+    if Pyy.ndim == 4:
+        Pyy = Pyy.expand((S,) + Pyy.shape)
     Ns = L1.new_empty((Bn, S, sl, Y, q, sr))
     Ms = L1.new_empty((Bn, S, sl, sr))
     Sc = S_init
@@ -158,7 +161,7 @@ def merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init):
         Wt1 = Ws[:, s + 1] if s + 1 < S else W_end
         Ms[:, s] = torch.einsum("zekm,zkma->zea", Sc, Ws[:, s])
         t1 = torch.einsum("zekm,zknux->zenmux", Sc, L1[:, s])
-        z1 = torch.einsum("yuvx,zenmux->zenmyvx", Pyy, t1)
+        z1 = torch.einsum("yuvx,zenmux->zenmyvx", Pyy[s], t1)
         t2 = torch.einsum("zenmyvx,zmjvx->zenjyx", z1, B1[:, s])
         Ns[:, s] = torch.einsum("zenjyx,znjb->zeyxb", t2, Wt1)
         Sc = _rescale(torch.einsum("efyx,zenjyx->zfnj", Phi[s], t2))
@@ -228,10 +231,14 @@ def merge_sketch(Lc, Llz, Bc, Blz, pyy, Dout, Y, q, sketches, oversample,
     """Cavity merge ``L (x) B`` contracted with ``prob_yy`` -> bond Dout,
     through the given scan functions.
 
-    Lc [B, T1, DL, DL, Y*q], Bc [B, T1, DB, DB, Y*q], pyy [Y, Y, Y, q] ->
-    (cores [B, T1, Dout, Dout, Y*q], logz [B]); cores are rescaled to
-    max-abs 1 each, the scales folded into logz (``fused_stta.py:912-914``).
-    ``yy_off`` selects the banded merge, where ``pyy`` is not read.
+    Lc [B, T1, DL, DL, Y*q], Bc [B, T1, DB, DB, Y*q], pyy [T1, Y, Y, Y, q]
+    (``Th`` and the site-0 boundary read each step's, and the forward scan
+    gets the table of every step it runs, ``stta.py:84, 118, 157, 168``; a
+    shared [Y, Y, Y, q] is expanded over T1 with stride 0, which the scan
+    kernels read as one table) -> (cores [B, T1, Dout, Dout, Y*q], logz
+    [B]); cores are rescaled to max-abs 1 each, the scales
+    folded into logz (``fused_stta.py:912-914``).  ``yy_off`` selects the
+    banded merge, where ``pyy`` is not read.
     """
     Bn, T1, DL = Lc.shape[0], Lc.shape[1], Lc.shape[2]
     DB = Bc.shape[2]
@@ -246,9 +253,12 @@ def merge_sketch(Lc, Llz, Bc, Blz, pyy, Dout, Y, q, sketches, oversample,
     Bf = Bc.reshape(Bn, T1, DB, DB, Y, q)
     if yy_off is None:
         pyy = pyy.to(dtype)
-        Th = torch.einsum("tabyx,yuvx->tabuvx", psi, pyy).contiguous()
-        c0 = torch.einsum("yuvx,znux,zjvx->znjyx", pyy, Lf[:, 0, 0],
+        if pyy.ndim == 4:
+            pyy = pyy.expand((T1,) + pyy.shape)
+        Th = torch.einsum("tabyx,tyuvx->tabuvx", psi, pyy).contiguous()
+        c0 = torch.einsum("yuvx,znux,zjvx->znjyx", pyy[0], Lf[:, 0, 0],
                           Bf[:, 0, 0])
+        pyy = pyy[1:]
     else:
         pyy = band_indicator(Y, yy_off, q, dtype, device)
         Th = y_expand(psi, yy_off, axis=3, mode="sum").contiguous()
@@ -257,8 +267,8 @@ def merge_sketch(Lc, Llz, Bc, Blz, pyy, Dout, Y, q, sketches, oversample,
     S_init = _rescale(torch.einsum("fyx,znjyx->zfnj", phi[0, 0], c0))
 
     Ws = wscan(Lf[:, 1:], Bf[:, 1:], Th[1:])
-    Ns, Ms = fscan(Lf[:, 1:], Bf[:, 1:], pyy.contiguous(),
-                   phi[1:].contiguous(), Ws, S_init.contiguous())
+    Ns, Ms = fscan(Lf[:, 1:], Bf[:, 1:], pyy, phi[1:].contiguous(), Ws,
+                   S_init.contiguous())
 
     v0 = torch.einsum("znjyx,znjb->zbyx", c0, Ws[:, 0]).reshape(Bn, sr, P)
     cores = _assemble(v0, Ms, Ns, Bn, S, sr, P, Dout, dtype, device)

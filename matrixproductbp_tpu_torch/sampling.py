@@ -62,9 +62,12 @@ def _neighbours(bp: MPBP) -> torch.Tensor:
                            device=bp.device)
 
 
-def _step(bp: MPBP, nbr, x: torch.Tensor, generator) -> torch.Tensor:
-    """x^{t+1} of every particle from x^t [P, N], one transition."""
-    p = transition_probs(bp.tables, bp.garrays.in_mask, x[:, nbr], x)
+def _step(bp: MPBP, nbr, x: torch.Tensor, generator, t: int
+          ) -> torch.Tensor:
+    """x^{t+1} of every particle from x^t [P, N], one transition with the
+    tables of step t (``sampling.py:57-62``)."""
+    p = transition_probs(bp.tables.at_time(t), bp.garrays.in_mask,
+                         x[:, nbr], x)
     return _draw(p, generator)
 
 
@@ -108,9 +111,6 @@ def _sample_trajectories(bp: MPBP, nsamples: int, generator):
     """X[nsamples, N, T1] (int32) and logw[nsamples] (float64): draws from
     the prior dynamics, weighted by the observation likelihood (reference
     ``onesample!``, ``sampling.jl:30-59``)."""
-    if bp.tables.time_varying:
-        raise NotImplementedError("time-varying tables are not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
     N, T1 = bp.N, bp.T + 1
     nbr = _neighbours(bp)
     p0 = _prior(bp)
@@ -121,7 +121,7 @@ def _sample_trajectories(bp: MPBP, nsamples: int, generator):
         x = _draw(p0.expand(m, N, p0.shape[1]), generator)
         X[lo:lo + m, :, 0] = x
         for t in range(1, T1):
-            x = _step(bp, nbr, x, generator)
+            x = _step(bp, nbr, x, generator, t - 1)
             X[lo:lo + m, :, t] = x
     # phi[:, 0] is the prior the draw came from: divide it out
     logw = _obs_logw(bp, X) - _log_prior0(bp, X[:, :, 0])

@@ -63,9 +63,6 @@ def smc_sample(bp: MPBP, nparticles: int, generator=None, mesh=None,
     if mesh is not None:
         raise NotImplementedError("sharded SMC over a device mesh is not "
                                   "ported yet (ROADMAP Queue 1 item 9)")
-    if bp.tables.time_varying:
-        raise NotImplementedError("time-varying tables are not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
     gen = _default_generator(bp, generator)
     N, T1 = bp.N, bp.T + 1
     P = nparticles
@@ -79,7 +76,7 @@ def smc_sample(bp: MPBP, nparticles: int, generator=None, mesh=None,
     X[:, :, 0] = x
     lztot = 0.0
     for t in range(1, T1):
-        x = torch.cat([_step(bp, nbr, x[lo:lo + n], gen)
+        x = torch.cat([_step(bp, nbr, x[lo:lo + n], gen, t - 1)
                        for lo in range(0, P, n)])
         X[:, :, t] = x
         logw = logw + _obs_logw(bp, x, t)

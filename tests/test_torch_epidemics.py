@@ -74,17 +74,31 @@ def test_sirs_buckets_form_one_group_each():
         assert np.array_equal(gidx, idx) and P.shape == (1, Kb, 2, 2, 2, 3)
 
 
-@pytest.mark.parametrize("ctor", [
-    lambda g: tsirs.periodic_mpbp_sirs(tsirs.SIRS(g, **SIRS_ARGS), D=4),
-    lambda g: tsirs.mpbp_stationary_sirs(tsirs.SIRS(g, **SIRS_ARGS)),
-    lambda g: tsirs.mpbp_sirs(tsirs.SIRS(g, **SIRS_ARGS), D=4,
-                              periodic=True),
-    lambda g: thet.periodic_mpbp_sis_heterogeneous(
-        thet.SISHeterogeneous(g, **_het_args(g)), D=4),
-    lambda g: periodic_mpbp_sis(SIS(g, 0.3, 0.2, T=2), D=4),
-    lambda g: mpbp_stationary_sis(SIS(g, 0.3, 0.2, T=2)),
+@pytest.mark.parametrize("ctor,stationary", [
+    (lambda g: tsirs.periodic_mpbp_sirs(tsirs.SIRS(g, **SIRS_ARGS), D=4,
+                                        device="cpu"), False),
+    (lambda g: tsirs.mpbp_stationary_sirs(tsirs.SIRS(g, **SIRS_ARGS)), True),
+    (lambda g: tsirs.mpbp_sirs(tsirs.SIRS(g, **SIRS_ARGS), D=4,
+                               periodic=True, device="cpu"), False),
+    (lambda g: thet.periodic_mpbp_sis_heterogeneous(
+        thet.SISHeterogeneous(g, **_het_args(g)), D=4, device="cpu"), False),
+    (lambda g: periodic_mpbp_sis(SIS(g, 0.3, 0.2, T=2), D=4, device="cpu"),
+     False),
+    (lambda g: mpbp_stationary_sis(SIS(g, 0.3, 0.2, T=2)), True),
 ], ids=["sirs-periodic", "sirs-stationary", "sirs-flag", "het-periodic",
         "sis-periodic", "sis-stationary"])
-def test_unported_constructors_raise(ctor):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ctor(tp.graph_from_edges(*TREE))
+def test_unported_constructors_raise(ctor, stationary):
+    """The stationary constructors still raise, naming ROADMAP Queue 1 item
+    6; the periodic ones (ported with item 6) build a trace-closed state
+    that sweeps to finite, normalised beliefs."""
+    g = tp.graph_from_edges(*TREE)
+    if stationary:
+        with pytest.raises(NotImplementedError, match="item 6"):
+            ctor(g)
+        return
+    bp = ctor(g)
+    assert bp.periodic and tp.is_periodic(bp)
+    bp, _, _ = tp.iterate(bp, maxiter=2, trunc=tp.TruncBond(4), tol=0.0)
+    b = tp.beliefs(bp)
+    assert bool(torch.isfinite(b).all())
+    np.testing.assert_allclose(b.sum(-1).numpy(), 1.0, rtol=1e-12)

@@ -157,7 +157,9 @@ def test_build_tables_bit_equal(kind):
 
 def test_build_tables_y_pad_and_unported_time_varying():
     """With Y padded to 4, SIS's OR would merge states 0 and 1 onto y = 2
-    and 3: the port zeroes those entries of ``Pyy``, JAX does not."""
+    and 3: the port zeroes those entries of ``Pyy``, JAX does not.  The
+    time-varying tables (ported with ROADMAP Queue 1 item 6) of the same
+    specs stack JAX's slices bit for bit."""
     jg, tg = _graphs(*HUB)
     js, ts = _specs("sis", jg, tg)
     tt, jt = tp.build_tables(tg, ts, Y_pad=4), \
@@ -172,8 +174,12 @@ def test_build_tables_y_pad_and_unported_time_varying():
         np.testing.assert_array_equal(getattr(tt, name).numpy(), want)
     with pytest.raises(ValueError, match="Y_pad"):
         tp.build_tables(tg, ts, Y_pad=1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tp.build_tables_t(tg, [[s] * 3 for s in ts])
+    tt_t = tp.build_tables_t(tg, [[s] * 3 for s in ts])
+    jt_t = jfactors.build_tables_t(jg, [[s] * 3 for s in js])
+    assert tt_t.time_varying and tt_t.ydims == jt_t.ydims
+    for name in TABLES:
+        np.testing.assert_array_equal(getattr(tt_t, name).numpy(),
+                                      np.asarray(getattr(jt_t, name)))
 
 
 @pytest.mark.parametrize("mode", ["diff", "sum"])

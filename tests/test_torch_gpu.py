@@ -1,6 +1,8 @@
 """Each CUDA kernel against its plain version on the card: the scan kernels
 (f64 at small shapes, 1e-10, the three merge F kernels at its edge shapes;
-f32 at the bench shape and, for the staged merge F kernel, at the sketch
+f32 at the bench shape, all three with one ``Pyy`` a step too (and bit for
+bit with a stacked table as with the shared one), and, for the staged
+merge F kernel, at the sketch
 merges of D = 4 to 15 (one to three blocks an SM), for the cluster one at
 D = 16, 17 (odd sl), 20 and one DL != DB, 1e-4 of the plain output's
 max-abs; D=20 takes the cluster merge F kernel; both merge W kernels at
@@ -49,15 +51,27 @@ def _randn(g, *shape):
     return torch.randn(shape, generator=g, dtype=torch.float64)
 
 
-def _merge_case(Bn, S, DL, DB, Y, q, sr, sl, dtype, dev, variant=None):
+def _merge_case(Bn, S, DL, DB, Y, q, sr, sl, dtype, dev, variant=None,
+                pyy="shared"):
     """(kernel outputs, plain outputs): Ws, Ns, Ms; ``variant`` forces the
-    merge F kernel."""
+    merge F kernel.  ``pyy``: "shared" (one [Y, Y, Y, q] table,
+    ``pyy_step`` 0), "steps" (one random table a step, [S, Y, Y, Y, q],
+    ``pyy_step`` Y^3 q), "stacked" (the shared table repeated a step) or
+    "expanded" (the shared table viewed over S with stride 0, ``pyy_step``
+    0)."""
     g = torch.Generator().manual_seed(0)
     L = _randn(g, Bn, S + 1, DL, DL, Y, q).to(dev, dtype)
     B = _randn(g, Bn, S + 1, DB, DB, Y, q).to(dev, dtype)
     Th = _randn(g, S, sr, sr, Y, Y, q).to(dev, dtype)
     Pyy = torch.rand((Y, Y, Y, q), generator=g, dtype=torch.float64) \
         .to(dev, dtype)
+    if pyy == "steps":
+        Pyy = torch.rand((S, Y, Y, Y, q), generator=g,
+                         dtype=torch.float64).to(dev, dtype)
+    elif pyy == "stacked":
+        Pyy = Pyy.expand((S,) + Pyy.shape).contiguous()
+    elif pyy == "expanded":
+        Pyy = Pyy.expand((S,) + Pyy.shape)
     Phi = _randn(g, S, sl, sl, Y, q).to(dev, dtype)
     S0 = _randn(g, Bn, sl, DL, DB).to(dev, dtype)
     L1, B1 = L[:, 1:], B[:, 1:]
@@ -126,7 +140,8 @@ def staged_builds():
     """Build the staged and the cluster merge F kernels at every shape below
     at once (each shape is its own build)."""
     if torch.cuda.is_available():
-        shapes = [(*d.values(), torch.float64) for d, _ in MERGE_F64]
+        shapes = [(*d.values(), torch.float64) for d, _ in MERGE_F64] + [
+            (*_sketch_dims(4).values(), torch.float64)]
         fs.build_merge_f(shapes, "cluster")
         shapes += [(*_sketch_dims(D).values(), torch.float32)
                    for D in MERGE_F32_D + [10]]
@@ -175,8 +190,8 @@ def test_merge_f_cluster_refuses_another_shape(cuda):
     lib = build.library("merge_f_cluster", fs.merge_f_cluster_macros(
         *_sketch_dims(20).values(), torch.float32))
     strides = fs._strides(torch.empty(1, 1, 8, 8, 2, 2))
-    rc = lib.merge_f_cluster(0, strides, 0, strides, 0, 0, 0, 0, 0, 0, 1, 1,
-                             8, 8, 2, 2, 8, 12, 1024, 0)
+    rc = lib.merge_f_cluster(0, strides, 0, strides, 0, 0, 0, 0, 0, 0, 0, 1,
+                             1, 8, 8, 2, 2, 8, 12, 1024, 0)
     assert rc == 1
     assert lib.merge_f_cluster_occupancy(fs.merge_f_geometry(
         *_sketch_dims(20).values(), torch.float32)[2]) >= 1
@@ -190,8 +205,8 @@ def test_merge_f_staged_refuses_another_shape(cuda):
     lib = build.library("merge_f_staged", fs.merge_f_staged_macros(
         *dims.values(), torch.float32))
     strides = fs._strides(torch.empty(1, 1, 8, 8, 2, 2))
-    rc = lib.merge_f_staged(0, strides, 0, strides, 0, 0, 0, 0, 0, 0, 1, 1,
-                            8, 8, 2, 2, 8, 12, 1024, 0)
+    rc = lib.merge_f_staged(0, strides, 0, strides, 0, 0, 0, 0, 0, 0, 0, 1,
+                            1, 8, 8, 2, 2, 8, 12, 1024, 0)
     assert rc == 1
 
 
@@ -201,6 +216,89 @@ def test_merge_f_d20_takes_the_cluster_kernel(cuda):
                                cuda), 1e-4)
     assert fs.merge_fscan.variant_launches == {
         **before, "cluster": before["cluster"] + 1}
+
+
+# time-varying tables: each merge F kernel reads one Pyy a step
+# (pyy_step = Y^3 q), held to the plain scan at the f64 edge shapes
+# (1e-10: S=1, S=2, odd sl, Y=3, q=1, D=10) and at the f32 sketch merges it
+# is picked for (1e-4 of max-abs: staged D=10, cluster D=20)
+MERGE_F_TV64 = [MERGE_F64[k] for k in (0, 2, 3, 4, 6, 7, 8)]
+
+
+@pytest.mark.parametrize("variant", ["staged", "base", "cluster"])
+@pytest.mark.parametrize("dims,S", MERGE_F_TV64)
+def test_merge_f_per_step_pyy_f64(cuda, dims, S, variant):
+    before = fs.merge_fscan.tv_launches[variant]
+    _assert_close(*_merge_case(7, S, **dims, dtype=torch.float64, dev=cuda,
+                               variant=variant, pyy="steps"), None)
+    assert fs.merge_fscan.tv_launches[variant] == before + 1
+
+
+@pytest.mark.parametrize("D,variant", [(10, "staged"), (20, "cluster")])
+def test_merge_f_per_step_pyy_f32_sketch_shapes(cuda, D, variant):
+    before = dict(fs.merge_fscan.tv_launches)
+    _assert_close(*_merge_case(32, 15, **_sketch_dims(D),
+                               dtype=torch.float32, dev=cuda, pyy="steps"),
+                  1e-4)
+    assert fs.merge_fscan.tv_launches == {**before,
+                                          variant: before[variant] + 1}
+
+
+@pytest.mark.parametrize("variant", ["staged", "base", "cluster"])
+@pytest.mark.parametrize("dtype,D", [(torch.float64, 4),
+                                     (torch.float32, 10)])
+def test_merge_f_stacked_pyy_bit_equal_to_shared(cuda, variant, dtype, D):
+    """One table repeated a step (pyy_step = Y^3 q) gives every kernel's
+    outputs bit for bit as the shared table (pyy_step = 0) does."""
+    if variant == "cluster" and dtype == torch.float32:
+        D = 20
+    dims = _sketch_dims(D)
+    shared, _ = _merge_case(16, 6, **dims, dtype=dtype, dev=cuda,
+                            variant=variant)
+    stacked, _ = _merge_case(16, 6, **dims, dtype=dtype, dev=cuda,
+                             variant=variant, pyy="stacked")
+    torch.cuda.synchronize()
+    for a, b in zip(shared, stacked):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", ["staged", "base", "cluster"])
+def test_merge_f_expanded_pyy_takes_the_shared_build(cuda, variant):
+    """A shared table viewed over S with stride 0 (how the sweep hands
+    constant tables on) reads as one table: no launch counts as a
+    time-varying one, and the outputs are the shared table's bit for
+    bit."""
+    D = 20 if variant == "cluster" else 10
+    dims = _sketch_dims(D)
+    shared, _ = _merge_case(16, 6, **dims, dtype=torch.float32, dev=cuda,
+                            variant=variant)
+    before = dict(fs.merge_fscan.tv_launches)
+    expanded, _ = _merge_case(16, 6, **dims, dtype=torch.float32, dev=cuda,
+                              variant=variant, pyy="expanded")
+    torch.cuda.synchronize()
+    assert fs.merge_fscan.tv_launches == before
+    for a, b in zip(shared, expanded):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", ["staged", "cluster"])
+def test_merge_f_build_refuses_the_other_pyy_step(cuda, variant):
+    """A per-shape build for one shared table (no ``MF_TV``) refuses a
+    ``pyy_step``, and a time-varying build (``MF_TV=1``) refuses 0, with
+    cudaErrorInvalidValue before anything is launched."""
+    from matrixproductbp_tpu_torch.ops import build
+    dims = tuple(_sketch_dims(20 if variant == "cluster" else 10).values())
+    strides = fs._strides(torch.empty(1, 1, 8, 8, 2, 2))
+    macros = {"staged": fs.merge_f_staged_macros,
+              "cluster": fs.merge_f_cluster_macros}[variant]
+    for tv, step in ((False, 16), (True, 0)):
+        m = macros(*dims, torch.float32, tv)
+        assert ("MF_TV=1" in m) == tv
+        lib = build.library("merge_f_" + variant, m)
+        launch = getattr(lib, "merge_f_" + variant)
+        rc = launch(0, strides, 0, strides, 0, step, 0, 0, 0, 0, 0, 1, 1,
+                    *dims, 1024, 0)
+        assert rc == 1
 
 
 # merge W in f64 (1e-10): the two small shapes, S=1 (the one-hot W_{T1}
@@ -867,3 +965,32 @@ def test_belief_lognorms_sketch_on_the_kernels(cuda, monkeypatch):
     ref = tp.belief_lognorms(bp, trunc=tp.TruncBond(6), method="sketch")
     assert bool(torch.isfinite(lz).all())
     assert float((lz - ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("m,n", [(100, 64), (64, 100), (128, 128)])
+def test_f64_svd_on_the_card_takes_gesvd(cuda, m, n):
+    """float64 SVDs on the card (every periodic compress and conversion in
+    f64, and the f64 ``qr`` sweeps) take cuSOLVER's ``gesvd``: singular
+    values within 1e-12 of the host's (relative to the largest), the
+    factors orthonormal and reproducing M to 1e-12, on Gaussian matrices
+    and on the Kronecker product of a matrix with itself, whose singular
+    values come in exactly equal pairs."""
+    from matrixproductbp_tpu_torch.ops import tensortrain as tt
+    g = torch.Generator().manual_seed(m + n)
+    A = _randn(g, 3, m, n)
+    a = _randn(g, 3, 10, 10)
+    K = torch.einsum("bij,bkl->bikjl", a, a).reshape(3, 100, 100)
+    for M in (A, K):
+        before = dict(tt.batched_svd.calls)
+        U, S, Vh = tt.batched_svd(M.to(cuda))
+        assert tt.batched_svd.calls["linalg"] == before["linalg"] + 1
+        U, S, Vh = U.cpu(), S.cpu(), Vh.cpu()
+        ref = torch.linalg.svdvals(M)
+        top = ref[:, :1]
+        assert float(((S - ref).abs() / top).max()) <= 1e-12
+        k = S.shape[-1]
+        eye = torch.eye(k, dtype=M.dtype)
+        assert float((U.mT @ U - eye).abs().max()) <= 1e-12
+        assert float((Vh @ Vh.mT - eye).abs().max()) <= 1e-12
+        rec = (U * S[..., None, :]) @ Vh
+        assert float(((rec - M).abs() / top[..., None]).max()) <= 1e-12

@@ -173,14 +173,28 @@ def test_iterate_options_run(kwargs):
 
 
 def test_unported_modes_raise():
+    """The modes of ROADMAP Queue 1 item 6 run (they raised before it was
+    ported): a periodic SIS state sweeps to normalised beliefs, and tables
+    stacked to a time axis (one slice a step) sweep as the constant ones
+    do."""
     g = tp.graph_from_edges(3, [(0, 1), (1, 2)])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mpbp_sis(SIS(g, 0.2, 0.1, T=2), D=3, periodic=True, device="cpu")
+    bp = mpbp_sis(SIS(g, 0.2, 0.1, T=2), D=3, periodic=True, device="cpu")
+    b = tp.beliefs(tp.bp_sweep(bp, tp.TruncBond(3)))
+    assert bp.periodic and bool(torch.isfinite(b).all())
+    np.testing.assert_allclose(b.sum(-1).numpy(), 1.0, rtol=1e-12)
     _, tb = _sis_pair()
+    T1 = tb.T + 1
+    t = tb.tables
     tv = dataclasses.replace(tb, tables=dataclasses.replace(
-        tb.tables, Py=tb.tables.Py[:, None].expand(-1, 4, -1, -1, -1)))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tp.bp_sweep(tv, tp.TruncBond(4))
+        t, Py=t.Py[:, None].expand(-1, T1, -1, -1, -1),
+        Pyp=t.Pyp[:, :, None].expand(-1, -1, T1, -1, -1, -1, -1),
+        Pxy=t.Pxy[:, :, None].expand(-1, -1, T1, -1, -1, -1),
+        Pyy=t.Pyy[:, :, None].expand(-1, -1, T1, -1, -1, -1, -1),
+        Py0=t.Py0[:, None].expand(-1, T1, -1, -1)))
+    np.testing.assert_allclose(
+        tp.beliefs(tp.bp_sweep(tv, tp.TruncBond(4))).numpy(),
+        tp.beliefs(tp.bp_sweep(tb, tp.TruncBond(4))).numpy(), rtol=0,
+        atol=1e-12)
 
 
 @pytest.mark.parametrize("method", ["sketch", "qr", "randomized"])

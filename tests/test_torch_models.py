@@ -184,15 +184,28 @@ def test_spins_and_energy_match_jax():
 
 @pytest.mark.parametrize("ctor", ["periodic", "stationary", "flag"])
 def test_unported_constructors_raise(ctor):
+    """The stationary constructor still raises, naming ROADMAP Queue 1 item
+    6; both periodic ones (ported with item 6) build the JAX package's
+    trace-closed state, whose first sweep matches its own (1e-10)."""
     g = tp.graph_from_edges(*TREE)
     gl = tglauber.Glauber(tglauber.Ising(g, [0.5] * 3, H), 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        if ctor == "periodic":
-            tglauber.periodic_mpbp_glauber(gl, D=4, device="cpu")
-        elif ctor == "stationary":
+    if ctor == "stationary":
+        with pytest.raises(NotImplementedError, match="item 6"):
             tglauber.mpbp_stationary_glauber(gl, D=4)
-        else:
-            tglauber.mpbp_glauber(gl, D=4, periodic=True, device="cpu")
+        return
+    if ctor == "periodic":
+        tb = tglauber.periodic_mpbp_glauber(gl, D=4, device="cpu")
+    else:
+        tb = tglauber.mpbp_glauber(gl, D=4, periodic=True, device="cpu")
+    jgl = jglauber.Glauber(jglauber.Ising(mp.graph_from_edges(*TREE),
+                                          [0.5] * 3, H), 2)
+    jb = jglauber.periodic_mpbp_glauber(jgl, D=4)
+    assert tb.periodic and tb.tables.yy_off == jb.tables.yy_off
+    tb = tp.bp_sweep(tb, tp.TruncBond(4))
+    jb = mp.bp_sweep(jb, mp.TruncBond(4))
+    np.testing.assert_allclose(tp.beliefs(tb).numpy(),
+                               np.asarray(mp.beliefs(jb)), rtol=0,
+                               atol=1e-10)
 
 
 def test_equilibrium_oracles_match_jax():

@@ -100,7 +100,8 @@ def _close(a, b, tol=TOL):
 
 def test_tensortrain_observables_match_jax():
     """normalization, twovar_marginals (all and maxdist) and bond_ranks of
-    the same random trains; rand_tt's bond pattern and positivity."""
+    the same random trains; rand_tt's bond pattern and positivity, and
+    its periodic rings (no boundary rows)."""
     from matrixproductbp_tpu.ops import tensortrain as jtt
     g = torch.Generator().manual_seed(3)
     t = tp.rand_tt(g, 5, 4, (2, 3), bond=3)
@@ -122,8 +123,8 @@ def test_tensortrain_observables_match_jax():
            jtt.twovar_marginals(jts[0], maxdist=2))
     np.testing.assert_array_equal(tp.bond_ranks(tt, tol=1e-12)[0],
                                   [1, 3, 3, 3, 3])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tp.rand_tt(g, 3, 2, (2,), periodic=True)
+    ring = tp.rand_tt(g, 3, 2, (2,), periodic=True)
+    assert ring.periodic and (ring.cores[0, 1:] > 0).any()
 
 
 # ---------------------------------------------------------------------------
