@@ -21,10 +21,14 @@ lockdown lowers lam at t=8; tables from ``build_tables_t``) at D=10 and
 D=20, every merge F launch reading one ``prob_yy`` a step; periodic SIS on
 a 3-regular graph of 1024 nodes, T=10, D=8, ``qr``; the modes' accuracy
 gates (the infinite 3-regular graph's golden vector and the time-varying
-tree against enumeration; periodic SIS on a path reported); and the
+tree against enumeration; periodic SIS on a path reported); the
 scale target, SIS on an Erdos-Renyi graph of 10^5 nodes, T=50, D=10, swept
-in place by ``bigsweep.bp_sweep_flat``), checks the results, and times each
-kernel beside its bound.
+in place by ``bigsweep.bp_sweep_flat``; the stationary (T -> infinity)
+mode in f64, SIS on the infinite 3-regular graph to its golden fixed point
+and against long-horizon finite T, bipartite against regular, Glauber and
+SIRS on a path on the card against the host; and the checkpoint API, the
+D=10 bench state saved three times, restored bit for bit and swept),
+checks the results, and times each kernel beside its bound.
 Each path runs with the launch counts set to 0 just before it and read
 just after.  One JSON line per phase; any failed phase raises.
 The second-to-last line is the ``kernels`` record, the line before it the
@@ -120,6 +124,21 @@ TOL_GOLDEN_RTOL = 2e-8
 TOL_INF_K4, INF_K4_MAXITER = 1e-6, 150
 TOL_PERIODIC_EXACT = 1e-10
 TOL_TV_QR, TOL_TV_SKETCH = 1e-9, 1e-3
+# the stationary (T -> infinity) mode, f64: SIS (lam, rho, alpha) on the
+# infinite 3-regular graph; the golden fixed point of
+# tests/test_stationary.py:108-129 (TruncVUMPS(12), tol 1e-14); the
+# long-horizon comparison of :78-105 (TruncVUMPS(8, refine=4) against
+# finite-T BP at T=96, D=8, read at t=48); bipartite (3, 3) against
+# regular; Glauber and SIRS on the 3-node path on the card against the
+# host
+STAT_LAM, STAT_RHO, STAT_ALPHA = 0.1, 0.2, 0.05
+STAT_GOLDEN_BS, TOL_STAT_GOLDEN, TOL_STAT_F = 0.5600047320179407, 1e-9, 1e-7
+STAT_LONG_T, STAT_LONG_D = 96, 8
+TOL_STAT_LONG, TOL_STAT_OVERLAP = 3e-4, 1e-5
+TOL_STAT_BIPARTITE, TOL_STAT_HOST = 1e-10, 1e-8
+# checkpoints of the sketch D=10 bench state after one sweep: three
+# asynchronous saves kept two at a time, the latest restored
+CKPT_SAVES, CKPT_KEEP = 3, 2
 # one randomized sweep at the bench shape: 3 merge calls (one bucket, K=3,
 # the direct all-pairs cavity), each with one CholQR per time step 0..T-1
 # and one SVD per step of its truncating sweep; the message and belief
@@ -2408,6 +2427,209 @@ def phase_modes_accuracy():
     return res
 
 
+def timed_stationary(sbp, **kw):
+    """``iterate_stationary`` on the card: (state, iterations, deltas,
+    overlaps, wall seconds, SVD batches by route)."""
+    import torch
+    from matrixproductbp_tpu_torch import stationary as st
+    from matrixproductbp_tpu_torch.ops import tensortrain
+    svd0 = dict(tensortrain.batched_svd.calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sbp, it, deltas, overlaps = st.iterate_stationary(sbp, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    svd = {k: v - svd0[k] for k, v in tensortrain.batched_svd.calls.items()}
+    return sbp, it, deltas, overlaps, wall, svd
+
+
+def phase_stationary_modes():
+    """The stationary mode on the card, f64: (a) the golden fixed point
+    (sweeps, s/sweep; device launches and busy seconds of one profiled
+    sweep after the gate); (b) against long-horizon finite-T BP (``qr``)
+    at t = T/2;
+    (c) the bipartite (3, 3) fixed point against the regular one; (d)
+    stationary Glauber (J=0.4, h=0.1, beta=0.7) and SIRS (flat phi: the
+    default's phi(R) = 0 at every step leaves only the all-susceptible
+    state) on the 3-node path, on the card and on the host."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch import stationary as st
+    from matrixproductbp_tpu_torch.tools import probe_stationary
+    from matrixproductbp_tpu_torch.models import (Glauber, Ising, SIRS,
+                                                  SISFactorSpec,
+                                                  mpbp_stationary_glauber,
+                                                  mpbp_stationary_sirs)
+    res = {}
+    t0 = time.perf_counter()
+    tables = tp.build_tables(tp.infinite_regular_graph(3), [SISFactorSpec(
+        STAT_LAM, STAT_RHO, alpha=STAT_ALPHA)])
+    gold = st.TruncVUMPS(12)
+    reg, it, _, ov, wall, svd = timed_stationary(
+        st.mpbp_stationary_infinite_graph(3, tables), maxiter=200,
+        trunc=gold, tol=1e-14)
+    b_reg = st.beliefs_stationary(reg)
+    F = st.bethe_free_energy_stationary(reg)
+    res["golden"] = {"sweeps": it, "s": wall, "s_per_sweep": wall / it,
+                     "b_S": float(b_reg[0, 0]),
+                     "err": abs(float(b_reg[0, 0]) - STAT_GOLDEN_BS),
+                     "free_energy": F, "last_overlap": ov[-1],
+                     "svd_batches_per_sweep": {k: v / it
+                                               for k, v in svd.items()}}
+    check(res["golden"]["err"] <= TOL_STAT_GOLDEN and abs(F) < TOL_STAT_F,
+          f"stationary golden fixed point: {res['golden']}")
+    t1 = time.perf_counter()
+    n, busy, top = probe_stationary.device_launches(
+        lambda: st.iterate_stationary(reg, maxiter=1, trunc=gold, tol=0.0))
+    res["golden"].update(launches_per_sweep=n, device_busy_s=busy,
+                         top_launches=top,
+                         profile_s=time.perf_counter() - t1)
+
+    t1 = time.perf_counter()
+    stat, it, deltas, ov, wall, _ = timed_stationary(
+        st.mpbp_stationary_infinite_graph(3, tables), maxiter=120,
+        trunc=st.TruncVUMPS(STAT_LONG_D, refine=4), tol=1e-10)
+    b_stat = st.beliefs_stationary(stat)[0]
+    T = STAT_LONG_T
+    phi = np.ones((1, T + 1, 2))
+    phi[0, 0] = [0.9, 0.1]
+    bp = tp.mpbp_infinite_graph(3, tables, T, D=STAT_LONG_D, phi=phi)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bp, fit, _ = tp.iterate(bp, maxiter=60, trunc=tp.TruncBond(STAT_LONG_D),
+                            tol=1e-10)
+    b_late = tp.beliefs(bp)[0, T // 2].cpu().numpy()
+    fwall = time.perf_counter() - t2
+    res["long_horizon"] = {
+        "sweeps": it, "s": wall, "s_per_sweep": wall / it,
+        "last_delta": deltas[-1], "last_overlap": ov[-1],
+        "finite_T_sweeps": fit, "finite_T_s": fwall,
+        "err": float(np.abs(b_stat - b_late).max()),
+        "phase_s": time.perf_counter() - t1}
+    check(res["long_horizon"]["err"] <= TOL_STAT_LONG
+          and res["long_horizon"]["last_overlap"] < TOL_STAT_OVERLAP,
+          f"stationary vs long-horizon finite T: {res['long_horizon']}")
+
+    bip, it, _, _, wall, _ = timed_stationary(
+        st.mpbp_stationary_infinite_bipartite_graph((3, 3), tables),
+        maxiter=200, trunc=gold, tol=1e-14)
+    res["bipartite"] = {
+        "sweeps": it, "s": wall,
+        "err": float(np.abs(st.beliefs_stationary(bip) - b_reg).max())}
+    check(it < 200 and res["bipartite"]["err"] <= TOL_STAT_BIPARTITE,
+          f"stationary bipartite vs regular: {res['bipartite']}")
+
+    path = tp.graph_from_edges(3, [(0, 1), (1, 2)])
+    host = {}
+    for name, make in (
+            ("glauber", lambda dev: mpbp_stationary_glauber(Glauber(Ising(
+                path, J=[0.4] * 2, h=[0.1] * 3, beta=0.7), T=0), D=4,
+                device=dev)),
+            ("sirs", lambda dev: mpbp_stationary_sirs(SIRS(
+                path, lam=0.3, rho=0.2, sigma=0.15, T=0, alpha=0.05,
+                phi=np.ones((3, 1, 3))), D=4, device=dev))):
+        b = {}
+        for dev in ("cuda", "cpu"):
+            sbp, it, _, _ = st.iterate_stationary(
+                make(dev), maxiter=40, trunc=st.TruncVUMPS(6), tol=1e-12)
+            b[dev] = st.beliefs_stationary(sbp)
+        host[name] = {"sweeps": it, "err": float(np.abs(b["cuda"]
+                                                         - b["cpu"]).max())}
+    res["card_vs_host"] = host
+    res["seconds"] = time.perf_counter() - t0
+    emit("stationary_modes", **res)
+    check(all(h["err"] <= TOL_STAT_HOST for h in host.values()),
+          f"stationary card vs host: {host}")
+    return res
+
+
+def _same_leaves(a, b):
+    """Names of the state and table leaves where ``a`` and ``b`` differ."""
+    import torch
+    from matrixproductbp_tpu_torch import convert
+    bad = [n for n in convert._STATE_LEAVES
+           if not torch.equal(getattr(a, n), getattr(b, n))]
+    bad += [n for n in convert._TABLE_LEAVES
+            if not torch.equal(getattr(a.tables, n), getattr(b.tables, n))]
+    return bad
+
+
+def phase_checkpoint_bench():
+    """The sketch D=10 bench state after one sweep saved CKPT_SAVES times
+    through a ``CheckpointManager`` (keep=CKPT_KEEP) in a temporary
+    directory: seconds each ``save`` blocks and each ``wait`` takes, the
+    file size, the load seconds; the latest restored bit for bit on the
+    card, and one sweep of the restored state and of the original (the
+    same seeded sketches) compared.  A small periodic and a small
+    time-varying state round-trip through ``save_checkpoint``."""
+    import os
+    import tempfile
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.models import (SIS, SISFactorSpec,
+                                                  periodic_mpbp_sis)
+    t0 = time.perf_counter()
+    trunc = tp.TruncBond(10)
+    bp = tp.bp_sweep(bench_state(10, torch.float32), trunc, method="sketch")
+    torch.cuda.synchronize()
+    res = {"state_bytes": sum(getattr(bp, n).nbytes for n in (
+        "msg_cores", "msg_logz", "bel_cores", "bel_logz", "f", "phi",
+        "psi"))}
+    with tempfile.TemporaryDirectory() as d:
+        mgr = tp.CheckpointManager(os.path.join(d, "run"), keep=CKPT_KEEP)
+        block, wait = [], []
+        for step in range(CKPT_SAVES):
+            t1 = time.perf_counter()
+            mgr.save(step, bp, extra={"sweeps": 1})
+            t2 = time.perf_counter()
+            mgr.wait()
+            block.append(t2 - t1)
+            wait.append(time.perf_counter() - t2)
+        steps = mgr.all_steps()
+        res["file_bytes"] = os.path.getsize(
+            os.path.join(mgr.directory, f"ckpt_{steps[-1]}.npz"))
+        t1 = time.perf_counter()
+        bp2, meta = mgr.restore()
+        torch.cuda.synchronize()
+        res.update(save_block_s=block, wait_s=wait,
+                   load_s=time.perf_counter() - t1, steps_kept=steps)
+        check(steps == list(range(CKPT_SAVES))[-CKPT_KEEP:]
+              and meta["step"] == CKPT_SAVES - 1
+              and meta["extra"] == {"sweeps": 1},
+              f"checkpoint manager: steps {steps}, meta {meta}")
+        check(bp2.device == bp.device and not _same_leaves(bp, bp2),
+              f"restored state differs: {_same_leaves(bp, bp2)}")
+        reset_counts()
+        a = tp.bp_sweep(bp, trunc, method="sketch")
+        b = tp.bp_sweep(bp2, trunc, method="sketch")
+        torch.cuda.synchronize()
+        res["sweep_launches"] = read_counts()
+        res["next_sweep_bit_equal"] = not _same_leaves(a, b)
+        res["next_sweep_max_abs"] = {
+            n: float((getattr(a, n) - getattr(b, n)).abs().max())
+            for n in ("msg_cores", "bel_cores", "f")}
+        g = tp.random_regular_graph(64, 3, np.random.default_rng(1))
+        small = {
+            "periodic": periodic_mpbp_sis(SIS(g, 0.2, 0.1, T=5, gamma=0.3),
+                                          D=4, dtype=torch.float32),
+            "time_varying": tp.mpbp(g, tp.build_tables_t(g, [[SISFactorSpec(
+                0.2 if t < 3 else 0.05, 0.1) for t in range(6)]] * g.N),
+                5, 4, phi=SIS(g, 0.2, 0.1, T=5, gamma=0.3).default_phi(),
+                dtype=torch.float32)}
+        for name, sb in small.items():
+            sb = tp.bp_sweep(sb, tp.TruncBond(4), method="qr")
+            path = tp.save_checkpoint(os.path.join(d, name), sb, step=1)
+            back, _ = tp.load_checkpoint(path)
+            check(back.periodic == sb.periodic and not _same_leaves(sb, back),
+                  f"{name} state round trip: {_same_leaves(sb, back)}")
+    res["seconds"] = time.perf_counter() - t0
+    emit("checkpoint_bench", **res)
+    check(res["next_sweep_bit_equal"]
+          or max(res["next_sweep_max_abs"].values()) <= 1e-6,
+          f"restored state's sweep: {res['next_sweep_max_abs']}")
+    return res
+
+
 def tv_kernel_times(tv, reps=10):
     """The merge F kernels of the time-varying sweeps at their bench shape
     ([8192, 15], one random ``Pyy`` a step): the staged kernel at D=10 and
@@ -2745,6 +2967,8 @@ def main():
     phase_periodic_sis_rrg()
     phase_modes_accuracy()
     scale = phase_scale_er_1e5()
+    phase_stationary_modes()
+    phase_checkpoint_bench()
     # the kernels record: every kernel that a main path launches, each at
     # the bench shape of the sweep that launches it (merge_f_kernel, which
     # no main path takes any more, is timed in its phase lines alone)

@@ -19,8 +19,11 @@ oracles (``exact``), the observation builders, the soft-margin sampler
 (``sampling``) and SMC (``smc``) read a state on its device.  Time-varying
 tables (``build_tables_t``), periodic (trace-closed) states
 (``periodic_mpbp``, ``periodic=True``) and the symmetry-collapsed infinite
-graphs of ``infinite`` run through the same calls.  The hand-written CUDA
-kernels (``csrc/*.cu``: the
+graphs of ``infinite`` run through the same calls.  ``stationary`` runs the
+T -> infinity mode on uniform single-core messages (``mpbp_stationary*``,
+``iterate_stationary``), and ``checkpoint`` saves and restores a state in
+the JAX package's file format (``CheckpointManager`` writes
+asynchronously).  The hand-written CUDA kernels (``csrc/*.cu``: the
 sketch sweep's four time scans, the randomized merge's CholQR, and the
 batched Jacobi eigensolver behind the card's small SVDs) are built with
 ``nvcc`` at first use; on CPU tensors their plain PyTorch versions run
@@ -60,6 +63,12 @@ from .infinite import (infinite_regular_graph, infinite_bipartite_graph,
                        mpbp_infinite_graph, periodic_mpbp_infinite_graph,
                        mpbp_infinite_bipartite_graph,
                        bethe_free_energy_infinite_bipartite)
+from .stationary import (TruncVUMPS, UniformMessage, mpbp_stationary,
+                         mpbp_stationary_infinite_graph,
+                         mpbp_stationary_infinite_bipartite_graph,
+                         iterate_stationary, beliefs_stationary,
+                         bethe_free_energy_stationary)
+from .checkpoint import save_checkpoint, load_checkpoint, CheckpointManager
 from .utils import mean_with_uncertainty
 from . import bigsweep
 from . import exact
@@ -94,6 +103,11 @@ __all__ = [
     "periodic_mpbp", "infinite_regular_graph", "infinite_bipartite_graph",
     "mpbp_infinite_graph", "periodic_mpbp_infinite_graph",
     "mpbp_infinite_bipartite_graph", "bethe_free_energy_infinite_bipartite",
+    "TruncVUMPS", "UniformMessage", "mpbp_stationary",
+    "mpbp_stationary_infinite_graph",
+    "mpbp_stationary_infinite_bipartite_graph", "iterate_stationary",
+    "beliefs_stationary", "bethe_free_energy_stationary",
+    "save_checkpoint", "load_checkpoint", "CheckpointManager",
     "bp_sweep", "bp_sweep_chunked", "iterate", "beliefs", "beliefs_tu",
     "pair_beliefs", "pair_beliefs_as_tt", "pair_beliefs_as_mpem",
     "pair_lognorms", "belief_lognorms", "bethe_free_energy_pair",

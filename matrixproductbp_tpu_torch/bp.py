@@ -147,11 +147,6 @@ class MPBP:
         return self.msg_cores.device
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 def mpbp(graph: Graph, tables: RecursiveFactorTables, T: int, D: int,
          phi=None, psi=None, dtype=torch.float64, periodic: bool = False,
          qs=None, device=None) -> MPBP:

@@ -28,14 +28,20 @@ _GRAPH_LEAVES = ("edge_src", "edge_dst", "rev_edge", "in_edges", "in_mask",
                  "nbr", "degree")
 
 
-def to_numpy_state(bp: MPBP, step: int = 0) -> dict:
-    """All arrays of ``bp`` as host numpy, plus the JSON ``meta`` entry."""
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def to_numpy_state(bp: MPBP, step: int = 0, extra: dict | None = None
+                   ) -> dict:
+    """Host copies of all arrays of ``bp`` (later changes to ``bp`` do not
+    reach them), plus the JSON ``meta`` entry carrying ``step`` and the
+    JSON-serialisable ``extra``."""
     arrays = {}
     for name in _STATE_LEAVES:
-        arrays["state." + name] = getattr(bp, name).detach().cpu().numpy()
+        arrays["state." + name] = _host_copy(getattr(bp, name))
     for name in _TABLE_LEAVES:
-        arrays["tables." + name] = getattr(bp.tables, name).detach().cpu() \
-            .numpy()
+        arrays["tables." + name] = _host_copy(getattr(bp.tables, name))
     for name in _GRAPH_LEAVES:
         arrays["graph." + name] = np.asarray(getattr(bp.graph, name))
     tb = bp.tables
@@ -49,7 +55,7 @@ def to_numpy_state(bp: MPBP, step: int = 0) -> dict:
         "graph.infinite": bool(bp.graph.infinite),
         "tables.yy_off": tb.yy_off,
         "tables.ydims": list(tb.ydims) if tb.ydims is not None else None,
-        "extra": {},
+        "extra": extra or {},
     }
     arrays["meta"] = np.frombuffer(json.dumps(meta).encode("utf-8"),
                                    dtype=np.uint8)

@@ -1,7 +1,7 @@
 """Model families: Glauber/Ising dynamics, epidemics (SIS, SIRS,
 heterogeneous SIS), equilibrium oracles and inference metrics; counterpart
-of ``matrixproductbp_tpu/models``.  The stationary constructors raise
-``NotImplementedError`` naming their ROADMAP item."""
+of ``matrixproductbp_tpu/models``.  SIS, SIRS and Glauber also have
+stationary (T -> infinity, ``stationary.py``) constructors."""
 
 from .sis import (SIS, SISFactorSpec, sis_tables, mpbp_sis,
                   periodic_mpbp_sis, mpbp_stationary_sis, SUSCEPTIBLE,

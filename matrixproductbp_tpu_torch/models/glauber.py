@@ -22,9 +22,10 @@ import numpy as np
 
 import torch
 
-from ..bp import MPBP, _not_ported, mpbp
+from ..bp import MPBP, mpbp
 from ..factors import FactorSpec, TraceFactorSpec, build_tables
 from ..graph import Graph
+from ..stationary import mpbp_stationary
 
 __all__ = ["Ising", "Glauber", "potts2spin", "spin2potts", "energy",
            "HomogeneousGlauberFactorSpec", "PMJGlauberFactorSpec",
@@ -282,7 +283,12 @@ def periodic_mpbp_glauber(gl: Glauber, D: int, force: str | None = None,
 
 
 def mpbp_stationary_glauber(gl: Glauber, D: int = 1,
-                            force: str | None = None):
-    """Reference ``mpbp_stationary(::Glauber)``: not ported yet
-    (``stationary.py``)."""
-    raise _not_ported("stationary Glauber states", 6)
+                            force: str | None = None, device=None):
+    """Reference ``mpbp_stationary(::Glauber)`` (``glauber_bp.jl:110-116``)
+    on ``device`` (default: the CUDA card)."""
+    specs = glauber_factor_specs(gl.ising, force)
+    tables = build_tables(gl.ising.graph, specs)
+    phi0 = None if gl.phi is None else np.asarray(gl.phi)[:, 0, :]
+    psi0 = None if gl.psi is None else np.asarray(gl.psi)[:, 0]
+    return mpbp_stationary(gl.ising.graph, tables, D=D, phi=phi0, psi=psi0,
+                           device=device)

@@ -12,9 +12,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..bp import MPBP, _not_ported, mpbp
+from ..bp import MPBP, mpbp
 from ..factors import FactorSpec, build_tables
 from ..graph import Graph
+from ..stationary import mpbp_stationary
 from .sis import SUSCEPTIBLE, INFECTIOUS
 
 RECOVERED = 2
@@ -108,6 +109,13 @@ def periodic_mpbp_sirs(sirs: SIRS, D: int, dtype=torch.float64,
     return mpbp_sirs(sirs, D, dtype=dtype, periodic=True, device=device)
 
 
-def mpbp_stationary_sirs(sirs: SIRS, D: int = 1):
-    """Stationary SIRS state: not ported yet (``stationary.py``)."""
-    raise _not_ported("stationary SIRS states", 6)
+def mpbp_stationary_sirs(sirs: SIRS, D: int = 1, device=None):
+    """Stationary SIRS state on ``device`` (default: the CUDA card): the
+    pattern of ``mpbp_stationary(::SIS)`` applied to SIRS."""
+    spec = SIRSFactorSpec(sirs.lam, sirs.rho, sirs.sigma, sirs.alpha)
+    tables = build_tables(sirs.graph, [spec] * sirs.graph.N)
+    phi = sirs.phi if sirs.phi is not None else sirs.default_phi()
+    psi0 = None if sirs.psi is None else np.asarray(sirs.psi)[:, 0]
+    return mpbp_stationary(sirs.graph, tables, D=D,
+                           phi=np.asarray(phi)[:, 0, :], psi=psi0,
+                           device=device)

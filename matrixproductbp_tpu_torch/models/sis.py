@@ -14,9 +14,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..bp import MPBP, _not_ported, mpbp
+from ..bp import MPBP, mpbp
 from ..factors import FactorSpec, RecursiveFactorTables
 from ..graph import Graph
+from ..stationary import mpbp_stationary
 
 SUSCEPTIBLE = 0
 INFECTIOUS = 1
@@ -142,7 +143,13 @@ def periodic_mpbp_sis(sis: SIS, D: int, dtype=torch.float64,
     return mpbp_sis(sis, D, dtype=dtype, periodic=True, device=device)
 
 
-def mpbp_stationary_sis(sis: SIS, D: int = 1):
-    """Reference ``mpbp_stationary(::SIS)``: not ported yet
-    (``stationary.py``)."""
-    raise _not_ported("stationary SIS states", 6)
+def mpbp_stationary_sis(sis: SIS, D: int = 1, device=None):
+    """Reference ``mpbp_stationary(::SIS)`` (``sis_bp.jl:55-58``): the
+    stationary (T -> infinity uniform) state on ``device`` (default: the
+    CUDA card), reweighted by the model's t=0 ``phi`` and ``psi``."""
+    tables = sis_tables(sis.graph, sis.lam, sis.rho, sis.alpha)
+    phi = sis.phi if sis.phi is not None else sis.default_phi()
+    psi0 = None if sis.psi is None else np.asarray(sis.psi)[:, 0]
+    return mpbp_stationary(sis.graph, tables, D=D,
+                           phi=np.asarray(phi)[:, 0, :], psi=psi0,
+                           device=device)

@@ -21,8 +21,10 @@ import matrixproductbp_tpu as mp
 from matrixproductbp_tpu.models import equilibrium as jeq
 from matrixproductbp_tpu.models import glauber as jglauber
 from matrixproductbp_tpu.models import inference as jinf
+from matrixproductbp_tpu import stationary as jstat
 import matrixproductbp_tpu_torch as tp
 from matrixproductbp_tpu_torch import exact
+from matrixproductbp_tpu_torch import stationary as tstat
 from matrixproductbp_tpu_torch.models import equilibrium as teq
 from matrixproductbp_tpu_torch.models import glauber as tglauber
 from matrixproductbp_tpu_torch.models import inference as tinf
@@ -184,21 +186,32 @@ def test_spins_and_energy_match_jax():
 
 @pytest.mark.parametrize("ctor", ["periodic", "stationary", "flag"])
 def test_unported_constructors_raise(ctor):
-    """The stationary constructor still raises, naming ROADMAP Queue 1 item
-    6; both periodic ones (ported with item 6) build the JAX package's
-    trace-closed state, whose first sweep matches its own (1e-10)."""
+    """Every constructor beside ``mpbp_glauber`` builds the JAX package's
+    state: both periodic ones a trace-closed state whose first sweep
+    matches its own (1e-10), the stationary one (ported with
+    ``stationary.py``) a state whose three sweeps match its own (beliefs
+    and ``f``, 1e-9)."""
     g = tp.graph_from_edges(*TREE)
     gl = tglauber.Glauber(tglauber.Ising(g, [0.5] * 3, H), 2)
+    jgl = jglauber.Glauber(jglauber.Ising(mp.graph_from_edges(*TREE),
+                                          [0.5] * 3, H), 2)
     if ctor == "stationary":
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tglauber.mpbp_stationary_glauber(gl, D=4)
+        tb = tglauber.mpbp_stationary_glauber(gl, D=4, device="cpu")
+        jb = jglauber.mpbp_stationary_glauber(jgl, D=4)
+        tb, _, _, _ = tstat.iterate_stationary(
+            tb, maxiter=3, trunc=tstat.TruncVUMPS(4), tol=0.0)
+        jb, _, _, _ = jstat.iterate_stationary(
+            jb, maxiter=3, trunc=jstat.TruncVUMPS(4), tol=0.0)
+        np.testing.assert_allclose(tstat.beliefs_stationary(tb),
+                                   jstat.beliefs_stationary(jb), rtol=0,
+                                   atol=1e-9)
+        np.testing.assert_allclose(tb.f.numpy(), np.asarray(jb.f), rtol=0,
+                                   atol=1e-9)
         return
     if ctor == "periodic":
         tb = tglauber.periodic_mpbp_glauber(gl, D=4, device="cpu")
     else:
         tb = tglauber.mpbp_glauber(gl, D=4, periodic=True, device="cpu")
-    jgl = jglauber.Glauber(jglauber.Ising(mp.graph_from_edges(*TREE),
-                                          [0.5] * 3, H), 2)
     jb = jglauber.periodic_mpbp_glauber(jgl, D=4)
     assert tb.periodic and tb.tables.yy_off == jb.tables.yy_off
     tb = tp.bp_sweep(tb, tp.TruncBond(4))
