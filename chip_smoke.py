@@ -27,8 +27,13 @@ in place by ``bigsweep.bp_sweep_flat``; the stationary (T -> infinity)
 mode in f64, SIS on the infinite 3-regular graph to its golden fixed point
 and against long-horizon finite T, bipartite against regular, Glauber and
 SIRS on a path on the card against the host; and the checkpoint API, the
-D=10 bench state saved three times, restored bit for bit and swept),
-checks the results, and times each kernel beside its bound.
+D=10 bench state saved three times, restored bit for bit and swept; the
+multi-rank layer, the D=10 bench state swept by halo exchange on one NCCL
+rank and on two gloo ranks sharing the card, and SMC on the observed
+inference tree split over the two ranks, each against one device; the
+scale graph's host build by the C++ builder and by numpy; and the
+roofline report), checks the results, and times each kernel beside its
+bound.
 Each path runs with the launch counts set to 0 just before it and read
 just after.  One JSON line per phase; any failed phase raises.
 The second-to-last line is the ``kernels`` record, the line before it the
@@ -139,6 +144,15 @@ TOL_STAT_BIPARTITE, TOL_STAT_HOST = 1e-10, 1e-8
 # checkpoints of the sketch D=10 bench state after one sweep: three
 # asynchronous saves kept two at a time, the latest restored
 CKPT_SAVES, CKPT_KEEP = 3, 2
+# the multi-rank layer: the sketch D=10 bench state swept by halo exchange
+# on one NCCL rank, and on two gloo ranks sharing the card (NCCL refuses
+# two ranks on one card), against bp_sweep from the same state; SMC over
+# the two ranks on the observed inference tree against one device; the
+# scale graph's host build, native against numpy; the roofline report
+HALO_SWEEPS = 3
+TOL_HALO_BELIEFS, TOL_HALO_F_REL = 1e-5, 1e-4
+TOL_SMC_SHARDED_RTOL = 1e-6
+NATIVE_N, NATIVE_M = 10 ** 5, 150_000
 # one randomized sweep at the bench shape: 3 merge calls (one bucket, K=3,
 # the direct all-pairs cavity), each with one CholQR per time step 0..T-1
 # and one SVD per step of its truncating sweep; the message and belief
@@ -176,8 +190,15 @@ KARATE_EDGES = [
 ]
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **kv):
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One JSON line: the phase's record and ``at_s``, the seconds since
+    the script started (the differences of ``at_s`` are each phase's
+    share of the time limit)."""
+    print(json.dumps({"phase": phase, **kv,
+                      "at_s": time.perf_counter() - _START}), flush=True)
 
 
 def check(cond: bool, what: str):
@@ -224,19 +245,19 @@ def banded_merge_inputs(Bn, S, DL, DB, Y, q, sr, sl, device, seed, off=0):
     return L[:, 1:], B[:, 1:], Th, Pyy, Phi, S_init
 
 
-def merge_inputs(Bn, S, DL, DB, Y, q, sr, sl, dtype, device, seed,
-                 gen="cpu"):
-    """Random merge-scan inputs; L1/B1 are strided views as in the sweep.
-    ``gen``: the device that draws them (the card for the large ones)."""
+def merge_inputs(Bn, S, DL, DB, Y, q, sr, sl, dtype, device, seed):
+    """Random merge-scan inputs, drawn on ``device`` (the bench shapes' f64
+    draws take minutes on the host); L1/B1 are strided views as in the
+    sweep."""
     import torch
-    g = torch.Generator(device=gen).manual_seed(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
     r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64,  # noqa
-                               device=gen)
+                               device=device)
     L = r(Bn, S + 1, DL, DL, Y, q).to(device, dtype)
     B = r(Bn, S + 1, DB, DB, Y, q).to(device, dtype)
     Th = r(S, sr, sr, Y, Y, q).to(device, dtype)
     Pyy = torch.rand((Y, Y, Y, q), generator=g, dtype=torch.float64,
-                     device=gen).to(device, dtype)
+                     device=device).to(device, dtype)
     Phi = r(S, sl, sl, Y, q).to(device, dtype)
     S_init = r(Bn, sl, DL, DB).to(device, dtype)
     return L[:, 1:], B[:, 1:], Th, Pyy, Phi, S_init
@@ -249,16 +270,15 @@ def mpem3_layout_of(qj):
     return "ijrmn" if qj > 1 else "mnijr"
 
 
-def mpem3_inputs(Bn, S, Db, qi, qj, sr, sl, dtype, device, seed,
-                 gen="cpu"):
+def mpem3_inputs(Bn, S, Db, qi, qj, sr, sl, dtype, device, seed):
     """Random MPEM3-scan inputs; B1 is the view the sweep hands over
     (:func:`mpem3_layout_of`): the permuted time-major one of the message
     path or the contiguous one of the belief path, without its first
-    step.  ``gen`` as in :func:`merge_inputs`."""
+    step.  Drawn on ``device``, as :func:`merge_inputs`'s."""
     import torch
-    g = torch.Generator(device=gen).manual_seed(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
     r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64,  # noqa
-                               device=gen)
+                               device=device)
     if mpem3_layout_of(qj) == "ijrmn":
         B3f = r(S + 1, Bn, qi * qj * qi * Db * Db).to(device, dtype)
         B1 = B3f.reshape(S + 1, Bn, qi, qj, qi, Db, Db) \
@@ -2016,7 +2036,7 @@ def scale_kernel_times(res, reps=3):
     Kb = res["largest_bucket"][0]
     md = merge_dims(D)
     L1, B1, Th, Pyy, Phi, S_init = merge_inputs(
-        n, S, **md, dtype=torch.float32, device=dev, seed=61, gen=dev)
+        n, S, **md, dtype=torch.float32, device=dev, seed=61)
     Ws = fs.merge_wscan(L1, B1, Th)
     cases = [
         ("merge_w_staged", lambda: fs.merge_wscan(L1, B1, Th),
@@ -2050,7 +2070,7 @@ def scale_kernel_times(res, reps=3):
     del L1, B1, Th, Pyy, Phi, S_init, Ws
     torch.cuda.empty_cache()
     for r in mpem3_kernel_times(res["launches"], D, reps, S=S,
-                                batches=(Kb * n, n), gen=dev,
+                                batches=(Kb * n, n),
                                 launches_from="scale_er_1e5"):
         rows.append({**r, "name": r["name"] + "_t50"})
     return rows
@@ -2630,6 +2650,301 @@ def phase_checkpoint_bench():
     return res
 
 
+@contextlib.contextmanager
+def one_rank_group(backend):
+    """This process as the one rank of a ``backend`` process group."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(backend, store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def halo_sweeps(st, trunc):
+    """:data:`HALO_SWEEPS` halo sweeps of ``st``, each timed to a device
+    synchronize, with the launch counts set to 0 just before and read
+    just after and the plain scans counted: (state, record)."""
+    import torch
+    from matrixproductbp_tpu_torch.parallel import halo_sweep
+    times = []
+    reset_counts()
+    with count_plain_scans() as plain:
+        for _ in range(HALO_SWEEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = halo_sweep(st, trunc, method="sketch")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return st, {"s_per_sweep": times, "launches": read_counts(),
+                "plain_scan_calls": dict(plain), "rows_sent": st.rows_sent,
+                "cut": st.plan.cut, "Nloc": st.plan.Nloc,
+                "Eloc": st.plan.Eloc}
+
+
+def phase_halo_sis_rrg_1rank():
+    """The sketch D=10 bench state swept :data:`HALO_SWEEPS` times by
+    ``bp_sweep`` and, from the same state, by ``halo_sweep`` on this
+    process as the one rank of an NCCL group (no cut: nothing exchanged),
+    each sweep timed; beliefs within 1e-5 and the free energy within 1e-4
+    (relative) of the ``bp_sweep``s', the same launches by kernel, no
+    plain scan.  Returns the reference beliefs and free energy."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.parallel import (
+        halo_beliefs, halo_bethe_free_energy, halo_mpbp)
+    t_phase = time.perf_counter()
+    trunc = tp.TruncBond(10)
+    bp0 = bench_state(10, torch.float32)
+    ref, times = bp0, []
+    reset_counts()
+    for _ in range(HALO_SWEEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = tp.bp_sweep(ref, trunc, method="sketch")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    bp_launches = read_counts()
+    b_ref, f_ref = tp.beliefs(ref), float(tp.bethe_free_energy(ref))
+    with one_rank_group("nccl"):
+        st = halo_mpbp(bp0)
+        st, res = halo_sweeps(st, trunc)
+        b, f = halo_beliefs(st, bp0.graph), float(halo_bethe_free_energy(st))
+    res.update(backend="nccl", ranks=1, sweeps=HALO_SWEEPS,
+               bp_sweep_s_per_sweep=times, bp_sweep_launches=bp_launches,
+               belief_diff=float((b - b_ref).abs().max()), f=f, f_ref=f_ref,
+               f_diff=abs(f - f_ref), seconds=time.perf_counter() - t_phase)
+    emit("halo_sis_rrg_1rank", **res)
+    check(not any(res["plain_scan_calls"].values())
+          and res["launches"] == bp_launches,
+          f"halo_sis_rrg_1rank: launches {res['launches']} against "
+          f"bp_sweep's {bp_launches}, plain {res['plain_scan_calls']}")
+    check(res["belief_diff"] <= TOL_HALO_BELIEFS
+          and res["f_diff"] <= TOL_HALO_F_REL * max(1.0, abs(f_ref)),
+          f"halo_sis_rrg_1rank: off bp_sweep: {res}")
+    return {"beliefs": b_ref.cpu().numpy(), "f": f_ref,
+            "launches": bp_launches}
+
+
+def observed_tree(n=INFER_N, device="cuda"):
+    """The observed inference tree of ``inference_tree_run``: the same
+    graph, model and 256 soft observations (drawn from the prior with the
+    same seeds, so its ``phi`` is that phase's), on the card (``n`` and
+    ``device``: a smaller tree elsewhere, for a rehearsal)."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch import sampling
+    from matrixproductbp_tpu_torch.models import SIS, mpbp_sis
+    g = tp.random_tree(n, np.random.default_rng(0))
+    bp = mpbp_sis(SIS(g, lam=0.2, rho=0.1, T=INFER_T, gamma=0.3),
+                  D=INFER_D, dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    bpo, _, _ = sampling.draw_node_observations(
+        bp, nobs=INFER_NOBS, rng=np.random.default_rng(1),
+        softinf=INFER_SOFTINF, generator=gen)
+    return bpo
+
+
+def _digest(X):
+    import hashlib
+    return hashlib.sha256(X.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def halo_smc_rank(rank, world, ref_path):
+    """One of the gloo ranks of :func:`phase_halo_smc_2rank`: the bench
+    state's halo sweeps (BFS partition) held to the single-device
+    sweeps' beliefs and free energy, then sharded SMC on the observed tree
+    held to the single-device run's rows of this rank; returns the
+    record."""
+    import torch
+    import torch.distributed as dist
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch import smc
+    from matrixproductbp_tpu_torch.parallel import (
+        halo_beliefs, halo_bethe_free_energy, halo_mpbp)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = np.load(ref_path)
+    bp0 = bench_state(10, torch.float32)
+    g = bp0.graph
+    t0 = time.perf_counter()
+    st = halo_mpbp(bp0)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    del bp0
+    st, res = halo_sweeps(st, tp.TruncBond(10))
+    b = halo_beliefs(st, g).cpu().numpy()
+    f = float(halo_bethe_free_energy(st))
+    cells = st.msg_cores[0].numel() + 1          # cores and logz a row
+    res.update(setup_s=setup,
+               bytes_sent_per_sweep=st.rows_sent * cells * 4,
+               belief_diff=float(np.abs(b - ref["beliefs"]).max()),
+               f=f, f_diff=abs(f - float(ref["f"])))
+    del st
+    torch.cuda.empty_cache()
+
+    bpo = observed_tree()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sms = smc.smc_sample(bpo, INFER_PARTICLES, generator=gen,
+                         group=dist.group.WORLD)
+    torch.cuda.synchronize()
+    rows = smc.particle_range(INFER_PARTICLES, rank, world)
+    lw_ref = torch.as_tensor(ref["smc_logw"][rows.start:rows.stop])
+    lw = sms.logw.cpu()
+    res["smc"] = {
+        "seconds": time.perf_counter() - t0, "rows": [rows.start, rows.stop],
+        "X_equal": _digest(sms.X) == str(ref["smc_digests"][rank]),
+        "rows_differing": int((row_signature(sms.X).cpu().numpy()
+                               != ref["smc_rowsig"][rows.start:rows.stop])
+                              .sum()),
+        "logw_max_rel": float(((lw - lw_ref).abs()
+                               / lw_ref.abs().clamp(min=1e-300)).max()),
+        "log_evidence": sms.log_evidence}
+    return res
+
+
+def row_signature(X):
+    """One int64 a trajectory of ``X [P, N, T1]``: its states against
+    fixed random weights (rows differ where the signatures do)."""
+    import torch
+    w = torch.randint(1, 2 ** 31, X.shape[1:], dtype=torch.int64,
+                      generator=torch.Generator().manual_seed(7))
+    return (X.long() * w.to(X.device)).sum(dim=(1, 2))
+
+
+def phase_halo_smc_2rank(ref):
+    """``halo_sis_rrg_2rank`` and ``smc_sharded``: two gloo ranks (spawned:
+    this process has initialised CUDA) sharing the card.  Each takes its
+    block of the bench state by the BFS partition and sweeps it
+    :data:`HALO_SWEEPS` times (the cut, the bytes exchanged a sweep, each
+    sweep timed), gathered beliefs within 1e-5 and the free energy within
+    1e-4 (relative) of the single-device sweeps' (``ref``), each rank's
+    launches those of one device, no plain scan.  Then SMC with
+    :data:`INFER_PARTICLES` particles on the observed inference tree, split
+    over the two ranks, against the same run on one device: ``X`` equal
+    (sha256 of each rank's rows; rows by signature), ``logw`` within rtol
+    1e-6, the same log-evidence."""
+    import os
+    import tempfile
+    import torch
+    from matrixproductbp_tpu_torch import smc
+    from matrixproductbp_tpu_torch.parallel import spawn_ranks
+    t_phase = time.perf_counter()
+    bpo = observed_tree()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sms = smc.smc_sample(bpo, INFER_PARTICLES, generator=gen)
+    torch.cuda.synchronize()
+    smc_s = time.perf_counter() - t0
+    blocks = [smc.particle_range(INFER_PARTICLES, r, 2) for r in range(2)]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ref.npz")
+        np.savez(path, beliefs=ref["beliefs"], f=ref["f"],
+                 smc_logw=sms.logw.cpu().numpy(),
+                 smc_rowsig=row_signature(sms.X).cpu().numpy(),
+                 smc_digests=np.array([_digest(sms.X[r.start:r.stop])
+                                       for r in blocks]))
+        lz_ref = sms.log_evidence
+        del sms, bpo
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(halo_smc_rank, 2, (path,), backend="gloo",
+                            threads=max(1, (os.cpu_count() or 2) // 2),
+                            store_dir=d, timeout=600)
+        spawn_s = time.perf_counter() - t0
+    halo = {k: [r[k] for r in ranks] for k in ranks[0] if k != "smc"}
+    halo.update(backend="gloo", ranks=2, sweeps=HALO_SWEEPS,
+                cut=ranks[0]["cut"], f_ref=ref["f"],
+                bytes_per_sweep=sum(halo["bytes_sent_per_sweep"]),
+                bp_sweep_launches=ref["launches"], spawn_s=spawn_s)
+    emit("halo_sis_rrg_2rank", **halo)
+    sm = {"particles": INFER_PARTICLES, "ranks": [r["smc"] for r in ranks],
+          "single_device_s": smc_s, "log_evidence": lz_ref,
+          "tol_rtol": TOL_SMC_SHARDED_RTOL,
+          "seconds": time.perf_counter() - t_phase}
+    emit("smc_sharded", **sm)
+    for r in ranks:
+        check(not any(r["plain_scan_calls"].values())
+              and r["launches"] == ref["launches"],
+              f"halo_sis_rrg_2rank: launches {r['launches']} against one "
+              f"device's {ref['launches']}, plain {r['plain_scan_calls']}")
+        check(r["belief_diff"] <= TOL_HALO_BELIEFS
+              and r["f_diff"] <= TOL_HALO_F_REL * max(1.0, abs(ref["f"])),
+              f"halo_sis_rrg_2rank: off bp_sweep: {halo}")
+    check(sum(halo["rows_sent"]) == halo["cut"] > 0,
+          f"halo_sis_rrg_2rank: rows sent {halo['rows_sent']}, cut "
+          f"{halo['cut']}")
+    for r in sm["ranks"]:
+        check(r["X_equal"] and r["rows_differing"] == 0
+              and r["logw_max_rel"] <= TOL_SMC_SHARDED_RTOL
+              and abs(r["log_evidence"] - lz_ref)
+              <= TOL_SMC_SHARDED_RTOL * max(1.0, abs(lz_ref)),
+              f"smc_sharded: off the single-device run: {sm}")
+
+
+def phase_native_graph():
+    """The host build of ``erdos_renyi_gnm(10^5, 1.5 10^5)``'s arrays
+    (the scale phase's graph) by the C++ builder and by numpy, in turns
+    (native, numpy, numpy, native), beside the time g++ takes to build the
+    library (a fresh build into a new directory under ``_build/``: the
+    run's own copy was built at its first use); the arrays equal."""
+    import os
+    import shutil
+    import tempfile
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch import native
+    from matrixproductbp_tpu_torch.ops.build import BUILD_DIR
+    check(native.load() is not None,
+          "native_graph: the C++ builder did not build")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fresh = tempfile.mkdtemp(prefix="native_timing_", dir=BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        native._compile(os.path.join(fresh, "libgraphbuild.so"))
+        build_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(fresh, ignore_errors=True)
+    g = tp.erdos_renyi_gnm(NATIVE_N, NATIVE_M, np.random.default_rng(0))
+    pairs = np.stack([g.edge_src, g.edge_dst], 1)[g.edge_src < g.edge_dst]
+    times, graphs = {True: [], False: []}, {}
+    for nat in (True, False, False, True):
+        t0 = time.perf_counter()
+        graphs[nat] = tp.graph_from_edges(NATIVE_N, pairs, native=nat)
+        times[nat].append(time.perf_counter() - t0)
+    same = all(np.array_equal(getattr(graphs[True], k),
+                              getattr(graphs[False], k))
+               for k in ("edge_src", "edge_dst", "rev_edge", "in_edges",
+                         "in_mask", "nbr", "degree"))
+    res = {"N": NATIVE_N, "E": g.E, "build_s": build_s,
+           "native_s": times[True], "numpy_s": times[False],
+           "arrays_equal": same}
+    emit("native_graph", **res)
+    check(same, "native_graph: native and numpy arrays differ")
+
+
+def phase_roofline():
+    """``utils.profiling.roofline_report`` on the sketch D=10 bench state
+    (3 timed sweeps): the FLOP model's rate and its share of the H100's
+    fp32 peak."""
+    import math
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.utils.profiling import roofline_report
+    rep = roofline_report(bench_state(10, torch.float32), tp.TruncBond(10),
+                          method="sketch", reps=3)
+    emit("roofline", D=10, **rep)
+    check(math.isfinite(rep["h100_f32_utilization"])
+          and rep["sweep_seconds"] > 0, f"roofline: {rep}")
+
+
 def tv_kernel_times(tv, reps=10):
     """The merge F kernels of the time-varying sweeps at their bench shape
     ([8192, 15], one random ``Pyy`` a step): the staged kernel at D=10 and
@@ -2792,8 +3107,7 @@ MPEM3_LINES = {"w": ":508", "f": ":545"}
 
 
 def mpem3_kernel_times(launches, D, reps, qi=2, launches_from=None,
-                       S=BENCH_T, batches=(BENCH_N * BENCH_DEG, BENCH_N),
-                       gen="cpu"):
+                       S=BENCH_T, batches=(BENCH_N * BENCH_DEG, BENCH_N)):
     """The staged MPEM3 W and F kernels (the sweep's) and the first designs
     (``mpem3_w_kernel``, ``mpem3_f_kernel``) at both conversions of the
     sketch sweep at bond D and q = ``qi`` (2: SIS, 3: SIRS), on the same
@@ -2802,8 +3116,7 @@ def mpem3_kernel_times(launches, D, reps, qi=2, launches_from=None,
     the row's own numbers) and the belief conversion (``batches[1]``,
     [4096, 15]; under ``beliefs``); each beside its bound and its plain
     version's time.  One row a scan, named after the staged kernel; the
-    first design's times as ``base_ms``.  ``gen``: the device that draws
-    the inputs."""
+    first design's times as ``base_ms``."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
@@ -2811,7 +3124,7 @@ def mpem3_kernel_times(launches, D, reps, qi=2, launches_from=None,
     for Bn, qj, key in ((batches[0], qi, None), (batches[1], 1, "beliefs")):
         pd = mpem3_dims(D, qi=qi, qj=qj)
         Bm, Psi, PhiM, SiM = mpem3_inputs(Bn, S, **pd, dtype=torch.float32,
-                                          device=dev, seed=12 + qj, gen=gen)
+                                          device=dev, seed=12 + qj)
         WsM = fs.mpem3_wscan_plain(Bm, Psi)
         scans = {
             "w": ({v: (lambda v=v: fs.mpem3_wscan(Bm, Psi, _variant=v))
@@ -2969,6 +3282,9 @@ def main():
     scale = phase_scale_er_1e5()
     phase_stationary_modes()
     phase_checkpoint_bench()
+    phase_halo_smc_2rank(phase_halo_sis_rrg_1rank())
+    phase_native_graph()
+    phase_roofline()
     # the kernels record: every kernel that a main path launches, each at
     # the bench shape of the sweep that launches it (merge_f_kernel, which
     # no main path takes any more, is timed in its phase lines alone)

@@ -23,7 +23,11 @@ graphs of ``infinite`` run through the same calls.  ``stationary`` runs the
 T -> infinity mode on uniform single-core messages (``mpbp_stationary*``,
 ``iterate_stationary``), and ``checkpoint`` saves and restores a state in
 the JAX package's file format (``CheckpointManager`` writes
-asynchronously).  The hand-written CUDA kernels (``csrc/*.cu``: the
+asynchronously).  ``parallel`` partitions the graph and sweeps it over
+``torch.distributed`` ranks by halo exchange (``halo_mpbp``,
+``halo_sweep``), and ``smc_sample(group=)`` splits SMC's particles over
+ranks; ``graph_from_edges`` builds with the C++ builder of ``native`` where
+g++ builds it.  The hand-written CUDA kernels (``csrc/*.cu``: the
 sketch sweep's four time scans, the randomized merge's CholQR, and the
 batched Jacobi eigensolver behind the card's small SVDs) are built with
 ``nvcc`` at first use; on CPU tensors their plain PyTorch versions run
@@ -74,6 +78,7 @@ from . import bigsweep
 from . import exact
 from . import sampling
 from . import smc
+from . import parallel
 from .convert import from_numpy_state, to_numpy_state
 from .exact import (exact_prob, site_marginals, exact_marginals,
                     exact_pair_marginals, exact_alternate_marginals,
@@ -118,6 +123,7 @@ __all__ = [
     "nstates", "CB_BP", "resolve_device", "pair_observations_directed",
     "pair_observations_nondirected", "pair_obs_undirected_to_directed",
     "mean_with_uncertainty", "bigsweep", "exact", "sampling", "smc",
+    "parallel",
     "from_numpy_state", "to_numpy_state", "exact_prob", "site_marginals",
     "exact_marginals", "exact_pair_marginals", "exact_alternate_marginals",
     "exact_autocorrelations", "exact_autocovariances",

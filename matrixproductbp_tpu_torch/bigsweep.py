@@ -22,8 +22,8 @@ import dataclasses
 
 import torch
 
-from .bp import (_Sweep, _Update, _check_sweep_options, _sweep, graph_arrays,
-                 resolve_device)
+from .bp import (_Sweep, _Update, _buckets, _check_sweep_options, _sweep,
+                 graph_arrays, resolve_device)
 from .factors import RecursiveFactorTables
 from .graph import Graph
 from .ops.tensortrain import TensorTrain, flat_tt, marginals, normalize
@@ -116,7 +116,8 @@ def bp_sweep_flat(graph: Graph, tables: RecursiveFactorTables,
         fs.bel_logz.index_copy_(0, u.nodes, u.bel_lz)
         fs.f.index_copy_(0, u.nodes, u.f)
 
-    _sweep(sw, graph, src, store, lambda Kb: max(16, chunk // max(1, Kb)),
+    _sweep(sw, _buckets(graph), src, store,
+           lambda Kb: max(16, chunk // max(1, Kb)),
            None, None, trunc, trunc_cav, D, Dcav, damp, method, sketches)
     return fs
 

@@ -574,6 +574,13 @@ def _bucket_y(tb: RecursiveFactorTables, Kb: int) -> int:
     return Yb
 
 
+#: the most nodes a degree bucket of :func:`bp_sweep` may hold for the SVD
+#: methods' direct K = 3 cavity, which triples the merge batch; the JAX
+#: package takes it up to 4096 nodes (bp.py:812), and the merge order
+#: decides what is truncated
+DIRECT_K3_MAX = 4096
+
+
 class _Sweep(NamedTuple):
     """What a node update reads besides the messages."""
     garrays: GraphArrays
@@ -583,6 +590,12 @@ class _Sweep(NamedTuple):
     psi: torch.Tensor | None     # [E, T1, q, q]; None: all ones
     periodic: bool = False       # trace-closed trains
     infinite: bool = False       # edges aliased to several slots
+    #: size of the space ``garrays.out_edges`` and ``psi`` index (None:
+    #: ``E``, the message buffer's; the halo sweep's produce buffer)
+    E_out: int | None = None
+    #: (cores, logz) the old out-messages are read from to damp, indexed
+    #: by out-edge id (None: the source buffer)
+    old: tuple | None = None
 
 
 class _Update(NamedTuple):
@@ -615,13 +628,14 @@ def _group_inputs(sw: _Sweep, idx, Kb: int, Yb: int, src, Pyy_b):
     a stride-0 one where the tables are constant: the one place that tells
     the two apart."""
     ga, tb, E = sw.garrays, sw.tables, sw.E
+    E_out = E if sw.E_out is None else sw.E_out
     msg_c, msg_lz = src
     nb = torch.as_tensor(idx, dtype=torch.int64, device=msg_c.device)
     Nb = len(idx)
     in_m = ga.in_mask[nb][:, :Kb]
     out_e = ga.out_edges[nb][:, :Kb]
     in_idx = ga.in_edges[nb][:, :Kb].clamp(max=E - 1)  # padded: masked
-    out_idx = out_e.clamp(max=E - 1)      # ... and dropped at the store
+    out_idx = out_e.clamp(max=E_out - 1)  # ... and dropped at the store
     T1, q = msg_c.shape[1], tb.q
 
     def nsel(t):
@@ -646,13 +660,16 @@ def _update_nodes(sw: _Sweep, idx, Kb: int, Yb: int, Pyy_b, src,
                   damp: float, method: str, sketches) -> _Update:
     """Update the nodes ``idx`` of a degree bucket (slots Kb, y-axis cropped
     to Yb, shared ``prob_yy`` ``Pyy_b``) from the messages ``src =
-    (cores, logz)``; the old out-messages are read only to damp."""
-    tb, E = sw.tables, sw.E
-    msg_c, msg_lz = src
+    (cores, logz)``; the old out-messages (``sw.old``, else ``src``) are
+    read only to damp."""
+    tb = sw.tables
+    E_out = sw.E if sw.E_out is None else sw.E_out
+    old_c, old_lz = src if sw.old is None else sw.old
     nb, out_e, out_idx, (in_c, in_lz, *rest) = _group_inputs(
         sw, idx, Kb, Yb, src, Pyy_b)
     Nb = len(idx)
-    old = ((msg_c[out_idx], msg_lz[out_idx]) if damp > 0.0 else (None, None))
+    old = ((old_c[out_idx], old_lz[out_idx]) if damp > 0.0
+           else (None, None))
     args = (in_c, in_lz, *old, *rest)
     if method == "sketch" and not sw.periodic:
         out_c, out_lz, bel_c, bel_lz, f = _bucket_update_batched(
@@ -665,9 +682,9 @@ def _update_nodes(sw: _Sweep, idx, Kb: int, Yb: int, Pyy_b, src,
             *args, trunc, trunc_cav, Dm, Dcav, damp,
             "qr" if sw.periodic else method, sketches,
             direct_k3=direct_k3, yy_off=tb.yy_off, periodic=sw.periodic)
-    # padded slots carry out-edge id E and are dropped
+    # padded slots carry out-edge id E_out and are dropped
     flat = out_e.reshape(-1)
-    keep = flat < E
+    keep = flat < E_out
     if sw.infinite:
         # an aliased edge is written by each of its slots: keep the last
         # one (what the JAX package's scatter keeps), so that no two rows
@@ -679,28 +696,37 @@ def _update_nodes(sw: _Sweep, idx, Kb: int, Yb: int, Pyy_b, src,
                    out_lz.reshape(-1)[keep], nb, bel_c, bel_lz, f)
 
 
-def _sweep(sw: _Sweep, graph: Graph, src, store, nodes_per_chunk, rng,
+def _buckets(graph: Graph):
+    """:func:`_degree_buckets` with each bucket's size: [(node_idx, K_b,
+    nodes in the bucket)], what :func:`_sweep` takes."""
+    return [(idx, Kb, len(idx)) for idx, Kb in _degree_buckets(graph)]
+
+
+def _sweep(sw: _Sweep, buckets, src, store, nodes_per_chunk, rng,
            direct_k3_max: int | None, trunc, trunc_cav, Dm: int, Dcav: int,
            damp: float, method: str, sketches):
     """Update every node once, degree bucket by degree bucket.
 
-    Each bucket is permuted by ``rng`` when given (one ``permutation`` a
-    bucket, in bucket order, as the JAX package draws), then cut into
-    chunks of ``nodes_per_chunk(Kb)`` nodes (None: the whole bucket); each
-    chunk is split into its ``prob_yy`` groups, every group reads ``src``,
-    and then ``store`` takes each group's :class:`_Update`.  Where ``src``
-    is the buffer ``store`` writes, later chunks read earlier chunks'
-    messages (Gauss-Seidel).  Buckets above ``direct_k3_max`` nodes take
-    the prefix/suffix folds at K = 3 on the SVD methods."""
+    ``buckets`` are [(node_idx, K_b, width)] (:func:`_buckets`; the halo
+    sweep passes a rank's share of the whole graph's buckets, ``width``
+    their whole size).  Each bucket is permuted by ``rng`` when given (one
+    ``permutation`` a bucket, in bucket order, as the JAX package draws),
+    then cut into chunks of ``nodes_per_chunk(Kb)`` nodes (None: the whole
+    bucket); each chunk is split into its ``prob_yy`` groups, every group
+    reads ``src``, and then ``store`` takes each group's :class:`_Update`.
+    Where ``src`` is the buffer ``store`` writes, later chunks read earlier
+    chunks' messages (Gauss-Seidel).  Buckets of a width above
+    ``direct_k3_max`` take the prefix/suffix folds at K = 3 on the SVD
+    methods."""
     tb = sw.tables
-    for bidx, Kb in _degree_buckets(graph):
+    for bidx, Kb, width in buckets:
         order = bidx if rng is None else rng.permutation(bidx)
         Yb = _bucket_y(tb, Kb)
         groups = _pyy_groups(tb, bidx, Kb, Yb)
         label = np.zeros(len(bidx), np.int64)
         for g, (gidx, _) in enumerate(groups):
             label[np.searchsorted(bidx, gidx)] = g
-        direct_k3 = direct_k3_max is None or len(bidx) <= direct_k3_max
+        direct_k3 = direct_k3_max is None or width <= direct_k3_max
         n = nodes_per_chunk(Kb) if nodes_per_chunk else len(order)
         for lo in range(0, len(order), n):
             ids = order[lo:lo + n]
@@ -735,8 +761,9 @@ def _sweep_state(bp: MPBP, nodes_per_chunk, rng, seidel: bool,
     sw = _Sweep(bp.garrays, bp.tables, bp.graph.E, bp.phi, bp.psi,
                 bp.periodic, bp.graph.infinite)
     src = (new_c, new_lz) if seidel else (bp.msg_cores, bp.msg_logz)
-    _sweep(sw, bp.graph, src, store, nodes_per_chunk, rng, direct_k3_max,
-           trunc, trunc_cav, Dm, Dcav, damp, method, sketches)
+    _sweep(sw, _buckets(bp.graph), src, store, nodes_per_chunk, rng,
+           direct_k3_max, trunc, trunc_cav, Dm, Dcav, damp, method,
+           sketches)
     return dataclasses.replace(bp, msg_cores=new_c, msg_logz=new_lz,
                                bel_cores=bel_c, bel_logz=bel_lz, f=f)
 
@@ -751,11 +778,8 @@ def bp_sweep(bp: MPBP, trunc: SVDTrunc, trunc_cav: SVDTrunc | None = None,
     merges; the sketch method reads only the bond caps.  ``sketches``:
     source of the Gaussian sketches of ``"sketch"`` and ``"randomized"``
     (``ops/stta.py``); default re-seeds a generator with 17 every draw."""
-    # the direct K = 3 cavity triples the merge batch; the JAX package
-    # takes it up to 4096 nodes per bucket (bp.py:812), and the merge
-    # order decides what is truncated
-    return _sweep_state(bp, None, None, False, 4096, trunc, trunc_cav, Dcav,
-                        damp, method, sketches)
+    return _sweep_state(bp, None, None, False, DIRECT_K3_MAX, trunc,
+                        trunc_cav, Dcav, damp, method, sketches)
 
 
 def bp_sweep_chunked(bp: MPBP, trunc: SVDTrunc,

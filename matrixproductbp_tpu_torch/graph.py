@@ -4,8 +4,9 @@ Counterpart of ``matrixproductbp_tpu/graph.py``.  Directed edge ids are
 ordered by ``(dst, src)``; ``in_edges[i]`` lists the edge ids ``k -> i`` in
 ascending neighbour order, padded with the dummy id ``E``; the out-edge paired
 with in-slot ``(i, k)`` is ``rev_edge`` of the in-edge.  The arrays equal the
-JAX package's for the same edges.  The JAX package's C++ graph construction is not
-ported; :func:`graph_from_edges` builds the same arrays with numpy.
+JAX package's for the same edges.  :func:`graph_from_edges` builds them with
+the C++ builder of ``native/`` when it builds (as the JAX package does) and
+otherwise with numpy; both give the same arrays.
 """
 from __future__ import annotations
 
@@ -49,19 +50,33 @@ class Graph:
                 enumerate(zip(self.edge_src, self.edge_dst)) if i < j]
 
 
-def graph_from_edges(N: int, undirected_edges, dmax: int | None = None
-                     ) -> Graph:
-    """Build from a list (or [M, 2] array) of undirected pairs (i, j)."""
+def graph_from_edges(N: int, undirected_edges, dmax: int | None = None,
+                     native: bool | None = None) -> Graph:
+    """Build from a list (or [M, 2] array) of undirected pairs (i, j).
+
+    ``native=None`` takes the C++ builder (``native/graphbuild.cpp``) when
+    its library builds and loads, else numpy; ``True`` raises where the
+    library is unavailable; ``False`` takes numpy.  The arrays are the
+    same either way."""
     arr = np.asarray(list(undirected_edges) if not isinstance(
         undirected_edges, np.ndarray) else undirected_edges, dtype=np.int64)
     if arr.size == 0:
         arr = arr.reshape(0, 2)
     if np.any(arr[:, 0] == arr[:, 1]):
         raise ValueError("self loops not supported")
+    if arr.size and (arr.min() < 0 or arr.max() >= N):
+        raise ValueError(f"edge endpoints must lie in [0, {N})")
     lo = np.minimum(arr[:, 0], arr[:, 1])
     hi = np.maximum(arr[:, 0], arr[:, 1])
     uniq = np.unique(lo * np.int64(N) + hi)
     a, b = uniq // N, uniq % N
+    if native is not False:
+        from . import native as native_mod
+        out = native_mod.build_graph_native(N, np.stack([a, b], 1), dmax)
+        if out is not None:
+            return Graph(N, *out)
+        if native is True:
+            raise RuntimeError("native graph builder unavailable")
     src = np.concatenate([a, b])
     dst = np.concatenate([b, a])
     order = np.lexsort((src, dst))              # by (dst, src)

@@ -47,12 +47,16 @@ def _default_generator(bp: MPBP, generator):
     return torch.Generator(device=bp.device).manual_seed(0)
 
 
-def _draw(p: torch.Tensor, generator) -> torch.Tensor:
+def _draw(p: torch.Tensor, generator, batch: int | None = None,
+          rows: slice = slice(None)) -> torch.Tensor:
     """One state per row of the (unnormalized) weights ``p [..., q]``, by
-    inverse CDF of a uniform."""
+    inverse CDF of a uniform.  With ``batch``, ``p`` holds the rows ``rows``
+    of a batch of that many: the whole batch's uniforms are drawn, and
+    those rows of them used, so a shard draws what the whole batch would."""
     c = p.cumsum(dim=-1)
-    u = torch.rand(p.shape[:-1] + (1,), generator=generator, dtype=p.dtype,
-                   device=p.device) * c[..., -1:]
+    shape = (p.shape[:-1] if batch is None else (batch,) + p.shape[1:-1])
+    u = torch.rand(shape + (1,), generator=generator, dtype=p.dtype,
+                   device=p.device)[rows] * c[..., -1:]
     return (c <= u).sum(dim=-1).clamp(max=p.shape[-1] - 1)
 
 
@@ -62,13 +66,15 @@ def _neighbours(bp: MPBP) -> torch.Tensor:
                            device=bp.device)
 
 
-def _step(bp: MPBP, nbr, x: torch.Tensor, generator, t: int
+def _step(bp: MPBP, nbr, x: torch.Tensor, generator, t: int,
+          batch: int | None = None, rows: slice = slice(None)
           ) -> torch.Tensor:
     """x^{t+1} of every particle from x^t [P, N], one transition with the
-    tables of step t (``sampling.py:57-62``)."""
+    tables of step t (``sampling.py:57-62``); ``batch`` and ``rows`` as
+    :func:`_draw`'s."""
     p = transition_probs(bp.tables.at_time(t), bp.garrays.in_mask,
                          x[:, nbr], x)
-    return _draw(p, generator)
+    return _draw(p, generator, batch, rows)
 
 
 def _obs_logw(bp: MPBP, X: torch.Tensor, t=None) -> torch.Tensor:

@@ -37,6 +37,8 @@ def test_scan_sees_the_package():
         "factors", "ops/sumy", "models/glauber", "models/sirs",
         "models/sis_heterogeneous", "models/inference",
         "models/equilibrium", "observations", "sampling", "smc",
-        "stationary", "checkpoint", "utils/misc", "utils/__init__")} <= names
+        "stationary", "checkpoint", "utils/misc", "utils/__init__",
+        "parallel/partition", "parallel/halo", "native/__init__",
+        "utils/profiling", "entry")} <= names
     assert _forbidden("jax.numpy") and _forbidden("matrixproductbp_tpu.bp")
     assert not _forbidden("matrixproductbp_tpu_torch.bp")

@@ -6,8 +6,10 @@ package's on the same ``logw`` and ``u``; the posterior under strong
 observations lies within 0.03 of enumeration and ``log_evidence`` within
 0.06 of log Z (``tests/test_smc.py:30-39``); resampling keeps the residual
 weights non-degenerate at ``ess_frac=0.9``; with no observations it
-reduces to the prior sampler; a device mesh raises (the sharded SMC waits
-for the multi-device work).
+reduces to the prior sampler.  Split over 2 and 4 gloo ranks (one spawned
+group of 4, rank functions in ``_torch_ranks.py``), SMC draws the
+single-device run's trajectories exactly and its weights to rtol 1e-12,
+and its posterior lies within 0.03 of enumeration.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,9 +17,11 @@ import pytest
 import torch
 
 from matrixproductbp_tpu import smc as jsmc
+import _torch_ranks as R
 import matrixproductbp_tpu_torch as tp
 from matrixproductbp_tpu_torch import exact, sampling, smc
 from matrixproductbp_tpu_torch.models import SISFactorSpec
+from matrixproductbp_tpu_torch.parallel import spawn_ranks
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -32,15 +36,7 @@ def _gen(seed):
     return torch.Generator().manual_seed(seed)
 
 
-def _observed_bp(T=3, seed=3):
-    g = tp.graph_from_edges(4, [(0, 1), (1, 2), (1, 3)])
-    tables = tp.build_tables(g, [SISFactorSpec(lam=0.3, rho=0.25)] * g.N)
-    phi = np.ones((g.N, T + 1, 2))
-    phi[:, 0] = [0.6, 0.4]
-    bp = tp.mpbp(g, tables, T=T, D=8, phi=phi, device="cpu")
-    bp, _, _ = sampling.draw_node_observations(
-        bp, 5, np.random.default_rng(seed), softinf=20.0, generator=_gen(9))
-    return bp
+_observed_bp = R.observed_tree
 
 
 def test_ess_and_systematic_resampling_equal_jax():
@@ -92,6 +88,47 @@ def test_smc_reduces_to_prior_sampler_without_observations():
     assert np.abs(m.numpy() - exact.exact_marginals(bp, p)).max() < 0.04
 
 
-def test_smc_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        smc.smc_sample(_observed_bp(), 8, mesh=object())
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    """{case: [each rank's (X, logw, log_evidence)]} of every sharded run
+    of ``_torch_ranks.SMC_CASES``: one spawned group of 4 gloo ranks, the
+    2-rank run on a subgroup."""
+    res = spawn_ranks(R.smc_cases, 4, threads=1, timeout=600,
+                      store_dir=str(tmp_path_factory.mktemp("ranks")))
+    return {case: [r[case] for r in res] for case in R.SMC_CASES}
+
+
+def _joined(runs, P):
+    runs = [r for r in runs if r is not None]
+    for rank, (X, _, _) in enumerate(runs):
+        assert len(X) == len(smc.particle_range(P, rank, len(runs)))
+    return (np.concatenate([X for X, _, _ in runs]),
+            np.concatenate([lw for _, lw, _ in runs]),
+            [lz for _, _, lz in runs])
+
+
+@pytest.mark.parametrize("case", ["two", "four"])
+def test_smc_sharded_matches_single_device(sharded, case, monkeypatch):
+    """2 and 4 ranks draw the single-device run's trajectories, in batches
+    that straddle the ranks' blocks, through resampling steps."""
+    nranks, P, batch, seed = R.SMC_CASES[case]
+    monkeypatch.setattr(smc, "_STEP_CELLS", batch * 4)
+    ref = smc.smc_sample(_observed_bp(), P, generator=_gen(seed))
+    assert float(smc.effective_sample_size(ref.logw)) < P    # resampled
+    X, logw, lzs = _joined(sharded[case], P)
+    np.testing.assert_array_equal(X, ref.X.numpy())
+    np.testing.assert_allclose(logw, ref.logw.numpy(), rtol=1e-12)
+    assert all(abs(lz - ref.log_evidence) <= 1e-12 * abs(ref.log_evidence)
+               for lz in lzs)
+
+
+def test_smc_sharded_posterior_vs_exact(sharded):
+    nranks, P, _, _ = R.SMC_CASES["posterior"]
+    bp = _observed_bp()
+    X, logw, lzs = _joined(sharded["posterior"], P)
+    p, Z = exact.exact_prob(bp)
+    sms = sampling.SoftMarginSampler(bp, torch.as_tensor(X),
+                                     torch.as_tensor(logw))
+    m, _ = sampling.marginals_mc(sms)
+    assert np.abs(m.numpy() - exact.exact_marginals(bp, p)).max() < 0.03
+    assert all(abs(lz - np.log(Z)) < 0.06 for lz in lzs)
