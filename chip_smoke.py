@@ -9,9 +9,13 @@ drives the main paths (SIS on a random 3-regular graph, N=4096, T=15, f32:
 ``bp_sweep(method="sketch")`` and ``bp_sweep(method="randomized")`` at D=10
 and D=20; the same at N=128 and D=20, one randomized sweep against its
 plain version; a 4-node tree against enumeration, with
-``iterate(polish=2)``; the karate-club graph with two ``qr`` polish
-sweeps; homogeneous Glauber dynamics on an Erdos-Renyi graph, N=5000,
-T=15, D=10, through the banded merge; SIRS on the 3-regular graph at D=10
+``iterate(polish=2)``; the karate-club graph, 10 sketch iterations and
+one ``qr`` polish sweep; homogeneous Glauber dynamics on an Erdos-Renyi
+graph, N=5000, T=15, D=10, through the banded merge, and at the
+reference's D=18, where its K4, K8 and K9 buckets take the streamed merge
+kernels; the streamed merge kernels against the plain scans at the shapes
+no other merge kernel fits (f64 to D=20, f32 D=24, q=3, the Glauber D=18
+buckets), with one f64 D=20 sketch sweep on them; SIRS on the 3-regular graph at D=10
 and D=20, through per-node tables; the bench state swept in chunks, Jacobi
 and in place, against the monolithic sweep; the Glauber state by the
 shuffled Gauss-Seidel ``iterate``; SIS inference on a tree of 4096
@@ -60,11 +64,19 @@ FP64_FLOP_PER_S = 67e12
 
 BENCH_N, BENCH_DEG, BENCH_T = 4096, 3, 15
 # Glauber dynamics on Erdos-Renyi (examples/glauber_erdos_renyi.py's
-# constants; the reference's D=18 does not fit the merge kernels at the
-# graph's Y=10, so D=10)
+# constants), at D=10 and at the reference's own D=18 (TruncBond(18),
+# BASELINE.md:14), where the K4, K8 and K9 buckets' merges take the
+# streamed kernels
 GLAUBER_N, GLAUBER_C, GLAUBER_T, GLAUBER_D = 5000, 2.5, 15, 10
 GLAUBER_J, GLAUBER_H, GLAUBER_BETA = 1.0, 0.1, 0.6
 TIMED_SWEEPS_GLAUBER = 3
+GLAUBER_D18, TIMED_SWEEPS_GLAUBER_D18 = 18, 2
+# the streamed merge kernels held to the plain scans: f64 sketch merges
+# [1024, 15] at D = 16, 18, 20 and DL != DB (1e-10 of max-abs), f32 at the
+# shapes past the shared-memory kernels (1e-4), and forced at two shapes
+# that other kernels take, timed in turns beside them
+REACH_BN = 1024
+REACH_F64_DIMS = [(16, 16, 16), (18, 18, 18), (20, 20, 20), (20, 12, 20)]
 # SIRS on the bench's 3-regular graph, tables from build_tables
 SIRS_LAM, SIRS_RHO, SIRS_SIGMA = 0.2, 0.1, 0.05
 TIMED_SWEEPS_SIRS = {10: 3, 20: 2}
@@ -73,7 +85,10 @@ TIMED_RANDOMIZED_D10, TIMED_RANDOMIZED_D20 = 2, 1
 # the D=20 randomized sweep held to its plain version (the plain Jacobi
 # runs one matrix per launch at k=40, ~7 min at N=4096)
 CHECK_N_D20 = 128
-KARATE_ITERS, POLISH_SWEEPS = 20, 2
+# karate: iterations and polish sweeps, cut from 20 and 2 to make room for
+# the Glauber D=18 and merge-reach phases (both the iterate and the polish
+# are host-bound: ~2 s and ~20 s a sweep on the card's host)
+KARATE_ITERS, POLISH_SWEEPS = 10, 1
 # chunked sweeps of the bench state: chunks of 1024 nodes (the K=3
 # bucket's 4096 in four), and the in-place sweep on the same chunks
 CHUNK_NODES = 1024
@@ -371,12 +386,14 @@ def max_err(a, b):
 
 def run_merge(fs, L1, B1, Th, Pyy, Phi, S_init, plain=False, variant=None):
     """Ws, Ns, Ms through the kernels (``variant`` forces the merge F
-    kernel) or through the plain versions."""
+    kernel, and the merge W kernel where it is "streamed") or through the
+    plain versions."""
     if plain:
         Ws = fs.merge_wscan_plain(L1, B1, Th)
         return (Ws,) + tuple(fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws,
                                                   S_init))
-    Ws = fs.merge_wscan(L1, B1, Th)
+    Ws = fs.merge_wscan(L1, B1, Th,
+                        _variant="streamed" if variant == "streamed" else None)
     return (Ws,) + tuple(fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S_init,
                                         _variant=variant))
 
@@ -394,20 +411,22 @@ def _fitting(geometry, shape, dtype, variants):
 
 def merge_f_variants(dims, dtype):
     """The merge F kernels whose buffers fit this shape, the one
-    ``merge_f_geometry`` picks first: staged, cluster and base where all
-    three fit; cluster and base at D=20."""
+    ``merge_f_geometry`` picks first: staged, cluster, base and streamed
+    where all four fit; cluster, base and streamed at D=20."""
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     shape = tuple(dims[k] for k in ("DL", "DB", "Y", "q", "sr", "sl"))
     return _fitting(fs.merge_f_geometry, shape, dtype,
-                    ("staged", "cluster", "base"))
+                    ("staged", "cluster", "base", "streamed"))
 
 
 def merge_w_variants(dims, dtype):
-    """The merge W kernels whose buffers fit this shape: staged and base at
-    every merge here (``merge_w_geometry`` picks staged in f32)."""
+    """The merge W kernels whose buffers fit this shape: staged, base and
+    streamed at every merge here (``merge_w_geometry`` picks staged in
+    f32)."""
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     shape = tuple(dims[k] for k in ("DL", "DB", "Y", "q", "sr"))
-    return _fitting(fs.merge_w_geometry, shape, dtype, ("staged", "base"))
+    return _fitting(fs.merge_w_geometry, shape, dtype,
+                    ("staged", "base", "streamed"))
 
 
 def run_mpem3(fs, B1, Psi, Phi, S_init, plain=False, variant=None):
@@ -455,10 +474,12 @@ def per_shape_builds():
     randomized merge's [4s, s], s = 2D, at D=10 and D=20 (the only shapes
     the randomized sweeps here launch), the staged MPEM3 W and F
     kernels at both conversions of the D=10 and D=20 sketch sweeps, at
-    q = 2 and (SIRS) q = 3, and the merge F kernel ``merge_f_geometry``
-    picks for each bucket of the Glauber sweep (Y = 3, 5, 9, 10) and for
-    the SIRS merges at D=10, and the time-varying sweeps' merge F builds
-    (``MF_TV=1``: staged at D=10, cluster at D=20)."""
+    q = 2 and (SIRS) q = 3, and of the Glauber D=18 sweep, the merge F
+    kernel ``merge_f_geometry`` picks for each bucket of the Glauber sweep
+    (Y = 3, 5, 9, 10) and for the SIRS merges at D=10, and for the K2
+    bucket (Y=3) of the Glauber D=18 sweep (the others take the streamed
+    kernels, one build for every shape), and the time-varying sweeps'
+    merge F builds (``MF_TV=1``: staged at D=10, cluster at D=20)."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     from matrixproductbp_tpu_torch.ops import kernels
@@ -470,12 +491,14 @@ def per_shape_builds():
     for d in shapes:
         dims = dict(zip(("DL", "DB", "Y", "q", "sr", "sl"), d[:6]))
         out += [fs._merge_f_target(v, d) for v in merge_f_variants(dims, d[6])
-                if v != "base"]
+                if v in fs._PER_SHAPE_MERGE_F]
         out.append(("merge_w_staged", fs.merge_w_staged_macros(*d[:5], d[6])))
     out += [("cholqr_staged", kernels.cholqr_staged_macros(m, n))
             for m, n in ((80, 20), (160, 40))]
-    for D in (10, 20):
-        for qi, qj in ((2, 2), (2, 1), (3, 3), (3, 1)):
+    for D, qs in ((10, ((2, 2), (2, 1), (3, 3), (3, 1))),
+                  (20, ((2, 2), (2, 1), (3, 3), (3, 1))),
+                  (GLAUBER_D18, ((2, 2), (2, 1)))):
+        for qi, qj in qs:
             d = mpem3_dims(D, qi=qi, qj=qj)
             out += [("mpem3_staged", fs.mpem3_staged_macros(
                 d["Db"], qi, qj, d["sr"], sl, torch.float32,
@@ -483,8 +506,13 @@ def per_shape_builds():
     for Y, q in ((3, 2), (5, 2), (9, 2), (10, 2), (2, 3)):
         shape = (*merge_dims(GLAUBER_D, Y, q).values(), torch.float32)
         picked = fs.merge_f_geometry(*shape)[0]
-        if picked != "base":
+        if picked in fs._PER_SHAPE_MERGE_F:
             out.append(fs._merge_f_target(picked, shape))
+    # the D=18 Glauber bucket that keeps a per-shape kernel (K2, Y=3)
+    shape = (*merge_dims(GLAUBER_D18, 3).values(), torch.float32)
+    picked = fs.merge_f_geometry(*shape)[0]
+    if picked in fs._PER_SHAPE_MERGE_F:
+        out.append(fs._merge_f_target(picked, shape))
     for D in (10, 20):
         shape = (*merge_dims(D).values(), torch.float32, True)
         out.append(fs._merge_f_target(
@@ -515,9 +543,9 @@ def phase_build():
 def phase_kernels():
     """Each kernel against its plain version on the card: f64 at small
     shapes, f32 at the bench shapes for D=10 and D=20.  Each merge case
-    runs every merge F kernel whose buffers fit its shape (all three at
-    D=10 and the f64 shapes, the cluster kernel and ``merge_f_kernel`` at
-    D=20) and both merge W kernels, and names each.  Then the staged
+    runs every merge F kernel whose buffers fit its shape (all four at
+    D=10 and the f64 shapes, the cluster, base and streamed kernels at
+    D=20) and every merge W kernel, and names each.  Then the staged
     MPEM3 kernels at the SIS and SIRS sweeps' conversions and the merge
     kernels at the SIRS sweeps' merge, at D=10 and D=20, each on the
     kernel its geometry picks, launches checked."""
@@ -616,34 +644,37 @@ def mpem3_bench_vs_plain(dev):
     return rows
 
 
-def merge_vs_plain(args, dims, what):
+def merge_vs_plain(args, dims, what, dtype=None, variant=None):
     """Ws, Ns and Ms of the merge kernels ``merge_*_geometry`` picks for
-    ``dims`` (f32) against the plain scans on ``args``, 1e-4 of the plain
-    output's max-abs; one launch counted on each picked kernel and none on
-    the others.  Returns the row."""
+    ``dims`` (or ``variant`` for both) against the plain scans on
+    ``args``: f32 (the default) within 1e-4 of the plain output's max-abs,
+    f64 within 1e-10 of it; one launch counted on each picked kernel and
+    none on the others.  Returns the row."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    dtype = dtype or torch.float32
+    tol_rel = TOL_F32_REL if dtype == torch.float32 else TOL_F64
     shape = tuple(dims[k] for k in ("DL", "DB", "Y", "q", "sr", "sl"))
-    picks = (fs.merge_w_geometry(*shape[:5], torch.float32)[0],
-             fs.merge_f_geometry(*shape, torch.float32)[0])
+    picks = (variant or fs.merge_w_geometry(*shape[:5], dtype)[0],
+             variant or fs.merge_f_geometry(*shape, dtype)[0])
     counters = (fs.merge_wscan.variant_launches,
                 fs.merge_fscan.variant_launches)
     before = [dict(c) for c in counters]
-    out = run_merge(fs, *args)
+    out = run_merge(fs, *args, variant=variant)
     seen = [{v: n - b[v] for v, n in c.items()}
             for c, b in zip(counters, before)]
     ref = run_merge(fs, *args, plain=True)
     torch.cuda.synchronize()
     err, scale = max_err(out, ref)
-    row = {"kind": "merge", "what": what, "dtype": "float32", **dims,
+    row = {"kind": "merge", "what": what, "dtype": str(dtype)[6:], **dims,
            "B": args[0].shape[0], "S": args[0].shape[1],
            "merge_w_kernel": picks[0], "merge_f_kernel": picks[1],
            "max_abs_err": err, "ref_max_abs": scale,
-           "tol": TOL_F32_REL * scale}
+           "tol": tol_rel * scale}
     check(all(n == (v == p) for d, p in zip(seen, picks)
               for v, n in d.items()),
           f"{what}: merge launches {seen}, want one on each of {picks}")
-    check(err <= TOL_F32_REL * scale,
+    check(err <= tol_rel * scale,
           f"{what}: merge kernels disagree with the plain scans: {row}")
     return row
 
@@ -805,9 +836,9 @@ def reset_counts():
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     for w in _wrappers().values():
         w.launches = 0
-    fs.merge_fscan.variant_launches.update(staged=0, cluster=0, base=0)
-    fs.merge_fscan.tv_launches.update(staged=0, cluster=0, base=0)
-    fs.merge_wscan.variant_launches.update(staged=0, base=0)
+    for c in (fs.merge_fscan.variant_launches, fs.merge_fscan.tv_launches,
+              fs.merge_wscan.variant_launches):
+        c.update(dict.fromkeys(c, 0))
     fs.mpem3_wscan.variant_launches.update(staged=0, base=0)
     fs.mpem3_fscan.variant_launches.update(staged=0, base=0)
     from matrixproductbp_tpu_torch.ops import kernels
@@ -816,9 +847,10 @@ def reset_counts():
 
 def read_counts():
     """Launches by kernel: the merge wrappers count their kernels apart,
-    ``merge_f`` (``merge_f_kernel``), ``merge_f_staged`` and
-    ``merge_f_cluster``; ``merge_w`` (``merge_w_kernel``) and
-    ``merge_w_staged``; the MPEM3 and CholQR wrappers likewise,
+    ``merge_f`` (``merge_f_kernel``), ``merge_f_staged``,
+    ``merge_f_cluster`` and ``merge_f_streamed``; ``merge_w``
+    (``merge_w_kernel``), ``merge_w_staged`` and ``merge_w_streamed``; the
+    MPEM3 and CholQR wrappers likewise,
     ``mpem3_w`` (``mpem3_w_kernel``) and ``mpem3_w_staged``, ``mpem3_f``
     and ``mpem3_f_staged``, ``cholqr`` (``cholqr_kernel``) and
     ``cholqr_staged``."""
@@ -841,8 +873,10 @@ def read_counts():
     check(sum(by_mf.values()) == counts["mpem3_f"],
           f"MPEM3 F launches {counts['mpem3_f']} != {by_mf}")
     counts.update(merge_f=by_f["base"], merge_f_staged=by_f["staged"],
-                  merge_f_cluster=by_f["cluster"], merge_w=by_w["base"],
-                  merge_w_staged=by_w["staged"], mpem3_w=by_mw["base"],
+                  merge_f_cluster=by_f["cluster"],
+                  merge_f_streamed=by_f["streamed"], merge_w=by_w["base"],
+                  merge_w_staged=by_w["staged"],
+                  merge_w_streamed=by_w["streamed"], mpem3_w=by_mw["base"],
                   mpem3_w_staged=by_mw["staged"], mpem3_f=by_mf["base"],
                   mpem3_f_staged=by_mf["staged"], cholqr=by_q["base"],
                   cholqr_staged=by_q["staged"])
@@ -853,6 +887,8 @@ def read_counts():
 #: all on the staged kernels
 MPEM3_WANTS = {"mpem3_w": 0, "mpem3_w_staged": 2, "mpem3_f": 0,
                "mpem3_f_staged": 2}
+#: the SIS sweeps at D=10 and D=20 launch no streamed merge kernel
+NO_STREAMED = {"merge_w_streamed": 0, "merge_f_streamed": 0}
 
 
 def merge_w_wants(D):
@@ -1000,7 +1036,7 @@ def phase_main_d10():
     import matrixproductbp_tpu_torch as tp
     bp0, bp1, res = timed_main_path(10, TIMED_SWEEPS_D10)
     want = {**merge_w_wants(10), "merge_f": 0, "merge_f_staged": 3,
-            "merge_f_cluster": 0, **MPEM3_WANTS, "cholqr": 0,
+            "merge_f_cluster": 0, **NO_STREAMED, **MPEM3_WANTS, "cholqr": 0,
             "cholqr_staged": 0, "jacobi_eigh": 0}
     per_sweep = {k: v / TIMED_SWEEPS_D10 for k, v in res["launches"].items()}
     check(per_sweep == want, f"launches per sweep {per_sweep}, want {want}")
@@ -1068,7 +1104,7 @@ def phase_main_d20():
     _, bp1, res = timed_main_path(20, TIMED_SWEEPS_D20)
     per_sweep = {k: v / TIMED_SWEEPS_D20 for k, v in res["launches"].items()}
     want = {**merge_w_wants(20), "merge_f": 0, "merge_f_staged": 0,
-            "merge_f_cluster": 3, **MPEM3_WANTS, "cholqr": 0,
+            "merge_f_cluster": 3, **NO_STREAMED, **MPEM3_WANTS, "cholqr": 0,
             "cholqr_staged": 0, "jacobi_eigh": 0}
     res.update(launches_per_sweep=per_sweep)
     emit("main_d20", **res)
@@ -1087,9 +1123,10 @@ def phase_main_randomized(D, sweeps):
     bp0, bp1, res = timed_main_path(D, sweeps, method="randomized")
     per_sweep = {k: v / sweeps for k, v in res["launches"].items()}
     want = {"merge_w": 0, "merge_w_staged": 0, "merge_f": 0,
-            "merge_f_staged": 0, "merge_f_cluster": 0, "mpem3_w": 0,
-            "mpem3_w_staged": 0, "mpem3_f": 0, "mpem3_f_staged": 0,
-            "cholqr": 0, "cholqr_staged": CHOLQR_PER_SWEEP,
+            "merge_f_staged": 0, "merge_f_cluster": 0, **NO_STREAMED,
+            "mpem3_w": 0, "mpem3_w_staged": 0, "mpem3_f": 0,
+            "mpem3_f_staged": 0, "cholqr": 0,
+            "cholqr_staged": CHOLQR_PER_SWEEP,
             "jacobi_eigh": SVD_PER_SWEEP}
     res.update(launches_per_sweep=per_sweep)
     if D == 10:
@@ -1253,7 +1290,7 @@ def bucket_wants(Kb, Yb, q, D, updates):
     m = merges_per_update(Kb) * updates
     want = {"mpem3_w_staged": 2 * updates, "mpem3_f_staged": 2 * updates}
     if m:
-        want.update({"merge_w" + ("_staged" if w == "staged" else ""): m,
+        want.update({"merge_w" + ("" if w == "base" else "_" + w): m,
                      "merge_f" + ("" if f == "base" else "_" + f): m})
     return want
 
@@ -1377,6 +1414,214 @@ def phase_glauber_er():
         del args
     emit("glauber_er_banded_scans_vs_plain", cases=scans)
     return res
+
+
+def phase_glauber_er_d18():
+    """The reference's own Glauber run (``BASELINE.md:14``): homogeneous
+    Glauber on ``erdos_renyi_graph(5000, 2.5)``, T=15, at D=18, f32,
+    sketch.  Warm-up, then 2 timed sweeps; launches by kernel and by
+    bucket, every merge and conversion on a hand kernel and no plain scan:
+    the K4, K8 and K9 buckets' merges (Y = 5, 9, 10) on the streamed
+    kernels, the K2 bucket's (Y=3) on the cluster merge F kernel and
+    ``merge_w_kernel``; one sweep held to the same sweep through the plain
+    scans; the isolated spins held to their exact marginals; s/sweep and
+    peak memory."""
+    bp0 = glauber_state(D=GLAUBER_D18)
+    cur, res = timed_model_sweeps(bp0, TIMED_SWEEPS_GLAUBER_D18)
+    n_iso, iso_err = isolated_spin_err(cur)
+    del cur
+    res.update(isolated_nodes=n_iso, isolated_belief_err=iso_err,
+               tol_isolated=TOL_ISOLATED, yy_off=bp0.tables.yy_off)
+    emit("glauber_er_d18", **res)
+    check_buckets(res, 2, "glauber_er_d18")
+    by = res["by_bucket"]
+    for key in ("K4_Y5", "K8_Y9", "K9_Y10"):
+        check(by[key].get("merge_w_streamed", 0) > 0
+              and by[key].get("merge_f_streamed", 0) > 0,
+              f"glauber_er_d18: bucket {key} not on the streamed kernels: "
+              f"{by[key]}")
+    check(by["K2_Y3"].get("merge_f_cluster", 0) > 0
+          and by["K2_Y3"].get("merge_w", 0) > 0,
+          f"glauber_er_d18: bucket K2_Y3 left its kernels: {by['K2_Y3']}")
+    check(res["one_sweep_belief_diff_vs_plain"] <= TOL_SWEEP_BELIEFS,
+          f"glauber_er_d18: kernel sweep vs plain sweep: {res}")
+    check(iso_err <= TOL_ISOLATED,
+          f"glauber_er_d18: isolated spins off: {iso_err}")
+    return res
+
+
+def _bucket_batch(res, key):
+    """(Y, merge batch) of a bucket of a model sweep's record."""
+    bk = res["by_bucket"][key]
+    return int(key.split("_Y")[1]), bk["nodes"] // bk["updates"]
+
+
+def phase_merge_reach_vs_plain(res18, reps=3):
+    """The streamed merge kernels against the plain scans at the shapes no
+    other merge kernel fits, each on the kernels the geometry picks (one
+    launch counted on each): f64 sketch merges [1024, 15] at D = 16, 18,
+    20 and DL=20, DB=12, within 1e-10 of the plain outputs' max-abs; f32
+    within 1e-4 at the Glauber D=18 sweep's K4 and K8 buckets (banded, Y =
+    5 and 9, their merge batch) and at D=24, Y=2, q = 2 and 3.  Forced
+    onto the streamed kernels at the D=10 bench merge (Y=2, [8192, 15])
+    and the Glauber K8 bucket at D=10 (Y=9), and timed in turns beside the
+    kernels those shapes take (picked, streamed, streamed, picked).  Then
+    one f64 sketch sweep at D=20 (SIS on ``random_regular_graph(512, 3)``,
+    its merge batch 1024): 3 merge W and 3 merge F launches on the
+    streamed kernels, no plain scan, beliefs within 1e-3 of the same
+    sweep through the plain scans.  Returns the f64 sweep's launches."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    dev = torch.device("cuda")
+    f32, f64 = torch.float32, torch.float64
+    cases = []
+    for i, (DL, DB, sr) in enumerate(REACH_F64_DIMS):
+        dims = dict(DL=DL, DB=DB, Y=2, q=2, sr=sr, sl=sr + 4)
+        args = merge_inputs(REACH_BN, BENCH_T, **dims, dtype=f64, device=dev,
+                            seed=60 + i)
+        cases.append(merge_vs_plain(args, dims, f"f64 {DL}x{DB}", f64))
+        del args
+    for key in ("K4_Y5", "K8_Y9"):
+        Y, Bn = _bucket_batch(res18, key)
+        md = merge_dims(GLAUBER_D18, Y)
+        args = banded_merge_inputs(Bn, GLAUBER_T, **md, device=dev,
+                                   seed=70 + Y)
+        cases.append({"bucket": key, **merge_vs_plain(
+            args, md, f"glauber_er_d18 bucket {key} banded merge")})
+        del args
+    for q in (2, 3):
+        md = merge_dims(24, 2, q)
+        args = merge_inputs(REACH_BN, BENCH_T, **md, dtype=f32, device=dev,
+                            seed=80 + q)
+        cases.append(merge_vs_plain(args, md, f"f32 D=24 q={q}"))
+        del args
+    for c in cases:
+        check("streamed" in (c["merge_w_kernel"], c["merge_f_kernel"]),
+              f"merge_reach_vs_plain: {c['what']} took no streamed kernel")
+    emit("merge_reach_vs_plain", cases=cases)
+    turns = []
+    _, Bn8 = _bucket_batch(res18, "K8_Y9")
+    for what, md, args in (
+            ("bench D=10", merge_dims(10),
+             merge_inputs(2 * BENCH_N, BENCH_T, **merge_dims(10), dtype=f32,
+                          device=dev, seed=90)),
+            ("glauber K8 D=10", merge_dims(GLAUBER_D, 9),
+             banded_merge_inputs(Bn8, GLAUBER_T, **merge_dims(GLAUBER_D, 9),
+                                 device=dev, seed=91))):
+        row = merge_vs_plain(args, md, f"{what}, forced streamed",
+                             variant="streamed")
+        shape = tuple(md.values())
+        L1, B1, Th, Pyy, Phi, S0 = args
+        Ws = fs.merge_wscan(L1, B1, Th)
+        picks = (fs.merge_w_geometry(*shape[:5], f32)[0],
+                 fs.merge_f_geometry(*shape, f32)[0])
+        tw = in_turns({v: (lambda v=v: fs.merge_wscan(L1, B1, Th,
+                                                      _variant=v))
+                       for v in (picks[0], "streamed")}, reps)
+        tf = in_turns({v: (lambda v=v: fs.merge_fscan(
+            L1, B1, Pyy, Phi, Ws, S0, _variant=v))
+            for v in (picks[1], "streamed")}, reps)
+        turns.append({**row, "picked": picks, "merge_w_ms_turns": tw,
+                      "merge_f_ms_turns": tf})
+        del args, L1, B1, Th, Pyy, Phi, S0, Ws
+    emit("merge_reach_forced_streamed", cases=turns)
+    bp0 = bench_state(20, f64, N=REACH_BN // 2)
+    trunc = tp.TruncBond(20)
+    bp1 = tp.bp_sweep(bp0, trunc, method="sketch")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with count_plain_scans() as plain:
+        bp2 = tp.bp_sweep(bp1, trunc, method="sketch")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    with plain_scans():
+        bp2p = tp.bp_sweep(bp1, trunc, method="sketch")
+    torch.cuda.synchronize()
+    diff = float((tp.beliefs(bp2) - tp.beliefs(bp2p)).abs().max())
+    emit("sis_f64_d20_sweep", N=bp0.N, D=20, dtype="float64", seconds=dt,
+         launches=counts, plain_scan_calls=plain,
+         one_sweep_belief_diff_vs_plain=diff, tol=TOL_SWEEP_BELIEFS)
+    check(counts["merge_w_streamed"] == 3 and counts["merge_f_streamed"] == 3
+          and not any(plain.values()),
+          f"f64 D=20 sweep: launches {counts}, plain scans {plain}")
+    check(diff <= TOL_SWEEP_BELIEFS, f"f64 D=20 sweep vs plain: {diff}")
+    return counts
+
+
+def streamed_kernel_times(res18, f64_launches, reps=3):
+    """The streamed merge W and F kernels at the Glauber D=18 sweep's K4 and
+    K8 buckets (banded, their merge batch; the bound counts the band's
+    pairs, the kernel reads the band dense) and at the f64 D=20 sketch
+    merge [1024, 15] (the bound at the fp64 rate), CUDA events over
+    ``reps`` launches, beside the plain version's time; launches from the
+    Glauber D=18 sweeps and from the f64 sweep."""
+    import torch
+    from matrixproductbp_tpu_torch.ops import fused_stta as fs
+    dev = torch.device("cuda")
+    shapes = []
+    for key in ("K4_Y5", "K8_Y9"):
+        Y, Bn = _bucket_batch(res18, key)
+        md = merge_dims(GLAUBER_D18, Y)
+        bk = res18["by_bucket"][key]
+        shapes.append((f"_glauber_y{Y}_d18", md, 4, band_pairs(Y),
+                       lambda Bn=Bn, md=md, Y=Y: banded_merge_inputs(
+                           Bn, GLAUBER_T, **md, device=dev, seed=40 + Y),
+                       {"w": bk.get("merge_w_streamed", 0),
+                        "f": bk.get("merge_f_streamed", 0)},
+                       FP32_FLOP_PER_S, TOL_F32_REL, Bn,
+                       f"glauber_er_d18, bucket {key}"))
+    md = merge_dims(20)
+    shapes.append(("_f64_d20", md, 8, None,
+                   lambda: merge_inputs(REACH_BN, BENCH_T, **md,
+                                        dtype=torch.float64, device=dev,
+                                        seed=62),
+                   {"w": f64_launches["merge_w_streamed"],
+                    "f": f64_launches["merge_f_streamed"]},
+                   FP64_FLOP_PER_S, TOL_F64, REACH_BN, "sis_f64_d20_sweep"))
+    rows = []
+    for suffix, md, esize, band, inputs, launches, rate, tol, Bn, src \
+            in shapes:
+        L1, B1, Th, Pyy, Phi, S0 = inputs()
+        Ws = fs.merge_wscan(L1, B1, Th, _variant="streamed")
+        cases = [
+            ("w", lambda: fs.merge_wscan(L1, B1, Th, _variant="streamed"),
+             lambda: fs.merge_wscan_plain(L1, B1, Th),
+             work_merge_w(Bn, GLAUBER_T, **md, esize=esize, band=band)),
+            ("f", lambda: fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S0,
+                                         _variant="streamed"),
+             lambda: fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S0),
+             work_merge_f(Bn, GLAUBER_T, **md, esize=esize, band=band))]
+        for kind, kern, plain, (flops, nbytes) in cases:
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err, scale = max_err(tuple(out) if kind == "f" else out,
+                                 tuple(ref) if kind == "f" else ref)
+            check(err <= tol * scale,
+                  f"streamed merge {kind}{suffix} disagrees with its plain "
+                  f"version: {err} > {tol} * {scale}")
+            name, srcfile, line = (MERGE_W_ROWS if kind == "w"
+                                   else MERGE_F_ROWS)["streamed"]
+            bms, by = bound_ms(flops, nbytes, rate)
+            dense = (work_merge_w if kind == "w" else work_merge_f)(
+                Bn, GLAUBER_T, **md, esize=esize)[0]
+            rows.append({
+                "name": name + suffix, "route": "cuda",
+                "source": "matrixproductbp_tpu_torch/csrc/" + srcfile,
+                "replaces": "matrixproductbp_tpu/ops/fused_stta.py" + line,
+                "launches": launches[kind], "max_abs_err": err,
+                "ms": time_cuda(kern, reps), "plain_ms": time_cuda(plain, 1),
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "flops": flops, "dense_flops": dense, "bytes": nbytes,
+                "dtype": "float32" if esize == 4 else "float64",
+                "D": md["DL"], "Y": md["Y"], "B": Bn, "band_pairs": band,
+                "launches_from": src})
+            emit("kernel_time_streamed", **rows[-1])
+            del out, ref
+        del L1, B1, Th, Pyy, Phi, S0, Ws
+    return rows
 
 
 def sirs_state(D):
@@ -2199,7 +2444,8 @@ def phase_tv_sis_rrg():
         per_sweep = {k: v / n for k, v in counts.items()}
         f_kernel = "merge_f_staged" if D == 10 else "merge_f_cluster"
         want = {**merge_w_wants(D), "merge_f": 0, "merge_f_staged": 0,
-                "merge_f_cluster": 0, f_kernel: 3, **MPEM3_WANTS,
+                "merge_f_cluster": 0, **NO_STREAMED, f_kernel: 3,
+                **MPEM3_WANTS,
                 "cholqr": 0, "cholqr_staged": 0, "jacobi_eigh": 0}
         b = tp.beliefs(cur)
         with plain_scans():
@@ -3021,10 +3267,12 @@ MERGE_F_ROWS = {
     "staged": ("merge_f_staged", "merge_f_staged.cu", ":281"),
     "cluster": ("merge_f_cluster", "merge_f_cluster.cu", ":382"),
     "base": ("merge_f", "stta_scans.cu", ":281"),
+    "streamed": ("merge_f_streamed", "merge_streamed.cu", ":382"),
 }
 MERGE_W_ROWS = {
     "staged": ("merge_w_staged", "merge_w_staged.cu", ":231"),
     "base": ("merge_w", "stta_scans.cu", ":231"),
+    "streamed": ("merge_w_streamed", "merge_streamed.cu", ":231"),
 }
 
 
@@ -3271,6 +3519,8 @@ def main():
     phase_randomized_vs_plain_d20()
     phase_karate()
     gres = phase_glauber_er()
+    gres18 = phase_glauber_er_d18()
+    f64_launches = phase_merge_reach_vs_plain(gres18)
     sres = {D: phase_sirs_rrg(D) for D in (10, 20)}
     phase_chunked_vs_monolithic()
     phase_glauber_seidel()
@@ -3306,6 +3556,9 @@ def main():
     # the Glauber sweep's K=8 bucket (Y=9), and the staged MPEM3 kernels at
     # the SIRS D=10 sweep's conversions (q = 3)
     rows += glauber_kernel_times(gres)
+    # the streamed merge kernels: the Glauber D=18 sweep's K4 and K8
+    # buckets, and the f64 D=20 sketch merge
+    rows += streamed_kernel_times(gres18, f64_launches)
     for r in mpem3_kernel_times(sres[10]["launches"], 10, 10, qi=3,
                                 launches_from="sirs_rrg_d10"):
         rows.append({**r, "name": r["name"] + "_q3"})

@@ -69,6 +69,12 @@ _SIGNATURES = {
     "merge_w_staged": {
         "merge_w_staged": [_P, _LP, _P, _LP, _P, _P] + [_I] * 7 + [_L, _P],
     },
+    "merge_streamed": {
+        "merge_w_streamed": [_I, _P, _LP, _P, _LP, _P, _P, _P] + [_I] * 8
+                            + [_L, _P],
+        "merge_f_streamed": ([_I, _P, _LP, _P, _LP, _P, _L, _P, _P, _P, _P,
+                              _P, _P] + [_I] * 9 + [_L, _P]),
+    },
     "cholqr_staged": {
         "cholqr_staged": [_P, _P, _P, _I, _I, _I, _D, _L, _P],
     },

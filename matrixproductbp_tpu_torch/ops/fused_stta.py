@@ -7,24 +7,32 @@ Counterpart of ``matrixproductbp_tpu/ops/fused_stta.py``.  Each scan wrapper
 re-exported here as ``*_plain``) when its tensors lie on the CPU, and
 launches its CUDA kernel (``csrc/stta_scans.cu``, ``csrc/merge_f_staged.cu``,
 ``csrc/merge_f_cluster.cu``, ``csrc/merge_w_staged.cu``,
-``csrc/mpem3_staged.cu``) when they lie on a CUDA device; there is no
+``csrc/merge_streamed.cu``, ``csrc/mpem3_staged.cu``) when they lie on a
+CUDA device; there is no
 fallback between the two.  ``<wrapper>.launches``
 counts kernel launches.
 
 The kernels replace, in order, ``_merge_wstep_kernel`` (``fused_stta.py:231``),
 ``_merge_fstep_kernel`` / ``_merge_fstep_kernel_lean`` (``:281``, ``:382``),
 ``_mpem3_wstep_kernel`` (``:508``) and ``_mpem3_fstep_kernel`` (``:545``).
-Merge F has three kernels, picked by shape in :func:`merge_f_geometry`:
+Merge F has four kernels, picked by shape in :func:`merge_f_geometry`:
 ``merge_f_staged_kernel`` (``merge_f_staged.cu``, built once per shape with
 its sizes as constants) wherever its buffers fit (the f32 sketch merges up to
 D=15); ``merge_f_cluster_kernel`` (``merge_f_cluster.cu``, built likewise: a
 cluster of two blocks per instance, which share the sketch rows through
 distributed shared memory) wherever its buffers fit (the f32 sketch merges
-from D=16 to D=20); and ``merge_f_kernel`` for the shapes neither takes.
-Merge W has two, picked in :func:`merge_w_geometry`:
-``merge_w_staged_kernel`` (``merge_w_staged.cu``, built once per shape) at
-the f32 sketch merges (Y = q = 2) where its buffers fit, all of which it
-ran faster than ``merge_w_kernel``, and ``merge_w_kernel`` for the rest.
+from D=16 to D=20); ``merge_f_kernel`` for the shapes neither takes where
+its buffers fit; and ``merge_f_streamed_kernel`` (``merge_streamed.cu``, one
+build for every shape: fixed shared memory, the shape's buffers in a global
+workspace) for the rest.  Merge W has three, picked in
+:func:`merge_w_geometry`: ``merge_w_staged_kernel`` (``merge_w_staged.cu``,
+built once per shape) at the f32 sketch merges (Y = q = 2) where its
+buffers fit, all of which it ran faster than ``merge_w_kernel``;
+``merge_w_kernel`` for the rest where its buffers fit; and
+``merge_w_streamed_kernel`` (``merge_streamed.cu``) beyond.  So the merge
+scans take every shape; the streamed kernels' workspace is sized by the
+blocks resident on the card (:func:`merge_streamed_plan`), not by the
+instances.
 MPEM3 W and F have two each, picked in :func:`mpem3_geometry`: the staged
 ``mpem3_w_staged_kernel`` / ``mpem3_f_staged_kernel`` (``mpem3_staged.cu``,
 built once per shape and B_t layout) for f32 where B_t is one dense,
@@ -34,7 +42,7 @@ strided views and the rest.
 The TPU-only machinery around them (lane padding, instance chunking, the
 VMEM admission model) has no counterpart: one thread block (or one cluster)
 owns one instance, and the only admission rule is the 227 KB shared-memory
-limit a block.
+limit a block, past which the streamed merge kernels take the shape.
 """
 from __future__ import annotations
 
@@ -56,7 +64,7 @@ __all__ = ["merge_stta_fused", "mpem3_stta_fused", "mpem3_stta_fused_tm",
            "merge_f_cluster_macros", "build_merge_f", "merge_w_geometry",
            "merge_w_staged_macros", "build_merge_w", "mpem3_geometry",
            "mpem3_staged_macros", "mpem3_layout", "build_mpem3",
-           "MPEM3_LAYOUTS", "SMEM_LIMIT"]
+           "merge_streamed_plan", "MPEM3_LAYOUTS", "SMEM_LIMIT"]
 
 #: dynamic shared memory a scan kernel's block may use: the card's limit
 #: less the kernels' static reduction scratch
@@ -73,6 +81,14 @@ _STAGED_MAX_BLOCKS = 3
 #: memory with one block)
 _CLUSTER_THREADS = 480
 _CLUSTER_MAX_BLOCKS = 1
+#: the streamed merge kernels' block (``MS_NT`` in ``merge_streamed.cu``),
+#: and the blocks an SM they are built for (``__launch_bounds__``): the
+#: blocks of a launch, one workspace each, are this many an SM at most
+_STREAMED_THREADS = 256
+_STREAMED_BLOCKS_PER_SM = 2
+#: the most elements a streamed kernel's buffer may have (its sizes and
+#: in-step offsets are 32-bit)
+_STREAMED_MAX_ELEMENTS = 2 ** 31 - 1
 
 
 def _merge_threads(smem: int) -> int:
@@ -138,6 +154,50 @@ def _smem_merge_f_cluster(DL, DB, Y, q, sr, sl, esize, tv=False):
             + E0 * sr + E0 * P * sr)
 
 
+def _smem_merge_streamed(esize):
+    """``merge_streamed.cu``'s dynamic shared memory (bytes), the same at
+    every shape: the offset tables (``MS_TAB`` = 576 i64) and the two
+    operand tiles (``MS_TK`` x ``MS_SPAN`` = 16 x 160 elements)."""
+    return 8 * (4 * 128 + 4 * 16) + 16 * 160 * esize
+
+
+def _streamed_buffers(kind, DL, DB, Y, q, sr, sl):
+    """The element counts of one block's workspace buffers in
+    ``merge_streamed.cu``: merge W (``kind`` "w") the one-hot W, t1, u
+    and the step's Th_t transposed; merge F (``kind`` "f") the one-hot W,
+    the two S buffers, t1, Bp and t2."""
+    nW = DL * DB * sr
+    if kind == "w":
+        return (nW, DB * Y * DL * sr, DB * DL * Y * sr, (Y * sr) ** 2)
+    nS = sl * DL * DB
+    return (nW, nS, nS, nS * Y, (DB * Y) ** 2, nS * Y)
+
+
+def merge_streamed_plan(kind, DL, DB, Y, q, sr, sl, Bn, sms):
+    """(blocks, workspace elements a block) of a streamed merge W (``kind``
+    "w") or F ("f") launch over ``Bn`` instances on a card of ``sms`` SMs:
+    at most ``_STREAMED_BLOCKS_PER_SM`` blocks an SM (the persistent grid
+    walks over the instances), so the workspace, blocks x elements, is
+    bounded by the card and not by ``Bn``."""
+    return (max(1, min(Bn, sms * _STREAMED_BLOCKS_PER_SM)),
+            sum(_streamed_buffers(kind, DL, DB, Y, q, sr, sl)))
+
+
+def _streamed_geometry(kind, DL, DB, Y, q, sr, sl, esize):
+    """("streamed", threads, shared bytes) of the streamed kernel, or
+    ``ValueError`` where a buffer outgrows its 32-bit sizes."""
+    what = "merge W scan" if kind == "w" else "merge F scan"
+    n = max(_streamed_buffers(kind, DL, DB, Y, q, sr, sl)
+            + (DL * DL * Y * q, DB * DB * Y * q))
+    if n > _STREAMED_MAX_ELEMENTS or min(DL, DB, Y, q, sr, sl or 1) < 1:
+        raise ValueError(f"{what}: the streamed kernel takes no shape with "
+                         f"an empty axis or a buffer over "
+                         f"{_STREAMED_MAX_ELEMENTS} elements, at DL={DL}, "
+                         f"DB={DB}, Y={Y}, q={q}, sr={sr}"
+                         + (f", sl={sl}" if kind == "f" else ""))
+    return "streamed", _STREAMED_THREADS, _smem_merge_streamed(esize)
+
+
 def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None, tv=False):
     """(variant, threads a block, shared-memory bytes a block) of the merge F
     kernel for one shape (``tv``: reading one ``Pyy`` a step), the first
@@ -146,15 +206,22 @@ def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None, tv=False):
     it ran faster than ``merge_f_kernel`` at every D from 4 to 15, one
     block an SM included), ``"cluster"`` (``merge_f_cluster_kernel``, two
     blocks an instance; f32 sketch merges from D=16 to D=20) and ``"base"``
-    (``merge_f_kernel``).  ``variant`` forces one of the three.  Raises
-    ``ValueError`` where none fits (or the forced one does not)."""
+    (``merge_f_kernel``); else ``"streamed"`` (``merge_f_streamed_kernel``,
+    whose shared memory does not grow with the shape: f64 from D=16, f32
+    Y=2 from D=21, the banded merges from D=19 at Y=3 down to D=10 at
+    Y=12).  ``variant``
+    forces one of the four.  Raises ``ValueError`` where the forced kernel
+    does not fit, or a streamed buffer outgrows its 32-bit sizes."""
     esize = 4 if dtype == torch.float32 else 8
     sizes = {"staged": _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize, tv),
              "cluster": _smem_merge_f_cluster(DL, DB, Y, q, sr, sl, esize,
                                               tv),
              "base": _smem_merge_f(DL, DB, Y, q, sr, sl, tv)}
     threads = {"staged": _STAGED_THREADS, "cluster": _CLUSTER_THREADS}
-    for name in (sizes if variant is None else (variant,)):
+    for name in (tuple(sizes) + ("streamed",) if variant is None
+                 else (variant,)):
+        if name == "streamed":
+            return _streamed_geometry("f", DL, DB, Y, q, sr, sl, esize)
         nbytes = sizes[name] * esize
         if nbytes <= SMEM_LIMIT:
             return name, threads.get(name, _merge_threads(nbytes)), nbytes
@@ -356,14 +423,19 @@ def merge_w_geometry(DL, DB, Y, q, sr, dtype, variant=None):
     kernel for one shape: ``"staged"`` (``merge_w_staged_kernel``) at the
     f32 sketch merges (Y = q = 2) where its buffers fit, the shapes where
     ``tools/probe_merge_w.py`` timed it faster than ``merge_w_kernel``;
-    else ``"base"`` (``merge_w_kernel``: f64, Y=3 and the other shapes).
-    ``variant`` forces one of the two.  Raises ``ValueError`` where none
-    fits (or the forced one does not)."""
+    else ``"base"`` (``merge_w_kernel``: f64, Y=3 and the other shapes)
+    where its buffers fit; else ``"streamed"``
+    (``merge_w_streamed_kernel``, whose shared memory does not grow with
+    the shape).  ``variant`` forces one of the three.  Raises
+    ``ValueError`` where the forced kernel does not fit, or a streamed
+    buffer outgrows its 32-bit sizes."""
     esize = 4 if dtype == torch.float32 else 8
     timed = esize == 4 and (Y, q) == (2, 2)
-    names = (("staged", "base") if timed else ("base",)) \
+    names = (("staged", "base") if timed else ("base",)) + ("streamed",) \
         if variant is None else (variant,)
     for name in names:
+        if name == "streamed":
+            return _streamed_geometry("w", DL, DB, Y, q, sr, None, esize)
         if name == "staged":
             plan = _merge_w_staged_plan(DL, DB, Y, q, sr, esize)
             if plan is not None:
@@ -620,6 +692,11 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _raise_on(rc, what):
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
@@ -649,6 +726,13 @@ def merge_wscan(L1, B1, Th, _variant=None):
         lib = build.library("merge_w_staged", merge_w_staged_macros(
             DL, DB, Y, q, sr, L1.dtype))
         rc = lib.merge_w_staged(*args, smem, _stream(L1))
+    elif variant == "streamed":
+        blocks, per = merge_streamed_plan("w", DL, DB, Y, q, sr, None, Bn,
+                                          _sm_count(L1.device))
+        work = L1.new_empty(blocks * per)
+        rc = build.library("merge_streamed").merge_w_streamed(
+            code, *args[:6], work.data_ptr(), *args[6:], blocks, smem,
+            _stream(L1))
     else:
         rc = build.library("stta_scans").stta_merge_w(
             code, *args, threads, smem, _stream(L1))
@@ -698,6 +782,13 @@ def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init, _variant=None):
     elif variant == "cluster":
         lib = _cluster_library(merge_f_cluster_macros(*shape), smem)
         rc = lib.merge_f_cluster(*args, smem, _stream(L1))
+    elif variant == "streamed":
+        blocks, per = merge_streamed_plan("f", DL, DB, Y, q, sr, sl, Bn,
+                                          _sm_count(L1.device))
+        work = L1.new_empty(blocks * per)
+        rc = build.library("merge_streamed").merge_f_streamed(
+            code, *args[:11], work.data_ptr(), *args[11:], blocks, smem,
+            _stream(L1))
     else:
         rc = build.library("stta_scans").stta_merge_f(
             code, *args, threads, smem, _stream(L1))
@@ -784,12 +875,15 @@ def mpem3_fscan(B1, Phi, Ws, S_init, _variant=None):
 
 for _w in (merge_wscan, merge_fscan, mpem3_wscan, mpem3_fscan):
     _w.launches = 0
-#: merge F launches by kernel: "staged", "cluster" and "base" (see
-#: merge_f_geometry), and those of them that read a table a step
-merge_fscan.variant_launches = {"staged": 0, "cluster": 0, "base": 0}
-merge_fscan.tv_launches = {"staged": 0, "cluster": 0, "base": 0}
-#: merge W launches by kernel: "staged" and "base" (see merge_w_geometry)
-merge_wscan.variant_launches = {"staged": 0, "base": 0}
+#: merge F launches by kernel: "staged", "cluster", "base" and "streamed"
+#: (see merge_f_geometry), and those of them that read a table a step
+merge_fscan.variant_launches = {"staged": 0, "cluster": 0, "base": 0,
+                                "streamed": 0}
+merge_fscan.tv_launches = {"staged": 0, "cluster": 0, "base": 0,
+                           "streamed": 0}
+#: merge W launches by kernel: "staged", "base" and "streamed" (see
+#: merge_w_geometry)
+merge_wscan.variant_launches = {"staged": 0, "base": 0, "streamed": 0}
 #: MPEM3 W and F launches by kernel: "staged" and "base" (see
 #: mpem3_geometry)
 mpem3_wscan.variant_launches = {"staged": 0, "base": 0}

@@ -149,7 +149,8 @@ def staged_builds():
         fs.build_merge_f(shapes)
 
 
-@pytest.mark.parametrize("variant", ["staged", "base", "cluster"])
+@pytest.mark.parametrize("variant", ["staged", "base", "cluster",
+                                     "streamed"])
 @pytest.mark.parametrize("dims,S", MERGE_F64)
 def test_merge_kernels_f64(cuda, dims, S, variant):
     before = fs.merge_fscan.variant_launches[variant]
@@ -340,7 +341,7 @@ def _merge_w_case(Bn, S, DL, DB, Y, q, sr, dtype, dev, variant):
     return [Ws], [fs.merge_wscan_plain(L[:, 1:], B[:, 1:], Th)]
 
 
-@pytest.mark.parametrize("variant", ["staged", "base"])
+@pytest.mark.parametrize("variant", ["staged", "base", "streamed"])
 @pytest.mark.parametrize("dims,S", MERGE_W64)
 def test_merge_w_kernels_f64(cuda, merge_w_builds, dims, S, variant):
     _assert_close(*_merge_w_case(7, S, **dims, dtype=torch.float64,
@@ -389,10 +390,84 @@ def test_kernel_launches_are_counted(cuda):
 
 
 def test_oversized_shape_raises(cuda):
+    """A shape over every shared-memory kernel's limit raises where one of
+    them is forced; unforced, the streamed kernel takes it."""
     L = torch.zeros(1, 1, 40, 40, 2, 2, device=cuda)
     Th = torch.zeros(1, 40, 40, 2, 2, 2, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        fs.merge_wscan(L, L, Th)
+    for variant in ("staged", "base"):
+        with pytest.raises(ValueError, match="shared memory"):
+            fs.merge_wscan(L, L, Th, _variant=variant)
+    before = fs.merge_wscan.variant_launches["streamed"]
+    assert bool((fs.merge_wscan(L, L, Th) == 0).all())
+    assert fs.merge_wscan.variant_launches["streamed"] == before + 1
+
+
+# the streamed merge kernels (merge_streamed.cu) at shapes no other merge
+# kernel fits, picked by the geometry: f64 at D = 16, 18, 20 and DL != DB
+# (20 x 12, both ways); f32 at Y=2 D=24 (one Pyy a step too), q=3 D=24 and
+# the Glauber buckets' banded merges (Y = 5, 9, 10 at D=18); f64 1e-10,
+# f32 1e-4 of max-abs
+MERGE_STREAMED = [
+    (dict(DL=16, DB=16, Y=2, q=2, sr=16, sl=20), torch.float64, None),
+    (dict(DL=18, DB=18, Y=2, q=2, sr=18, sl=22), torch.float64, None),
+    (dict(DL=20, DB=20, Y=2, q=2, sr=20, sl=24), torch.float64, None),
+    (dict(DL=20, DB=12, Y=2, q=2, sr=20, sl=24), torch.float64, None),
+    (dict(DL=12, DB=20, Y=2, q=2, sr=20, sl=24), torch.float64, "steps"),
+    (dict(DL=24, DB=24, Y=2, q=2, sr=24, sl=28), torch.float32, None),
+    (dict(DL=24, DB=24, Y=2, q=2, sr=24, sl=28), torch.float32, "steps"),
+    (dict(DL=24, DB=24, Y=2, q=3, sr=24, sl=28), torch.float32, None),
+    (dict(DL=18, DB=18, Y=5, q=2, sr=18, sl=22), torch.float32, "band"),
+    (dict(DL=18, DB=18, Y=9, q=2, sr=18, sl=22), torch.float32, "band"),
+    (dict(DL=18, DB=18, Y=10, q=2, sr=18, sl=22), torch.float32, "band")]
+
+
+@pytest.mark.parametrize("dims,dtype,pyy", MERGE_STREAMED, ids=lambda v: (
+    f"{v['DL']}x{v['DB']}-Y{v['Y']}-q{v['q']}" if isinstance(v, dict)
+    else str(v)))
+def test_merge_streamed_takes_the_shapes_beyond(cuda, dims, dtype, pyy):
+    from matrixproductbp_tpu_torch.ops import sumy
+    DL, DB, Y, q, sr, sl = dims.values()
+    Bn, S = 5, 4
+    g = torch.Generator().manual_seed(11)
+    L = _randn(g, Bn, S + 1, DL, DL, Y, q).to(cuda, dtype)[:, 1:]
+    B = _randn(g, S + 1, Bn, DB, DB, Y, q).to(cuda, dtype) \
+        .transpose(0, 1)[:, 1:]
+    if pyy == "band":
+        Th = sumy.y_expand(_randn(g, S, sr, sr, Y, q).to(cuda, dtype), 0,
+                           axis=3, mode="sum").contiguous()
+        Pyy = sumy.band_indicator(Y, 0, q, dtype, cuda)
+    else:
+        Th = _randn(g, S, sr, sr, Y, Y, q).to(cuda, dtype)
+        Pyy = torch.rand(((S,) if pyy == "steps" else ()) + (Y, Y, Y, q),
+                         generator=g, dtype=torch.float64).to(cuda, dtype)
+    Phi = _randn(g, S, sl, sl, Y, q).to(cuda, dtype)
+    S0 = _randn(g, Bn, sl, DL, DB).to(cuda, dtype)
+    w = fs.merge_w_geometry(DL, DB, Y, q, sr, dtype)[0]
+    f = fs.merge_f_geometry(DL, DB, Y, q, sr, sl, dtype,
+                            tv=pyy == "steps")[0]
+    # f64 merge W fits merge_w_kernel up to D=16
+    assert f == "streamed" and w == ("base" if DL == 16 else "streamed")
+    bw = dict(fs.merge_wscan.variant_launches)
+    bf = dict(fs.merge_fscan.tv_launches)
+    Ws = fs.merge_wscan(L, B, Th)
+    out = [Ws, *fs.merge_fscan(L, B, Pyy, Phi, Ws, S0)]
+    assert fs.merge_wscan.variant_launches[w] == bw[w] + 1
+    assert fs.merge_fscan.tv_launches["streamed"] == bf["streamed"] + (
+        pyy == "steps")
+    Wp = fs.merge_wscan_plain(L, B, Th)
+    ref = [Wp, *fs.merge_fscan_plain(L, B, Pyy, Phi, Wp, S0)]
+    _assert_close(out, ref, None if dtype == torch.float64 else 1e-4)
+
+
+def test_merge_streamed_walks_more_instances_than_blocks(cuda):
+    """More instances than resident blocks: each block walks several, and
+    the workspace stays the blocks'."""
+    dims = _sketch_dims(10)
+    blocks, _ = fs.merge_streamed_plan("f", *dims.values(), 10 ** 6,
+                                       fs._sm_count(cuda))
+    out, ref = _merge_case(blocks + 37, 3, **dims, dtype=torch.float32,
+                           dev=cuda, variant="streamed")
+    _assert_close(out, ref, 1e-4)
 
 
 # the staged MPEM3 kernels: both launches of a sketch sweep at every bond D
@@ -515,7 +590,8 @@ def test_mpem3_staged_safe_scale(cuda, mpem3_builds, qj, layout):
     assert bool(torch.isfinite(ref[0][3]).all())
 
 
-@pytest.mark.parametrize("variant", ["staged", "cluster", "base"])
+@pytest.mark.parametrize("variant", ["staged", "cluster", "base",
+                                     "streamed"])
 def test_merge_f_safe_scale(cuda, variant):
     """As ``test_mpem3_staged_safe_scale`` for each merge F kernel at the
     D=10 sketch merge, with finite W_t: a zero instance, one with a NaN in

@@ -2,8 +2,9 @@
 pure :func:`merge_w_geometry`: the staged kernel (``merge_w_staged.cu``,
 built per shape) for the f32 sketch merges (the D=10 and D=20 bench shapes
 included, one chunk of rows n up to D=17, two at D=20), ``merge_w_kernel``
-for f64, Y=3 and the shapes whose staged buffers do not fit, ``ValueError``
-where the forced kernel does not fit; its shared-memory sum, summed by hand
+for f64, Y=3 and the shapes whose staged buffers do not fit, the streamed
+kernel where neither fits, ``ValueError`` where the forced kernel does not
+fit; its shared-memory sum, summed by hand
 at D=20; the macros each build takes and the library each is cached as.
 Also: on the CPU the wrapper runs the plain scan whatever kernel is asked
 for and counts no launch, every line ``tools/probe_merge_w.py`` replaces
@@ -119,11 +120,13 @@ def test_forced_kernel_that_does_not_fit_raises():
         fs.merge_w_geometry(*dims, F32, "staged")
     with pytest.raises(ValueError, match="shared memory"):
         fs.merge_w_staged_macros(*dims, F32)
-    # D=24 in f32 and D=20 in f64: neither kernel fits
+    # D=24 in f32 and D=20 in f64: neither kernel fits, and the streamed
+    # kernel takes the shape
     for dims, dtype in (((24, 24, 2, 2, 24), F32), ((20, 20, 2, 2, 20), F64)):
-        for variant in (None, "staged", "base"):
+        for variant in ("staged", "base"):
             with pytest.raises(ValueError, match="shared memory"):
                 fs.merge_w_geometry(*dims, dtype, variant)
+        assert fs.merge_w_geometry(*dims, dtype)[0] == "streamed"
 
 
 def test_staged_builds_are_cached_by_shape():
@@ -143,7 +146,7 @@ def test_staged_builds_are_cached_by_shape():
     assert build._target(("merge_w_staged", m20)) == ("merge_w_staged", m20)
 
 
-@pytest.mark.parametrize("variant", [None, "staged", "base"])
+@pytest.mark.parametrize("variant", [None, "staged", "base", "streamed"])
 def test_cpu_wrapper_runs_the_plain_scan(variant):
     g = torch.Generator().manual_seed(0)
     Bn, S, DL, DB, Y, q, sr = 3, 3, 3, 2, 2, 2, 4

@@ -2,8 +2,9 @@
 pure :func:`merge_f_geometry`: the staged kernel for the f32 sketch merges
 up to D=15 (the D=10 bench shape included), the cluster kernel from D=16
 to D=20 (D=20 at the bench), ``merge_f_kernel`` where neither fits, every
-shape of the sketch sweeps up to D=20 under the shared-memory limit,
-``ValueError`` above it; the macros each per-shape build takes, and the
+shape of the sketch sweeps up to D=20 under the shared-memory limit, the
+streamed kernel above it (``ValueError`` where a shared-memory kernel is
+forced there); the macros each per-shape build takes, and the
 library each is cached as.  Also: on the CPU the wrapper runs the plain
 scan whatever kernel is asked for, every line that
 ``tools/probe_merge_f.py`` replaces still exists in its kernel, and the
@@ -154,13 +155,18 @@ def test_every_sketch_sweep_shape_fits(D):
 
 
 def test_shape_over_the_limit_raises():
-    with pytest.raises(ValueError, match="shared memory"):
-        fs.merge_f_geometry(*_sweep_dims(40, 40, 40), F32)
-    with pytest.raises(ValueError, match="shared memory"):
-        fs.merge_f_geometry(*_sweep_dims(20, 20, 20), F64)
+    """Past the shared-memory limit each of the three kernels raises where
+    it is forced; unforced, the streamed kernel takes the shape."""
+    for dims, dtype in ((_sweep_dims(40, 40, 40), F32),
+                        (_sweep_dims(20, 20, 20), F64)):
+        for v in ("staged", "cluster", "base"):
+            with pytest.raises(ValueError, match="shared memory"):
+                fs.merge_f_geometry(*dims, dtype, variant=v)
+        assert fs.merge_f_geometry(*dims, dtype)[0] == "streamed"
 
 
-@pytest.mark.parametrize("variant", [None, "staged", "base", "cluster"])
+@pytest.mark.parametrize("variant", [None, "staged", "base", "cluster",
+                                     "streamed"])
 def test_cpu_wrapper_runs_the_plain_scan(variant):
     g = torch.Generator().manual_seed(0)
     Bn, S, DL, DB, Y, q, sr, sl = 3, 2, 3, 2, 2, 2, 4, 6
