@@ -12,10 +12,12 @@ plain version; a 4-node tree against enumeration, with
 ``iterate(polish=2)``; the karate-club graph, 10 sketch iterations and
 one ``qr`` polish sweep; homogeneous Glauber dynamics on an Erdos-Renyi
 graph, N=5000, T=15, D=10, through the banded merge, and at the
-reference's D=18, where its K4, K8 and K9 buckets take the streamed merge
-kernels; the streamed merge kernels against the plain scans at the shapes
-no other merge kernel fits (f64 to D=20, f32 D=24, q=3, the Glauber D=18
-buckets), with one f64 D=20 sketch sweep on them; SIRS on the 3-regular graph at D=10
+reference's D=18, where its K4, K8 and K9 buckets take the wide (cluster)
+merge kernels; the streamed merge kernels, forced, against the plain scans
+at the shapes no single-block merge kernel fits (f64 to D=20, f32 D=24,
+q=3, the Glauber D=18 buckets), with one f64 D=20 sketch sweep on the wide
+kernels; the wide and the streamed kernels timed in turns at the Glauber
+D=18 buckets and the f64 D=20 merge; SIRS on the 3-regular graph at D=10
 and D=20, through per-node tables; the bench state swept in chunks, Jacobi
 and in place, against the monolithic sweep; the Glauber state by the
 shuffled Gauss-Seidel ``iterate``; SIS inference on a tree of 4096
@@ -23,7 +25,9 @@ nodes with 256 soft observations, through every observable, the
 soft-margin sampler and SMC; time-varying SIS on the bench graph (a
 lockdown lowers lam at t=8; tables from ``build_tables_t``) at D=10 and
 D=20, every merge F launch reading one ``prob_yy`` a step; periodic SIS on
-a 3-regular graph of 1024 nodes, T=10, D=8, ``qr``; the modes' accuracy
+a 3-regular graph of 1024 nodes, T=10, D=8, ``qr``, and at D=10 (f32 SVDs
+above k=64) with cuSOLVER's default and ``gesvd`` drivers against the host
+in f64; the modes' accuracy
 gates (the infinite 3-regular graph's golden vector and the time-varying
 tree against enumeration; periodic SIS on a path reported); the
 scale target, SIS on an Erdos-Renyi graph of 10^5 nodes, T=50, D=10, swept
@@ -71,6 +75,9 @@ GLAUBER_N, GLAUBER_C, GLAUBER_T, GLAUBER_D = 5000, 2.5, 15, 10
 GLAUBER_J, GLAUBER_H, GLAUBER_BETA = 1.0, 0.1, 0.6
 TIMED_SWEEPS_GLAUBER = 3
 GLAUBER_D18, TIMED_SWEEPS_GLAUBER_D18 = 18, 2
+# the Glauber D=18 buckets whose merges take the wide kernels, with their
+# y-axis (K2, Y=3, keeps the cluster merge F and merge_w_kernel)
+WIDE_BUCKETS = ("K4_Y5", "K8_Y9", "K9_Y10")
 # the streamed merge kernels held to the plain scans: f64 sketch merges
 # [1024, 15] at D = 16, 18, 20 and DL != DB (1e-10 of max-abs), f32 at the
 # shapes past the shared-memory kernels (1e-4), and forced at two shapes
@@ -131,6 +138,11 @@ TOL_TV_STACKED = 1e-6
 # torch.linalg.svd, and against the host's float64 sweep, at
 # PERIODIC_CHECK_N nodes (the host's sweep takes ~15 s there)
 PERIODIC_N, PERIODIC_T, PERIODIC_D = 1024, 10, 8
+# f32 SVDs above k=64 (ROADMAP Queue 3 item 1): periodic SIS at D=10 (the
+# Kronecker merge's bond 100), SVD_DRIVER_SWEEPS sweeps of
+# SVD_DRIVER_N nodes on the card with cuSOLVER's default driver and with
+# gesvd, each against the same sweeps on the host in f64
+SVD_DRIVER_D, SVD_DRIVER_N, SVD_DRIVER_SWEEPS = 10, 64, 1
 PERIODIC_CHECK_N = 256
 TIMED_SWEEPS_PERIODIC = 2
 TOL_PERIODIC_SUMS = 1e-5
@@ -477,9 +489,10 @@ def per_shape_builds():
     q = 2 and (SIRS) q = 3, and of the Glauber D=18 sweep, the merge F
     kernel ``merge_f_geometry`` picks for each bucket of the Glauber sweep
     (Y = 3, 5, 9, 10) and for the SIRS merges at D=10, and for the K2
-    bucket (Y=3) of the Glauber D=18 sweep (the others take the streamed
-    kernels, one build for every shape), and the time-varying sweeps'
-    merge F builds (``MF_TV=1``: staged at D=10, cluster at D=20)."""
+    bucket (Y=3) of the Glauber D=18 sweep, the wide merge W and F kernels
+    of its K4, K8 and K9 buckets (banded) and of the f64 D=20 sketch
+    merge, and the time-varying sweeps' merge F builds (``MF_TV=1``:
+    staged at D=10, cluster at D=20)."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     from matrixproductbp_tpu_torch.ops import kernels
@@ -513,6 +526,14 @@ def per_shape_builds():
     picked = fs.merge_f_geometry(*shape)[0]
     if picked in fs._PER_SHAPE_MERGE_F:
         out.append(fs._merge_f_target(picked, shape))
+    # the wide kernels: the Glauber D=18 buckets' banded merges (yy_off 0)
+    # and the f64 D=20 sketch merge
+    for key in WIDE_BUCKETS:
+        md = merge_dims(GLAUBER_D18, int(key.split("_Y")[1]))
+        out += [("merge_wide", fs.merge_wide_macros(
+            kind, *md.values(), torch.float32, 0)) for kind in ("w", "f")]
+    out += [("merge_wide", fs.merge_wide_macros(
+        kind, *merge_dims(20).values(), torch.float64)) for kind in ("w", "f")]
     for D in (10, 20):
         shape = (*merge_dims(D).values(), torch.float32, True)
         out.append(fs._merge_f_target(
@@ -848,8 +869,9 @@ def reset_counts():
 def read_counts():
     """Launches by kernel: the merge wrappers count their kernels apart,
     ``merge_f`` (``merge_f_kernel``), ``merge_f_staged``,
-    ``merge_f_cluster`` and ``merge_f_streamed``; ``merge_w``
-    (``merge_w_kernel``), ``merge_w_staged`` and ``merge_w_streamed``; the
+    ``merge_f_cluster``, ``merge_f_wide`` and ``merge_f_streamed``;
+    ``merge_w`` (``merge_w_kernel``), ``merge_w_staged``, ``merge_w_wide``
+    and ``merge_w_streamed``; the
     MPEM3 and CholQR wrappers likewise,
     ``mpem3_w`` (``mpem3_w_kernel``) and ``mpem3_w_staged``, ``mpem3_f``
     and ``mpem3_f_staged``, ``cholqr`` (``cholqr_kernel``) and
@@ -873,9 +895,9 @@ def read_counts():
     check(sum(by_mf.values()) == counts["mpem3_f"],
           f"MPEM3 F launches {counts['mpem3_f']} != {by_mf}")
     counts.update(merge_f=by_f["base"], merge_f_staged=by_f["staged"],
-                  merge_f_cluster=by_f["cluster"],
+                  merge_f_cluster=by_f["cluster"], merge_f_wide=by_f["wide"],
                   merge_f_streamed=by_f["streamed"], merge_w=by_w["base"],
-                  merge_w_staged=by_w["staged"],
+                  merge_w_staged=by_w["staged"], merge_w_wide=by_w["wide"],
                   merge_w_streamed=by_w["streamed"], mpem3_w=by_mw["base"],
                   mpem3_w_staged=by_mw["staged"], mpem3_f=by_mf["base"],
                   mpem3_f_staged=by_mf["staged"], cholqr=by_q["base"],
@@ -887,8 +909,9 @@ def read_counts():
 #: all on the staged kernels
 MPEM3_WANTS = {"mpem3_w": 0, "mpem3_w_staged": 2, "mpem3_f": 0,
                "mpem3_f_staged": 2}
-#: the SIS sweeps at D=10 and D=20 launch no streamed merge kernel
-NO_STREAMED = {"merge_w_streamed": 0, "merge_f_streamed": 0}
+#: the SIS sweeps at D=10 and D=20 launch no wide or streamed merge kernel
+NO_STREAMED = {"merge_w_streamed": 0, "merge_f_streamed": 0,
+               "merge_w_wide": 0, "merge_f_wide": 0}
 
 
 def merge_w_wants(D):
@@ -1278,15 +1301,16 @@ def merges_per_update(Kb):
     return {1: 0, 2: 1, 3: 3}.get(Kb, 3 * Kb - 5)
 
 
-def bucket_wants(Kb, Yb, q, D, updates):
+def bucket_wants(Kb, Yb, q, D, updates, band=False):
     """The launches a bucket's ``updates`` group updates must make: its
-    merges on the merge W and F kernels the geometry picks for (Y, q, D),
-    and both conversions on the staged MPEM3 kernels."""
+    merges on the merge W and F kernels the geometry picks for (Y, q, D;
+    ``band``: the banded merge of ``yy_off`` tables), and both conversions
+    on the staged MPEM3 kernels."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     shape = (*merge_dims(D, Yb, q).values(), torch.float32)
-    w = fs.merge_w_geometry(*shape[:5], shape[6])[0]
-    f = fs.merge_f_geometry(*shape)[0]
+    w = fs.merge_w_geometry(*shape[:5], shape[6], band=band)[0]
+    f = fs.merge_f_geometry(*shape, band=band)[0]
     m = merges_per_update(Kb) * updates
     want = {"mpem3_w_staged": 2 * updates, "mpem3_f_staged": 2 * updates}
     if m:
@@ -1346,7 +1370,8 @@ def check_buckets(res, q, what):
     total = {}
     for key, got in res["by_bucket"].items():
         Kb, Yb = (int(v[1:]) for v in key.split("_"))
-        want = bucket_wants(Kb, Yb, q, res["D"], got["updates"])
+        want = bucket_wants(Kb, Yb, q, res["D"], got["updates"],
+                            res.get("yy_off") is not None)
         seen = {k: v for k, v in got.items() if k not in ("updates", "nodes")}
         check(seen == want, f"{what}: bucket {key} launched {seen}, want "
                             f"{want}")
@@ -1421,11 +1446,11 @@ def phase_glauber_er_d18():
     Glauber on ``erdos_renyi_graph(5000, 2.5)``, T=15, at D=18, f32,
     sketch.  Warm-up, then 2 timed sweeps; launches by kernel and by
     bucket, every merge and conversion on a hand kernel and no plain scan:
-    the K4, K8 and K9 buckets' merges (Y = 5, 9, 10) on the streamed
-    kernels, the K2 bucket's (Y=3) on the cluster merge F kernel and
-    ``merge_w_kernel``; one sweep held to the same sweep through the plain
-    scans; the isolated spins held to their exact marginals; s/sweep and
-    peak memory."""
+    the K4, K8 and K9 buckets' merges (Y = 5, 9, 10) on the wide kernels
+    (none on the streamed ones), the K2 bucket's (Y=3) on the cluster
+    merge F kernel and ``merge_w_kernel``; one sweep held to the same
+    sweep through the plain scans; the isolated spins held to their exact
+    marginals; s/sweep and peak memory."""
     bp0 = glauber_state(D=GLAUBER_D18)
     cur, res = timed_model_sweeps(bp0, TIMED_SWEEPS_GLAUBER_D18)
     n_iso, iso_err = isolated_spin_err(cur)
@@ -1435,10 +1460,12 @@ def phase_glauber_er_d18():
     emit("glauber_er_d18", **res)
     check_buckets(res, 2, "glauber_er_d18")
     by = res["by_bucket"]
-    for key in ("K4_Y5", "K8_Y9", "K9_Y10"):
-        check(by[key].get("merge_w_streamed", 0) > 0
-              and by[key].get("merge_f_streamed", 0) > 0,
-              f"glauber_er_d18: bucket {key} not on the streamed kernels: "
+    for key in WIDE_BUCKETS:
+        check(by[key].get("merge_w_wide", 0) > 0
+              and by[key].get("merge_f_wide", 0) > 0
+              and not by[key].get("merge_w_streamed")
+              and not by[key].get("merge_f_streamed"),
+              f"glauber_er_d18: bucket {key} not on the wide kernels: "
               f"{by[key]}")
     check(by["K2_Y3"].get("merge_f_cluster", 0) > 0
           and by["K2_Y3"].get("merge_w", 0) > 0,
@@ -1457,19 +1484,20 @@ def _bucket_batch(res, key):
 
 
 def phase_merge_reach_vs_plain(res18, reps=3):
-    """The streamed merge kernels against the plain scans at the shapes no
-    other merge kernel fits, each on the kernels the geometry picks (one
-    launch counted on each): f64 sketch merges [1024, 15] at D = 16, 18,
-    20 and DL=20, DB=12, within 1e-10 of the plain outputs' max-abs; f32
-    within 1e-4 at the Glauber D=18 sweep's K4 and K8 buckets (banded, Y =
-    5 and 9, their merge batch) and at D=24, Y=2, q = 2 and 3.  Forced
-    onto the streamed kernels at the D=10 bench merge (Y=2, [8192, 15])
-    and the Glauber K8 bucket at D=10 (Y=9), and timed in turns beside the
-    kernels those shapes take (picked, streamed, streamed, picked).  Then
-    one f64 sketch sweep at D=20 (SIS on ``random_regular_graph(512, 3)``,
-    its merge batch 1024): 3 merge W and 3 merge F launches on the
-    streamed kernels, no plain scan, beliefs within 1e-3 of the same
-    sweep through the plain scans.  Returns the f64 sweep's launches."""
+    """The streamed merge kernels, forced, against the plain scans at the
+    shapes no single-block merge kernel fits (one launch counted on each;
+    the wide kernels take them unforced): f64 sketch merges [1024, 15] at
+    D = 16, 18, 20 and DL=20, DB=12, within 1e-10 of the plain outputs'
+    max-abs; f32 within 1e-4 at the Glauber D=18 sweep's K4 and K8
+    buckets (banded, Y = 5 and 9, their merge batch) and at D=24, Y=2, q
+    = 2 and 3.  Forced onto the streamed kernels at the D=10 bench merge
+    (Y=2, [8192, 15]) and the Glauber K8 bucket at D=10 (Y=9), and timed
+    in turns beside the kernels those shapes take (picked, streamed,
+    streamed, picked).  Then one f64 sketch sweep at D=20 (SIS on
+    ``random_regular_graph(512, 3)``, its merge batch 1024): 3 merge W
+    and 3 merge F launches on the wide kernels, no plain scan, beliefs
+    within 1e-3 of the same sweep through the plain scans.  Returns the
+    f64 sweep's launches."""
     import torch
     import matrixproductbp_tpu_torch as tp
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
@@ -1480,7 +1508,8 @@ def phase_merge_reach_vs_plain(res18, reps=3):
         dims = dict(DL=DL, DB=DB, Y=2, q=2, sr=sr, sl=sr + 4)
         args = merge_inputs(REACH_BN, BENCH_T, **dims, dtype=f64, device=dev,
                             seed=60 + i)
-        cases.append(merge_vs_plain(args, dims, f"f64 {DL}x{DB}", f64))
+        cases.append(merge_vs_plain(args, dims, f"f64 {DL}x{DB}", f64,
+                                    variant="streamed"))
         del args
     for key in ("K4_Y5", "K8_Y9"):
         Y, Bn = _bucket_batch(res18, key)
@@ -1488,16 +1517,18 @@ def phase_merge_reach_vs_plain(res18, reps=3):
         args = banded_merge_inputs(Bn, GLAUBER_T, **md, device=dev,
                                    seed=70 + Y)
         cases.append({"bucket": key, **merge_vs_plain(
-            args, md, f"glauber_er_d18 bucket {key} banded merge")})
+            args, md, f"glauber_er_d18 bucket {key} banded merge",
+            variant="streamed")})
         del args
     for q in (2, 3):
         md = merge_dims(24, 2, q)
         args = merge_inputs(REACH_BN, BENCH_T, **md, dtype=f32, device=dev,
                             seed=80 + q)
-        cases.append(merge_vs_plain(args, md, f"f32 D=24 q={q}"))
+        cases.append(merge_vs_plain(args, md, f"f32 D=24 q={q}",
+                                    variant="streamed"))
         del args
     for c in cases:
-        check("streamed" in (c["merge_w_kernel"], c["merge_f_kernel"]),
+        check(c["merge_w_kernel"] == c["merge_f_kernel"] == "streamed",
               f"merge_reach_vs_plain: {c['what']} took no streamed kernel")
     emit("merge_reach_vs_plain", cases=cases)
     turns = []
@@ -1544,7 +1575,8 @@ def phase_merge_reach_vs_plain(res18, reps=3):
     emit("sis_f64_d20_sweep", N=bp0.N, D=20, dtype="float64", seconds=dt,
          launches=counts, plain_scan_calls=plain,
          one_sweep_belief_diff_vs_plain=diff, tol=TOL_SWEEP_BELIEFS)
-    check(counts["merge_w_streamed"] == 3 and counts["merge_f_streamed"] == 3
+    check(counts["merge_w_wide"] == 3 and counts["merge_f_wide"] == 3
+          and counts["merge_w_streamed"] == counts["merge_f_streamed"] == 0
           and not any(plain.values()),
           f"f64 D=20 sweep: launches {counts}, plain scans {plain}")
     check(diff <= TOL_SWEEP_BELIEFS, f"f64 D=20 sweep vs plain: {diff}")
@@ -1552,25 +1584,28 @@ def phase_merge_reach_vs_plain(res18, reps=3):
 
 
 def streamed_kernel_times(res18, f64_launches, reps=3):
-    """The streamed merge W and F kernels at the Glauber D=18 sweep's K4 and
-    K8 buckets (banded, their merge batch; the bound counts the band's
-    pairs, the kernel reads the band dense) and at the f64 D=20 sketch
-    merge [1024, 15] (the bound at the fp64 rate), CUDA events over
-    ``reps`` launches, beside the plain version's time; launches from the
-    Glauber D=18 sweeps and from the f64 sweep."""
+    """The wide and the streamed merge W and F kernels, timed in turns on
+    the same inputs (wide, streamed, streamed, wide; CUDA events over
+    ``reps`` launches each), at the Glauber D=18 sweep's K4, K8 and K9
+    buckets (banded, their merge batch; the bound counts the band's pairs,
+    which the wide kernels read alone and the streamed ones dense) and at
+    the f64 D=20 sketch merge [1024, 15] (the bound at the fp64 rate),
+    beside the plain version's time; each kernel's outputs held to the
+    plain scans'.  Launches from the Glauber D=18 sweeps and from the f64
+    sweep (the main paths launch the wide kernels, no streamed one).
+    Returns a row for each kernel, kind and shape."""
     import torch
     from matrixproductbp_tpu_torch.ops import fused_stta as fs
     dev = torch.device("cuda")
     shapes = []
-    for key in ("K4_Y5", "K8_Y9"):
+    for key in WIDE_BUCKETS:
         Y, Bn = _bucket_batch(res18, key)
         md = merge_dims(GLAUBER_D18, Y)
         bk = res18["by_bucket"][key]
         shapes.append((f"_glauber_y{Y}_d18", md, 4, band_pairs(Y),
                        lambda Bn=Bn, md=md, Y=Y: banded_merge_inputs(
                            Bn, GLAUBER_T, **md, device=dev, seed=40 + Y),
-                       {"w": bk.get("merge_w_streamed", 0),
-                        "f": bk.get("merge_f_streamed", 0)},
+                       lambda v, bk=bk: bk.get(v, 0), {"yy_off": 0},
                        FP32_FLOP_PER_S, TOL_F32_REL, Bn,
                        f"glauber_er_d18, bucket {key}"))
     md = merge_dims(20)
@@ -1578,48 +1613,58 @@ def streamed_kernel_times(res18, f64_launches, reps=3):
                    lambda: merge_inputs(REACH_BN, BENCH_T, **md,
                                         dtype=torch.float64, device=dev,
                                         seed=62),
-                   {"w": f64_launches["merge_w_streamed"],
-                    "f": f64_launches["merge_f_streamed"]},
-                   FP64_FLOP_PER_S, TOL_F64, REACH_BN, "sis_f64_d20_sweep"))
+                   lambda v: f64_launches[v], {}, FP64_FLOP_PER_S, TOL_F64,
+                   REACH_BN, "sis_f64_d20_sweep"))
     rows = []
-    for suffix, md, esize, band, inputs, launches, rate, tol, Bn, src \
+    for suffix, md, esize, band, inputs, launched, yy, rate, tol, Bn, src \
             in shapes:
         L1, B1, Th, Pyy, Phi, S0 = inputs()
-        Ws = fs.merge_wscan(L1, B1, Th, _variant="streamed")
+        Ws = fs.merge_wscan(L1, B1, Th, **yy)
         cases = [
-            ("w", lambda: fs.merge_wscan(L1, B1, Th, _variant="streamed"),
+            ("w", lambda v: fs.merge_wscan(L1, B1, Th, _variant=v, **yy),
              lambda: fs.merge_wscan_plain(L1, B1, Th),
              work_merge_w(Bn, GLAUBER_T, **md, esize=esize, band=band)),
-            ("f", lambda: fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S0,
-                                         _variant="streamed"),
+            ("f", lambda v: fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S0,
+                                           _variant=v, **yy),
              lambda: fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S0),
              work_merge_f(Bn, GLAUBER_T, **md, esize=esize, band=band))]
         for kind, kern, plain, (flops, nbytes) in cases:
-            out, ref = kern(), plain()
-            torch.cuda.synchronize()
-            err, scale = max_err(tuple(out) if kind == "f" else out,
-                                 tuple(ref) if kind == "f" else ref)
-            check(err <= tol * scale,
-                  f"streamed merge {kind}{suffix} disagrees with its plain "
-                  f"version: {err} > {tol} * {scale}")
-            name, srcfile, line = (MERGE_W_ROWS if kind == "w"
-                                   else MERGE_F_ROWS)["streamed"]
+            ref = plain()
+            errs = {}
+            for v in ("wide", "streamed"):
+                out = kern(v)
+                torch.cuda.synchronize()
+                err, scale = max_err(tuple(out) if kind == "f" else out,
+                                     tuple(ref) if kind == "f" else ref)
+                check(err <= tol * scale,
+                      f"{v} merge {kind}{suffix} disagrees with its plain "
+                      f"version: {err} > {tol} * {scale}")
+                errs[v] = err
+                del out
+            turns = in_turns({v: (lambda v=v: kern(v))
+                              for v in ("wide", "streamed")}, reps)
+            plain_ms = time_cuda(plain, 1)
             bms, by = bound_ms(flops, nbytes, rate)
             dense = (work_merge_w if kind == "w" else work_merge_f)(
                 Bn, GLAUBER_T, **md, esize=esize)[0]
-            rows.append({
-                "name": name + suffix, "route": "cuda",
-                "source": "matrixproductbp_tpu_torch/csrc/" + srcfile,
-                "replaces": "matrixproductbp_tpu/ops/fused_stta.py" + line,
-                "launches": launches[kind], "max_abs_err": err,
-                "ms": time_cuda(kern, reps), "plain_ms": time_cuda(plain, 1),
-                "bound_ms": bms, "bound_by": by, "library_ms": None,
-                "flops": flops, "dense_flops": dense, "bytes": nbytes,
-                "dtype": "float32" if esize == 4 else "float64",
-                "D": md["DL"], "Y": md["Y"], "B": Bn, "band_pairs": band,
-                "launches_from": src})
-            emit("kernel_time_streamed", **rows[-1])
-            del out, ref
+            for v in ("wide", "streamed"):
+                name, srcfile, line = (MERGE_W_ROWS if kind == "w"
+                                       else MERGE_F_ROWS)[v]
+                rows.append({
+                    "name": name + suffix, "route": "cuda",
+                    "source": "matrixproductbp_tpu_torch/csrc/" + srcfile,
+                    "replaces": "matrixproductbp_tpu/ops/fused_stta.py"
+                                + line,
+                    "launches": launched(f"merge_{kind}_{v}"),
+                    "max_abs_err": errs[v], "ms": sum(turns[v]) / 2,
+                    "ms_turns": turns[v], "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None,
+                    "flops": flops, "dense_flops": dense, "bytes": nbytes,
+                    "dtype": "float32" if esize == 4 else "float64",
+                    "D": md["DL"], "Y": md["Y"], "B": Bn, "band_pairs": band,
+                    "launches_from": src})
+                emit("kernel_time_" + v, **rows[-1])
+            del ref
         del L1, B1, Th, Pyy, Phi, S0, Ws
     return rows
 
@@ -2489,12 +2534,12 @@ def phase_tv_sis_rrg():
     return out
 
 
-def periodic_state(N, dtype, device):
+def periodic_state(N, dtype, device, D=PERIODIC_D):
     import matrixproductbp_tpu_torch as tp
     from matrixproductbp_tpu_torch.models import SIS, periodic_mpbp_sis
     g = tp.random_regular_graph(N, BENCH_DEG, np.random.default_rng(0))
     return periodic_mpbp_sis(SIS(g, lam=0.2, rho=0.1, T=PERIODIC_T,
-                                 gamma=0.3), D=PERIODIC_D, dtype=dtype,
+                                 gamma=0.3), D=D, dtype=dtype,
                              device=device)
 
 
@@ -2569,6 +2614,61 @@ def phase_periodic_sis_rrg():
           f"periodic: SVDs and QRs by route {routes}")
     check(diff_linalg <= TOL_SWEEP_BELIEFS,
           f"periodic: card sweep vs linalg.svd sweep: {diff_linalg}")
+    return res
+
+
+def phase_svd_driver_f32():
+    """ROADMAP Queue 3 item 1, f32 SVDs above k=64 on the card: periodic
+    SIS (``qr``) at D=10, whose Kronecker merges compress bond-100 trains,
+    on random_regular_graph(SVD_DRIVER_N, 3), T=10, SVD_DRIVER_SWEEPS
+    sweeps in f32 on the card through the port's route (cuSOLVER's
+    default driver above ``smallsvd.MAX_K``), then the same with every
+    such SVD on ``gesvd``, each held to the same sweeps on the host in
+    f64, and the host's own f32 sweeps (LAPACK) beside them; SVD batches
+    by route.  Beliefs finite; the distances reported."""
+    import torch
+    import matrixproductbp_tpu_torch as tp
+    from matrixproductbp_tpu_torch.ops import tensortrain
+    trunc = tp.TruncBond(SVD_DRIVER_D)
+
+    def run(dtype, device):
+        bp = periodic_state(SVD_DRIVER_N, dtype, device, D=SVD_DRIVER_D)
+        t0 = time.perf_counter()
+        for _ in range(SVD_DRIVER_SWEEPS):
+            bp = tp.bp_sweep(bp, trunc, method="qr")
+        b = tp.beliefs(bp).double().cpu()
+        return b, time.perf_counter() - t0
+
+    before = dict(tensortrain.batched_svd.calls)
+    port, port_s = run(torch.float32, "cuda")
+    routes = {k: v - before[k]
+              for k, v in tensortrain.batched_svd.calls.items()}
+    linalg_svd = torch.linalg.svd
+
+    def gesvd(A, full_matrices=True, *, driver=None, out=None):
+        if A.is_cuda and driver is None:
+            driver = "gesvd"
+        return linalg_svd(A, full_matrices=full_matrices, driver=driver)
+    torch.linalg.svd = gesvd
+    try:
+        forced, forced_s = run(torch.float32, "cuda")
+    finally:
+        torch.linalg.svd = linalg_svd
+    host, host_s = run(torch.float64, "cpu")
+    host32, host32_s = run(torch.float32, "cpu")
+    res = {"N": SVD_DRIVER_N, "T": PERIODIC_T, "D": SVD_DRIVER_D,
+           "sweeps": SVD_DRIVER_SWEEPS, "svd_batches_by_route": routes,
+           "port_route_vs_host_f64": float((port - host).abs().max()),
+           "gesvd_vs_host_f64": float((forced - host).abs().max()),
+           "port_route_vs_gesvd": float((port - forced).abs().max()),
+           "host_f32_vs_host_f64": float((host32 - host).abs().max()),
+           "port_s": port_s, "gesvd_s": forced_s, "host_f64_s": host_s,
+           "host_f32_s": host32_s}
+    emit("svd_driver_f32", **res)
+    check(bool(torch.isfinite(port).all() and torch.isfinite(forced).all()),
+          "svd_driver_f32: beliefs not finite")
+    check(routes["linalg"] > 0, f"svd_driver_f32: no SVD above k=64: "
+                                f"{routes}")
     return res
 
 
@@ -3267,11 +3367,13 @@ MERGE_F_ROWS = {
     "staged": ("merge_f_staged", "merge_f_staged.cu", ":281"),
     "cluster": ("merge_f_cluster", "merge_f_cluster.cu", ":382"),
     "base": ("merge_f", "stta_scans.cu", ":281"),
+    "wide": ("merge_f_wide", "merge_wide.cu", ":382"),
     "streamed": ("merge_f_streamed", "merge_streamed.cu", ":382"),
 }
 MERGE_W_ROWS = {
     "staged": ("merge_w_staged", "merge_w_staged.cu", ":231"),
     "base": ("merge_w", "stta_scans.cu", ":231"),
+    "wide": ("merge_w_wide", "merge_wide.cu", ":231"),
     "streamed": ("merge_w_streamed", "merge_streamed.cu", ":231"),
 }
 
@@ -3528,6 +3630,7 @@ def main():
     phase_inference_tree()
     tv = phase_tv_sis_rrg()
     phase_periodic_sis_rrg()
+    phase_svd_driver_f32()
     phase_modes_accuracy()
     scale = phase_scale_er_1e5()
     phase_stationary_modes()
@@ -3556,8 +3659,8 @@ def main():
     # the Glauber sweep's K=8 bucket (Y=9), and the staged MPEM3 kernels at
     # the SIRS D=10 sweep's conversions (q = 3)
     rows += glauber_kernel_times(gres)
-    # the streamed merge kernels: the Glauber D=18 sweep's K4 and K8
-    # buckets, and the f64 D=20 sketch merge
+    # the wide and the streamed merge kernels, in turns: the Glauber D=18
+    # sweep's K4, K8 and K9 buckets, and the f64 D=20 sketch merge
     rows += streamed_kernel_times(gres18, f64_launches)
     for r in mpem3_kernel_times(sres[10]["launches"], 10, 10, qi=3,
                                 launches_from="sirs_rrg_d10"):

@@ -75,6 +75,13 @@ _SIGNATURES = {
         "merge_f_streamed": ([_I, _P, _LP, _P, _LP, _P, _L, _P, _P, _P, _P,
                               _P, _P] + [_I] * 9 + [_L, _P]),
     },
+    # one of the two launchers a build (WD_KIND 0: W, 1: F)
+    "merge_wide": {
+        "merge_w_wide": [_P, _LP, _P, _LP, _P, _P] + [_I] * 7 + [_L, _P],
+        "merge_f_wide": ([_P, _LP, _P, _LP, _P, _L, _P, _P, _P, _P, _P]
+                         + [_I] * 8 + [_L, _P]),
+        "merge_wide_occupancy": [_L],
+    },
     "cholqr_staged": {
         "cholqr_staged": [_P, _P, _P, _I, _I, _I, _D, _L, _P],
     },
@@ -89,7 +96,7 @@ _SIGNATURES = {
 }
 #: sources built once per shape, with their sizes as macros
 PER_SHAPE = ("merge_f_staged", "merge_f_cluster", "merge_w_staged",
-             "cholqr_staged", "mpem3_staged")
+             "merge_wide", "cholqr_staged", "mpem3_staged")
 #: sources built once, without macros
 SOURCES = tuple(n for n in _SIGNATURES if n not in PER_SHAPE)
 

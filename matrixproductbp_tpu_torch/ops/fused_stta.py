@@ -7,7 +7,8 @@ Counterpart of ``matrixproductbp_tpu/ops/fused_stta.py``.  Each scan wrapper
 re-exported here as ``*_plain``) when its tensors lie on the CPU, and
 launches its CUDA kernel (``csrc/stta_scans.cu``, ``csrc/merge_f_staged.cu``,
 ``csrc/merge_f_cluster.cu``, ``csrc/merge_w_staged.cu``,
-``csrc/merge_streamed.cu``, ``csrc/mpem3_staged.cu``) when they lie on a
+``csrc/merge_wide.cu``, ``csrc/merge_streamed.cu``,
+``csrc/mpem3_staged.cu``) when they lie on a
 CUDA device; there is no
 fallback between the two.  ``<wrapper>.launches``
 counts kernel launches.
@@ -15,24 +16,27 @@ counts kernel launches.
 The kernels replace, in order, ``_merge_wstep_kernel`` (``fused_stta.py:231``),
 ``_merge_fstep_kernel`` / ``_merge_fstep_kernel_lean`` (``:281``, ``:382``),
 ``_mpem3_wstep_kernel`` (``:508``) and ``_mpem3_fstep_kernel`` (``:545``).
-Merge F has four kernels, picked by shape in :func:`merge_f_geometry`:
+Merge F has five kernels, picked by shape in :func:`merge_f_geometry`:
 ``merge_f_staged_kernel`` (``merge_f_staged.cu``, built once per shape with
 its sizes as constants) wherever its buffers fit (the f32 sketch merges up to
 D=15); ``merge_f_cluster_kernel`` (``merge_f_cluster.cu``, built likewise: a
 cluster of two blocks per instance, which share the sketch rows through
 distributed shared memory) wherever its buffers fit (the f32 sketch merges
 from D=16 to D=20); ``merge_f_kernel`` for the shapes neither takes where
-its buffers fit; and ``merge_f_streamed_kernel`` (``merge_streamed.cu``, one
-build for every shape: fixed shared memory, the shape's buffers in a global
-workspace) for the rest.  Merge W has three, picked in
-:func:`merge_w_geometry`: ``merge_w_staged_kernel`` (``merge_w_staged.cu``,
-built once per shape) at the f32 sketch merges (Y = q = 2) where its
-buffers fit, all of which it ran faster than ``merge_w_kernel``;
-``merge_w_kernel`` for the rest where its buffers fit; and
-``merge_w_streamed_kernel`` (``merge_streamed.cu``) beyond.  So the merge
-scans take every shape; the streamed kernels' workspace is sized by the
-blocks resident on the card (:func:`merge_streamed_plan`), not by the
-instances.
+its buffers fit; ``merge_f_wide_kernel`` (``merge_wide.cu``, built once per
+shape: one instance over a cluster of up to 8 blocks, every intermediate
+in the cluster's shared memory) where a cluster holds the step; and
+``merge_f_streamed_kernel`` (``merge_streamed.cu``, one build for every
+shape: fixed shared memory, the shape's buffers in a global workspace) for
+the rest.  Merge W has four, picked in :func:`merge_w_geometry`:
+``merge_w_staged_kernel`` (``merge_w_staged.cu``, built once per shape) at
+the f32 sketch merges (Y = q = 2) where its buffers fit, all of which it
+ran faster than ``merge_w_kernel``; ``merge_w_kernel`` for the rest where
+its buffers fit; ``merge_w_wide_kernel`` (``merge_wide.cu``) where a
+cluster holds the step; and ``merge_w_streamed_kernel``
+(``merge_streamed.cu``) beyond.  So the merge scans take every shape; the
+streamed kernels' workspace is sized by the blocks resident on the card
+(:func:`merge_streamed_plan`), not by the instances.
 MPEM3 W and F have two each, picked in :func:`mpem3_geometry`: the staged
 ``mpem3_w_staged_kernel`` / ``mpem3_f_staged_kernel`` (``mpem3_staged.cu``,
 built once per shape and B_t layout) for f32 where B_t is one dense,
@@ -42,7 +46,8 @@ strided views and the rest.
 The TPU-only machinery around them (lane padding, instance chunking, the
 VMEM admission model) has no counterpart: one thread block (or one cluster)
 owns one instance, and the only admission rule is the 227 KB shared-memory
-limit a block, past which the streamed merge kernels take the shape.
+limit a block, past which the wide (cluster) and then the streamed merge
+kernels take the shape.
 """
 from __future__ import annotations
 
@@ -64,7 +69,8 @@ __all__ = ["merge_stta_fused", "mpem3_stta_fused", "mpem3_stta_fused_tm",
            "merge_f_cluster_macros", "build_merge_f", "merge_w_geometry",
            "merge_w_staged_macros", "build_merge_w", "mpem3_geometry",
            "mpem3_staged_macros", "mpem3_layout", "build_mpem3",
-           "merge_streamed_plan", "MPEM3_LAYOUTS", "SMEM_LIMIT"]
+           "merge_streamed_plan", "merge_wide_macros", "build_merge_wide",
+           "MPEM3_LAYOUTS", "SMEM_LIMIT"]
 
 #: dynamic shared memory a scan kernel's block may use: the card's limit
 #: less the kernels' static reduction scratch
@@ -89,6 +95,11 @@ _STREAMED_BLOCKS_PER_SM = 2
 #: the most elements a streamed kernel's buffer may have (its sizes and
 #: in-step offsets are 32-bit)
 _STREAMED_MAX_ELEMENTS = 2 ** 31 - 1
+#: the wide merge kernels' block (``WD_NT`` in ``merge_wide.cu``; one block
+#: an SM: the shapes they take fill its shared memory) and the cluster sizes
+#: they may take (blocks an instance; at most 8, the portable limit)
+_WIDE_THREADS = 384
+_WIDE_CLUSTERS = (1, 2, 4, 8)
 
 
 def _merge_threads(smem: int) -> int:
@@ -198,7 +209,168 @@ def _streamed_geometry(kind, DL, DB, Y, q, sr, sl, esize):
     return "streamed", _STREAMED_THREADS, _smem_merge_streamed(esize)
 
 
-def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None, tv=False):
+def _band_pairs(Y, off):
+    """The (u, v) pairs of the sum-type band ``0 <= u + v - off < Y``."""
+    return sum(1 for u in range(Y) for v in range(Y) if 0 <= u + v - off < Y)
+
+
+def _smem_merge_wide(kind, DL, DB, Y, q, sr, sl, c, esize, band):
+    """Shared elements of one block of the wide merge W (``kind`` "w") or F
+    ("f") kernel over a cluster of ``c`` blocks, each buffer rounded up to
+    16 bytes.  W, a block owning MR = ceil(DB/c) rows m: W_{t+1}, W_t's
+    slice twice (step parity), L_t, B_t's rows, Th_t (its band ``psi``
+    where ``band``, else dense), t1 and u of its rows.  F, a block owning
+    EL = ceil(sl/c) rows e: S's rows, the S2 partials (every row), W_{t+1},
+    L_t, B_t, Phi_t's rows, t1 and t2 of its rows, and Bp unless
+    ``band``."""
+    v16 = 16 // esize
+
+    def pad(n):
+        return -(-n // v16) * v16
+    if kind == "w":
+        mr = -(-DB // c)
+        th = Y * sr * sr if band else Y * Y * sr * sr
+        return (pad(DL * DB * sr) + 2 * pad(DL * mr * sr) + pad(DL * DL * Y)
+                + pad(mr * DB * Y) + pad(th) + pad(mr * Y * DL * sr)
+                + pad(mr * DL * Y * sr))
+    el, DLB = -(-sl // c), DL * DB
+    return (pad(el * DLB) + pad(sl * DLB) + pad(DLB * sr) + pad(DL * DL * Y)
+            + pad(DB * DB * Y) + pad(el * sl * Y) + 2 * pad(el * DLB * Y)
+            + (0 if band else pad(Y * DB * Y * DB)))
+
+
+def _wide_products(kind, DL, DB, Y, q, sr, sl, c, band, off):
+    """(rows, column blocks, columns a block, sums on average, the inner
+    sums K1 that lanes may split) of each product of the wide kernel, in
+    the order of its tile macros ``WD_P<i>_*``: W's t1, u, W_t; F's M, t1,
+    t2, N, S2.  Banded products count the band's pairs."""
+    pairs = _band_pairs(Y, off or 0) if band else Y * Y
+    if kind == "w":
+        mr = -(-DB // c)
+        return [(mr * Y, DL, sr, DB, DB), (mr * DL, Y, sr, pairs * sr / Y, sr),
+                (DL, mr, sr, DL * Y, DL * Y)]
+    el, DLB = -(-sl // c), DL * DB
+    return [(el, 1, sr, DLB, DLB), (el * DB, 1, DL * Y, DL, DL),
+            (el * DL, Y, DB, pairs * DB / Y, DB), (el * Y, 1, sr, DLB, DLB),
+            (sl, 1, DLB, el * Y, Y)]
+
+
+def _wide_tile(rows, n0, n1, k, k1, threads, esize):
+    """(TM, TN, KS) of one product of the wide kernel: in f32, a TM x TN
+    register tile (TM, TN <= 8) of one column block, its sums split over KS
+    lanes (KS <= k1, the inner sums), the least instructions a thread
+    issues (rounds of tasks times the FMAs and loads of its sums), the
+    larger tile on a tie; in f64, a warp tile of TM x TN tensor-core tiles
+    of 8 x 8 (TM * TN <= 4), KS 1."""
+    best = None
+    if esize == 8:
+        for wm in (1, 2, 4):
+            for wn in (1, 2, 4):
+                if wm * wn > 4:
+                    continue
+                tiles = -(-rows // (8 * wm)) * n0 * -(-n1 // (8 * wn))
+                cost = -(-tiles // (threads // 32)) * -(-k // 4) * (
+                    4 * wm * wn + wm + wn)
+                if best is None or (cost, -wm * wn) < best[0]:
+                    best = ((cost, -wm * wn), (wm, wn, 1))
+        return best[1]
+    for tm in range(1, min(rows, 8) + 1):
+        for tn in range(1, min(n1, 8) + 1):
+            tiles = -(-rows // tm) * n0 * -(-n1 // tn)
+            for ks in (1, 2, 4, 8, 16):
+                if ks > k1:
+                    break
+                tasks = tiles if ks == 1 else -(-tiles * ks // 32) * 32
+                cost = -(-tasks // threads) * (
+                    -(-k // ks) * (tm * tn + tm + tn)
+                    + 2 * tm * tn * (ks.bit_length() - 1))
+                if best is None or (cost, -tm * tn) < best[0]:
+                    best = ((cost, -tm * tn), (tm, tn, ks))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_plan(kind, DL, DB, Y, q, sr, sl, esize, band):
+    """(blocks a cluster, shared elements a block) of the wide merge kernel:
+    the fewest blocks of :data:`_WIDE_CLUSTERS` whose shared memory holds
+    the step, each block owning at least one row; None if none does."""
+    rows = DB if kind == "w" else sl
+    for c in _WIDE_CLUSTERS:
+        if c > rows or (c - 1) * -(-rows // c) >= rows:
+            continue
+        n = _smem_merge_wide(kind, DL, DB, Y, q, sr, sl, c, esize, band)
+        if n * esize <= SMEM_LIMIT:
+            return c, n
+    return None
+
+
+def _wide_geometry(kind, DL, DB, Y, q, sr, sl, esize, band):
+    """("wide", threads, shared bytes) of the wide kernel, or None."""
+    plan = _wide_plan(kind, DL, DB, Y, q, sr, sl, esize, band)
+    return None if plan is None else ("wide", _WIDE_THREADS,
+                                      plan[1] * esize)
+
+
+@functools.lru_cache(maxsize=None)
+def merge_wide_macros(kind, DL, DB, Y, q, sr, sl, dtype, off=None):
+    """The macros ``merge_wide.cu`` is built with for one merge W (``kind``
+    "w"; ``sl`` is not read) or merge F ("f") shape: its sizes, its element
+    type, the cluster's blocks (``WD_C``), the threads a block
+    (``WD_NT``), the band (``WD_BAND``, and its offset ``WD_OFF``, where
+    ``off`` is given: the tables' ``yy_off``) and each product's tiles.  A
+    pure function of its arguments.  Raises ``ValueError`` where no
+    cluster holds the shape."""
+    esize = 4 if dtype == torch.float32 else 8
+    band = off is not None
+    sl = sl if kind == "f" else 0
+    plan = _wide_plan(kind, DL, DB, Y, q, sr, sl, esize, band)
+    if plan is None:
+        raise ValueError(f"merge {kind.upper()} scan: no cluster of up to "
+                         f"{_WIDE_CLUSTERS[-1]} blocks holds the wide "
+                         f"kernel's buffers at DL={DL}, DB={DB}, Y={Y}, "
+                         f"q={q}, sr={sr}" + (f", sl={sl}" if sl else ""))
+    c = plan[0]
+    out = [f"WD_T={'float' if esize == 4 else 'double'}",
+           f"WD_KIND={0 if kind == 'w' else 1}", f"WD_DL={DL}",
+           f"WD_DB={DB}", f"WD_Y={Y}", f"WD_Q={q}", f"WD_SR={sr}",
+           f"WD_SL={sl}", f"WD_C={c}", f"WD_NT={_WIDE_THREADS}",
+           f"WD_BAND={int(band)}", f"WD_OFF={off if band else 0}"]
+    for i, p in enumerate(_wide_products(kind, DL, DB, Y, q, sr, sl, c, band,
+                                         off)):
+        tm, tn, ks = _wide_tile(*p, _WIDE_THREADS, esize)
+        out += [f"WD_P{i}_TM={tm}", f"WD_P{i}_TN={tn}", f"WD_P{i}_KS={ks}"]
+    return tuple(out)
+
+
+def build_merge_wide(shapes):
+    """Build, all at once, the wide merge libraries of the shapes ``(kind,
+    DL, DB, Y, q, sr, sl, dtype[, off])``."""
+    build.build_all([("merge_wide", merge_wide_macros(*shape))
+                     for shape in shapes])
+
+
+_WIDE_CHECKED = set()
+
+
+def _wide_library(macros, smem):
+    """The wide kernel's library for one shape; at its first use, raises if
+    the card cannot hold one of its clusters at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    lib = build.library("merge_wide", macros)
+    if (macros, smem) not in _WIDE_CHECKED:
+        n = lib.merge_wide_occupancy(smem)
+        if n < 0:
+            _raise_on(-n, "wide merge set-up")
+        if n == 0:
+            raise RuntimeError(
+                "wide merge kernel: a cluster of its blocks of "
+                f"{smem} bytes of shared memory cannot be scheduled")
+        _WIDE_CHECKED.add((macros, smem))
+    return lib
+
+
+def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None, tv=False,
+                     band=False):
     """(variant, threads a block, shared-memory bytes a block) of the merge F
     kernel for one shape (``tv``: reading one ``Pyy`` a step), the first
     whose buffers fit in ``SMEM_LIMIT`` of:
@@ -206,22 +378,31 @@ def merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, variant=None, tv=False):
     it ran faster than ``merge_f_kernel`` at every D from 4 to 15, one
     block an SM included), ``"cluster"`` (``merge_f_cluster_kernel``, two
     blocks an instance; f32 sketch merges from D=16 to D=20) and ``"base"``
-    (``merge_f_kernel``); else ``"streamed"`` (``merge_f_streamed_kernel``,
-    whose shared memory does not grow with the shape: f64 from D=16, f32
-    Y=2 from D=21, the banded merges from D=19 at Y=3 down to D=10 at
-    Y=12).  ``variant``
-    forces one of the four.  Raises ``ValueError`` where the forced kernel
-    does not fit, or a streamed buffer outgrows its 32-bit sizes."""
+    (``merge_f_kernel``); else ``"wide"`` (``merge_f_wide_kernel``, one
+    instance over a cluster of up to 8 blocks: f64 from D=16, the banded
+    Glauber merges at D=18, f32 Y=2 from D=21), where a cluster holds the
+    step (``band``: the tables are the sum-type band, whose merges need no
+    dense Bp); else ``"streamed"`` (``merge_f_streamed_kernel``, whose
+    shared memory does not grow with the shape).  ``variant`` forces one of
+    the five.  Raises ``ValueError`` where the forced kernel does not fit,
+    or a streamed buffer outgrows its 32-bit sizes."""
     esize = 4 if dtype == torch.float32 else 8
     sizes = {"staged": _smem_merge_f_staged(DL, DB, Y, q, sr, sl, esize, tv),
              "cluster": _smem_merge_f_cluster(DL, DB, Y, q, sr, sl, esize,
                                               tv),
              "base": _smem_merge_f(DL, DB, Y, q, sr, sl, tv)}
     threads = {"staged": _STAGED_THREADS, "cluster": _CLUSTER_THREADS}
-    for name in (tuple(sizes) + ("streamed",) if variant is None
+    for name in (tuple(sizes) + ("wide", "streamed") if variant is None
                  else (variant,)):
         if name == "streamed":
             return _streamed_geometry("f", DL, DB, Y, q, sr, sl, esize)
+        if name == "wide":
+            picked = _wide_geometry("f", DL, DB, Y, q, sr, sl, esize, band)
+            if picked is not None:
+                return picked
+            nbytes = _smem_merge_wide("f", DL, DB, Y, q, sr, sl,
+                                      _WIDE_CLUSTERS[-1], esize, band) * esize
+            continue
         nbytes = sizes[name] * esize
         if nbytes <= SMEM_LIMIT:
             return name, threads.get(name, _merge_threads(nbytes)), nbytes
@@ -418,24 +599,33 @@ def _merge_w_staged_plan(DL, DB, Y, q, sr, esize):
     return nc, blocks, threads, a + b + c, smem
 
 
-def merge_w_geometry(DL, DB, Y, q, sr, dtype, variant=None):
+def merge_w_geometry(DL, DB, Y, q, sr, dtype, variant=None, band=False):
     """(variant, threads a block, shared-memory bytes a block) of the merge W
     kernel for one shape: ``"staged"`` (``merge_w_staged_kernel``) at the
     f32 sketch merges (Y = q = 2) where its buffers fit, the shapes where
     ``tools/probe_merge_w.py`` timed it faster than ``merge_w_kernel``;
     else ``"base"`` (``merge_w_kernel``: f64, Y=3 and the other shapes)
-    where its buffers fit; else ``"streamed"``
+    where its buffers fit; else ``"wide"`` (``merge_w_wide_kernel``, one
+    instance over a cluster of up to 8 blocks; ``band``: Th is the
+    sum-type band's) where a cluster holds the step; else ``"streamed"``
     (``merge_w_streamed_kernel``, whose shared memory does not grow with
-    the shape).  ``variant`` forces one of the three.  Raises
+    the shape).  ``variant`` forces one of the four.  Raises
     ``ValueError`` where the forced kernel does not fit, or a streamed
     buffer outgrows its 32-bit sizes."""
     esize = 4 if dtype == torch.float32 else 8
     timed = esize == 4 and (Y, q) == (2, 2)
-    names = (("staged", "base") if timed else ("base",)) + ("streamed",) \
-        if variant is None else (variant,)
+    names = (("staged", "base") if timed else ("base",)) + (
+        "wide", "streamed") if variant is None else (variant,)
     for name in names:
         if name == "streamed":
             return _streamed_geometry("w", DL, DB, Y, q, sr, None, esize)
+        if name == "wide":
+            picked = _wide_geometry("w", DL, DB, Y, q, sr, 0, esize, band)
+            if picked is not None:
+                return picked
+            nbytes = _smem_merge_wide("w", DL, DB, Y, q, sr, 0,
+                                      _WIDE_CLUSTERS[-1], esize, band) * esize
+            continue
         if name == "staged":
             plan = _merge_w_staged_plan(DL, DB, Y, q, sr, esize)
             if plan is not None:
@@ -702,11 +892,12 @@ def _raise_on(rc, what):
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
 
 
-def merge_wscan(L1, B1, Th, _variant=None):
+def merge_wscan(L1, B1, Th, _variant=None, yy_off=None):
     """Reverse merge scan; arguments and result as
     :func:`merge_wscan_plain`.  L1/B1 may be strided views.  On the card it
     launches the kernel :func:`merge_w_geometry` picks (``_variant`` forces
-    one, for tests)."""
+    one, for tests).  ``yy_off``: Th is ``y_expand(psi, yy_off, mode="sum")``
+    (zero off the band), and the wide kernel reads its band alone."""
     if _on_cpu(L1, B1, Th):
         return merge_wscan_plain(L1, B1, Th)
     code = _dtype_code(L1, B1, Th)
@@ -715,8 +906,9 @@ def merge_wscan(L1, B1, Th, _variant=None):
     _check_shape("B1", B1, (Bn, S, DB, DB, Y, q))
     _check_shape("Th", Th, (S, sr, sr, Y, Y, q))
     _check_contiguous(Th=Th)
+    band = yy_off is not None
     variant, threads, smem = merge_w_geometry(DL, DB, Y, q, sr, L1.dtype,
-                                              _variant)
+                                              _variant, band)
     Ws = L1.new_empty((Bn, S, DL, DB, sr))
     if Bn == 0 or S == 0:
         return Ws
@@ -726,6 +918,10 @@ def merge_wscan(L1, B1, Th, _variant=None):
         lib = build.library("merge_w_staged", merge_w_staged_macros(
             DL, DB, Y, q, sr, L1.dtype))
         rc = lib.merge_w_staged(*args, smem, _stream(L1))
+    elif variant == "wide":
+        lib = _wide_library(merge_wide_macros("w", DL, DB, Y, q, sr, 0,
+                                              L1.dtype, yy_off), smem)
+        rc = lib.merge_w_wide(*args, smem, _stream(L1))
     elif variant == "streamed":
         blocks, per = merge_streamed_plan("w", DL, DB, Y, q, sr, None, Bn,
                                           _sm_count(L1.device))
@@ -742,14 +938,16 @@ def merge_wscan(L1, B1, Th, _variant=None):
     return Ws
 
 
-def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init, _variant=None):
+def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init, _variant=None, yy_off=None):
     """Forward merge scan; arguments and results as
     :func:`merge_fscan_plain`.  On the card it launches the kernel
     :func:`merge_f_geometry` picks (``_variant`` forces one, for tests).
     ``Pyy`` is [S, Y, Y, Y, q], one table a step, or [Y, Y, Y, q], one for
     all; the kernels read step s's at ``Pyy + s * pyy_step``, with
     ``pyy_step = Pyy.stride(0)``: 0 for a shared table (also one expanded
-    over S), and then they load it once."""
+    over S), and then they load it once.  ``yy_off``: Pyy is the shared
+    ``band_indicator(Y, yy_off, q)``, which the wide kernel does not read:
+    it takes B_t along the band."""
     if _on_cpu(L1, B1, Pyy, Phi, Ws, S_init):
         return merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init)
     code = _dtype_code(L1, B1, Pyy, Phi, Ws, S_init)
@@ -759,14 +957,20 @@ def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init, _variant=None):
     if Pyy.ndim == 4:
         Pyy = Pyy.expand((S,) + Pyy.shape)
     _check_shape("Pyy", Pyy, (S, Y, Y, Y, q))
-    pyy_step = Pyy.stride(0)
+    # one step reads one table (a leading axis of size one keeps its
+    # stride, even when expanded)
+    pyy_step = Pyy.stride(0) if S > 1 else 0
     tv = pyy_step != 0
     _check_shape("Phi", Phi, (S, sl, sl, Y, q))
     _check_shape("Ws", Ws, (Bn, S, DL, DB, sr))
     _check_shape("S_init", S_init, (Bn, sl, DL, DB))
     _check_contiguous(Pyy=Pyy[:1], Phi=Phi, Ws=Ws, S_init=S_init)
+    band = yy_off is not None
+    if band and tv:
+        raise ValueError("merge F scan: a banded merge (yy_off) takes one "
+                         "shared band indicator, not a Pyy a step")
     variant, threads, smem = merge_f_geometry(DL, DB, Y, q, sr, sl,
-                                              L1.dtype, _variant, tv)
+                                              L1.dtype, _variant, tv, band)
     Ns = L1.new_empty((Bn, S, sl, Y, q, sr))
     Ms = L1.new_empty((Bn, S, sl, sr))
     if Bn == 0 or S == 0:
@@ -782,6 +986,9 @@ def merge_fscan(L1, B1, Pyy, Phi, Ws, S_init, _variant=None):
     elif variant == "cluster":
         lib = _cluster_library(merge_f_cluster_macros(*shape), smem)
         rc = lib.merge_f_cluster(*args, smem, _stream(L1))
+    elif variant == "wide":
+        lib = _wide_library(merge_wide_macros("f", *shape[:7], yy_off), smem)
+        rc = lib.merge_f_wide(*args, smem, _stream(L1))
     elif variant == "streamed":
         blocks, per = merge_streamed_plan("f", DL, DB, Y, q, sr, sl, Bn,
                                           _sm_count(L1.device))
@@ -875,15 +1082,17 @@ def mpem3_fscan(B1, Phi, Ws, S_init, _variant=None):
 
 for _w in (merge_wscan, merge_fscan, mpem3_wscan, mpem3_fscan):
     _w.launches = 0
-#: merge F launches by kernel: "staged", "cluster", "base" and "streamed"
-#: (see merge_f_geometry), and those of them that read a table a step
+#: merge F launches by kernel: "staged", "cluster", "base", "wide" and
+#: "streamed" (see merge_f_geometry), and those of them that read a table a
+#: step
 merge_fscan.variant_launches = {"staged": 0, "cluster": 0, "base": 0,
-                                "streamed": 0}
-merge_fscan.tv_launches = {"staged": 0, "cluster": 0, "base": 0,
+                                "wide": 0, "streamed": 0}
+merge_fscan.tv_launches = {"staged": 0, "cluster": 0, "base": 0, "wide": 0,
                            "streamed": 0}
-#: merge W launches by kernel: "staged", "base" and "streamed" (see
+#: merge W launches by kernel: "staged", "base", "wide" and "streamed" (see
 #: merge_w_geometry)
-merge_wscan.variant_launches = {"staged": 0, "base": 0, "streamed": 0}
+merge_wscan.variant_launches = {"staged": 0, "base": 0, "wide": 0,
+                                "streamed": 0}
 #: MPEM3 W and F launches by kernel: "staged" and "base" (see
 #: mpem3_geometry)
 mpem3_wscan.variant_launches = {"staged": 0, "base": 0}
@@ -902,7 +1111,8 @@ def merge_stta_fused(Lc, Llz, Bc, Blz, pyy, Dout: int, Y: int, q: int,
     -> (cores [B, T1, Dout, Dout, Y*q], logz [B] = Llz + Blz - sum log
     scales).
     ``yy_off`` selects the banded merge: the kernels take its banded ``Th``
-    and the band as a dense ``Pyy`` (``pyy`` is not read)."""
+    and the band as a dense ``Pyy`` (``pyy`` is not read), and are told the
+    band (the wide kernels read its entries alone)."""
     return merge_sketch(Lc, Llz, Bc, Blz, pyy, Dout, Y, q, sketches,
                         oversample, merge_wscan, merge_fscan, yy_off)
 

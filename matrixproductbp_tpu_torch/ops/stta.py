@@ -116,7 +116,7 @@ def _onehot000(Bn, shape, like):
 # the four scans (plain versions of the Hopper kernels)
 # ---------------------------------------------------------------------------
 
-def merge_wscan_plain(L1, B1, Th):
+def merge_wscan_plain(L1, B1, Th, yy_off=None):
     """Reverse sketch scan of the cavity merge.
 
     L1 [B, S, DL, DL, Y, q], B1 [B, S, DB, DB, Y, q] (times 1..T1-1; strided
@@ -124,6 +124,8 @@ def merge_wscan_plain(L1, B1, Th):
     Ws [B, S, DL, DB, sr] with ``Ws[:, s] = W_{s+1}``:
     ``W_t[k,m,a] = sum L_t[k,n,u,x] Th_t[a,b,u,v,x] B_t[m,j,v,x] W_{t+1}[n,j,b]``
     rescaled per instance; ``W_{T1}`` is the one-hot at (0, 0, 0).
+    ``yy_off`` (the band a banded merge's Th was made for) is not read: the
+    plain scan takes Th dense.
     """
     Bn, S, DL = L1.shape[:3]
     DB, sr = B1.shape[2], Th.shape[1]
@@ -137,7 +139,7 @@ def merge_wscan_plain(L1, B1, Th):
     return Ws
 
 
-def merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init):
+def merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init, yy_off=None):
     """Forward scan of the cavity merge.
 
     Pyy [S, Y(y), Y(u), Y(v), q], step s reading ``Pyy[s]`` (a shared
@@ -147,6 +149,7 @@ def merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S_init):
     emits ``M = S W_t`` and ``N = t2 W_{t+1}`` (the one-hot at the last
     step), then carries ``S <- Phi_t . t2``, rescaled, where
     ``t2[e,n,j,y,x] = sum S[e,k,m] L_t[k,n,u,x] Pyy[y,u,v,x] B_t[m,j,v,x]``.
+    ``yy_off`` (the band a banded merge's Pyy indicates) is not read.
     """
     Bn, S = L1.shape[:2]
     sl, sr = Phi.shape[1], Ws.shape[-1]
@@ -266,9 +269,9 @@ def merge_sketch(Lc, Llz, Bc, Blz, pyy, Dout, Y, q, sketches, oversample,
         c0 = torch.einsum("znyvx,zjvx->znjyx", LT, Bf[:, 0, 0])
     S_init = _rescale(torch.einsum("fyx,znjyx->zfnj", phi[0, 0], c0))
 
-    Ws = wscan(Lf[:, 1:], Bf[:, 1:], Th[1:])
+    Ws = wscan(Lf[:, 1:], Bf[:, 1:], Th[1:], yy_off=yy_off)
     Ns, Ms = fscan(Lf[:, 1:], Bf[:, 1:], pyy, phi[1:].contiguous(), Ws,
-                   S_init.contiguous())
+                   S_init.contiguous(), yy_off=yy_off)
 
     v0 = torch.einsum("znjyx,znjb->zbyx", c0, Ws[:, 0]).reshape(Bn, sr, P)
     cores = _assemble(v0, Ms, Ns, Bn, S, sr, P, Dout, dtype, device)

@@ -1,6 +1,7 @@
 """The streamed merge kernels on the card: their build report, their time
-per call beside the kernel each shape takes otherwise, and where a launch's
-time goes.
+per call beside the kernel each shape takes otherwise (the wide cluster
+kernels at the Glauber D=18 buckets and the f64 D=20 merge), and where a
+launch's time goes.
 
     python3 -m matrixproductbp_tpu_torch.tools.probe_merge_streamed
         [--attribute] [--reps=3]
@@ -11,9 +12,11 @@ report of its four kernels (merge W and F, f32 and f64); then, at each of
 their merge batch; the f64 sketch merge [1024, 15] at D=20; and two shapes
 that other kernels take, the D=10 bench merge and the Glauber K8 bucket at
 D=10), times ``merge_w_streamed_kernel`` and ``merge_f_streamed_kernel``
-with CUDA events, and where ``merge_*_geometry`` picks another kernel, that
-kernel in turns with them (picked, streamed, streamed, picked), each beside
-its error against the plain scan (relative to the plain output's max-abs).
+with CUDA events, and where ``merge_*_geometry`` picks another kernel (for
+the banded shapes, told the band), that kernel in turns with them (picked,
+streamed, streamed, picked), each beside its error against the plain scan
+(relative to the plain output's max-abs); the ptxas report of each wide
+build it picks.
 
 ``--attribute`` builds copies of ``merge_streamed.cu`` with the operand
 gather, the tile products' FMAs, or both left out (wrong results, the same
@@ -135,13 +138,14 @@ def _rel_err(out, ref):
 def time_shape(name, Bn, dims, banded, dtype, dev, reps):
     L1, B1, Th, Pyy, Phi, S0 = inputs(Bn, dims, banded, dtype, dev)
     Ws = fs.merge_wscan_plain(L1, B1, Th)
-    picks = (fs.merge_w_geometry(*dims[:5], dtype)[0],
-             fs.merge_f_geometry(*dims, dtype)[0])
+    picks = (fs.merge_w_geometry(*dims[:5], dtype, band=banded)[0],
+             fs.merge_f_geometry(*dims, dtype, band=banded)[0])
+    yy = {"yy_off": 0} if banded else {}
     scans = {
-        "w": (lambda v: fs.merge_wscan(L1, B1, Th, _variant=v),
+        "w": (lambda v: fs.merge_wscan(L1, B1, Th, _variant=v, **yy),
               fs.merge_wscan_plain(L1, B1, Th)),
         "f": (lambda v: fs.merge_fscan(L1, B1, Pyy, Phi, Ws, S0,
-                                       _variant=v),
+                                       _variant=v, **yy),
               fs.merge_fscan_plain(L1, B1, Pyy, Phi, Ws, S0))}
     row = {"shape": name, "B": Bn, "dims": dims, "dtype": str(dtype)[6:],
            "picked": picks}
@@ -218,6 +222,18 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip())
+    wide = [(kind, *dims[:6 if kind == "f" else 5],
+             *(() if kind == "f" else (0,)), dtype, *((0,) if banded else ()))
+            for _, _, dims, banded, dtype in SHAPES for kind in ("w", "f")
+            if (fs.merge_f_geometry(*dims, dtype, band=banded) if kind == "f"
+                else fs.merge_w_geometry(*dims[:5], dtype,
+                                         band=banded))[0] == "wide"]
+    fs.build_merge_wide(wide)
+    for shape in wide:
+        print("ptxas wide", shape[:7], " ".join(
+            ln.strip() for ln in build.build_log(
+                "merge_wide", fs.merge_wide_macros(*shape)).splitlines()
+            if "Used" in ln or "spill" in ln), flush=True)
     for shape in SHAPES:
         time_shape(*shape, dev, a.reps)
     if a.attribute:

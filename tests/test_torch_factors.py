@@ -356,18 +356,21 @@ def test_banded_merge_rounded_matches_jax():
 # the largest bond D at which both shared-memory merge scan kernels hold an
 # f32 sketch merge (sr = D, sl = D + 4, q = 2) of y-axis Y: Glauber's Y
 # grows with the degree (Y = K + 1), so an Erdos-Renyi graph with a
-# degree-9 node (Y=10) runs on them to D=10; above, the streamed kernels
-# (csrc/merge_streamed.cu) take the merge, to D=32 and beyond
+# degree-9 node (Y=10) runs on them to D=10; above, the wide cluster
+# kernels (csrc/merge_wide.cu) take the merge where a cluster holds it and
+# the streamed kernels (csrc/merge_streamed.cu) beyond, to D=32 and beyond
 MAX_D_BY_Y = {2: 20, 3: 18, 4: 16, 5: 15, 6: 14, 7: 13, 8: 12, 9: 11,
               10: 10, 11: 10, 12: 9, 13: 9}
 
 
 @pytest.mark.parametrize("Y", list(MAX_D_BY_Y))
 def test_merge_kernels_reach_by_y(Y):
-    """No merge raises up to D=32: to MAX_D_BY_Y[Y] on the shared-memory
-    kernels, from the next bond on at least one scan on a streamed one."""
+    """No merge raises up to D=32: to MAX_D_BY_Y[Y] on the single-block
+    kernels, from the next bond on at least one scan on a wide (cluster)
+    or a streamed one."""
     for D in range(2, 33):
         picks = (tfs.merge_f_geometry(D, D, Y, 2, D, D + 4,
                                       torch.float32)[0],
                  tfs.merge_w_geometry(D, D, Y, 2, D, torch.float32)[0])
-        assert ("streamed" in picks) == (D > MAX_D_BY_Y[Y]), (D, picks)
+        beyond = any(p in ("wide", "streamed") for p in picks)
+        assert beyond == (D > MAX_D_BY_Y[Y]), (D, picks)

@@ -25,7 +25,11 @@ SIRS merges and conversions (f32, 1e-4 of max-abs); and the chunked sweep
 against the monolithic one, the flat Jacobi sweep bit for bit against the
 chunked one; ``transition_probs`` on the card against the CPU on a batch
 of particles; ``belief_lognorms(method="sketch")`` on the merge kernels
-against the plain scans (f32, 1e-3).  Marked ``gpu``; skips
+against the plain scans (f32, 1e-3); the wide (cluster) merge kernels
+at the Glauber D=18 buckets (banded, dense and one Pyy a step), f64 from
+D=16 to D=20 and f32 D=24, q=3 (1e-10 f64, 1e-4 f32), and merge F wide
+forced at the f64 edge shapes and in the non-finite cases.  Marked
+``gpu``; skips
 from its fixture when no CUDA device is present.  Needs no JAX: on the
 card run it with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``.
@@ -33,6 +37,7 @@ card run it with
 import pytest
 import torch
 
+from matrixproductbp_tpu_torch.ops import build
 from matrixproductbp_tpu_torch.ops import fused_stta as fs
 from matrixproductbp_tpu_torch.ops import kernels, smallsvd
 from matrixproductbp_tpu_torch.ops.smallalg import cholqr_unrolled
@@ -147,9 +152,25 @@ def staged_builds():
                    for D in MERGE_F32_D + [10]]
         shapes += [(*d.values(), torch.float32) for d in MERGE_F32_CLUSTER]
         fs.build_merge_f(shapes)
+        fs.build_merge_wide(_wide_builds())
 
 
-@pytest.mark.parametrize("variant", ["staged", "base", "cluster",
+def _wide_builds():
+    """The wide kernels' builds of the tests below, one nvcc each, started
+    together: merge F forced at the f64 edge shapes and the D=10 sketch
+    merge, and both kernels the geometry picks at MERGE_WIDE's shapes."""
+    out = [("f", *d.values(), torch.float64) for d, _ in MERGE_F64]
+    out.append(("f", *_sketch_dims(10).values(), torch.float32))
+    for d, dtype, pyy, _ in MERGE_WIDE:
+        off = (0,) if pyy == "band" else ()
+        out.append(("f", *d.values(), dtype, *off))
+        if fs.merge_w_geometry(*list(d.values())[:5], dtype,
+                               band=bool(off))[0] == "wide":
+            out.append(("w", *list(d.values())[:5], 0, dtype, *off))
+    return list(dict.fromkeys(out))
+
+
+@pytest.mark.parametrize("variant", ["staged", "base", "cluster", "wide",
                                      "streamed"])
 @pytest.mark.parametrize("dims,S", MERGE_F64)
 def test_merge_kernels_f64(cuda, dims, S, variant):
@@ -402,11 +423,11 @@ def test_oversized_shape_raises(cuda):
     assert fs.merge_wscan.variant_launches["streamed"] == before + 1
 
 
-# the streamed merge kernels (merge_streamed.cu) at shapes no other merge
-# kernel fits, picked by the geometry: f64 at D = 16, 18, 20 and DL != DB
-# (20 x 12, both ways); f32 at Y=2 D=24 (one Pyy a step too), q=3 D=24 and
-# the Glauber buckets' banded merges (Y = 5, 9, 10 at D=18); f64 1e-10,
-# f32 1e-4 of max-abs
+# the streamed merge kernels (merge_streamed.cu), forced, at shapes no
+# single-block merge kernel fits (the wide cluster kernels take them
+# unforced): f64 at D = 16, 18, 20 and DL != DB (20 x 12, both ways); f32
+# at Y=2 D=24 (one Pyy a step too), q=3 D=24 and the Glauber buckets'
+# banded merges (Y = 5, 9, 10 at D=18); f64 1e-10, f32 1e-4 of max-abs
 MERGE_STREAMED = [
     (dict(DL=16, DB=16, Y=2, q=2, sr=16, sl=20), torch.float64, None),
     (dict(DL=18, DB=18, Y=2, q=2, sr=18, sl=22), torch.float64, None),
@@ -446,17 +467,96 @@ def test_merge_streamed_takes_the_shapes_beyond(cuda, dims, dtype, pyy):
     f = fs.merge_f_geometry(DL, DB, Y, q, sr, sl, dtype,
                             tv=pyy == "steps")[0]
     # f64 merge W fits merge_w_kernel up to D=16
-    assert f == "streamed" and w == ("base" if DL == 16 else "streamed")
+    assert f in ("wide", "streamed")
+    assert w in (("base",) if DL == 16 else ("wide", "streamed"))
     bw = dict(fs.merge_wscan.variant_launches)
     bf = dict(fs.merge_fscan.tv_launches)
-    Ws = fs.merge_wscan(L, B, Th)
-    out = [Ws, *fs.merge_fscan(L, B, Pyy, Phi, Ws, S0)]
-    assert fs.merge_wscan.variant_launches[w] == bw[w] + 1
+    Ws = fs.merge_wscan(L, B, Th, _variant="streamed")
+    out = [Ws, *fs.merge_fscan(L, B, Pyy, Phi, Ws, S0, _variant="streamed")]
+    assert fs.merge_wscan.variant_launches["streamed"] == \
+        bw["streamed"] + 1
     assert fs.merge_fscan.tv_launches["streamed"] == bf["streamed"] + (
         pyy == "steps")
     Wp = fs.merge_wscan_plain(L, B, Th)
     ref = [Wp, *fs.merge_fscan_plain(L, B, Pyy, Phi, Wp, S0)]
     _assert_close(out, ref, None if dtype == torch.float64 else 1e-4)
+
+
+# the wide merge kernels (merge_wide.cu), picked by the geometry: the Glauber
+# D=18 buckets' banded merges (Y = 5, 9, 10: clusters of 2, 4 and 8 blocks
+# for merge F), Y=5 with a dense Pyy, shared and one a step; f64 at D = 16
+# (merge F only), 18, 20 (a cluster of 8) and DL != DB both ways, one Pyy
+# a step too; f32 at D=24, q = 3; S = 1 and 2; f64 1e-10, f32 1e-4 of
+# max-abs
+MERGE_WIDE = [
+    (dict(DL=18, DB=18, Y=5, q=2, sr=18, sl=22), torch.float32, "band", 4),
+    (dict(DL=18, DB=18, Y=9, q=2, sr=18, sl=22), torch.float32, "band", 4),
+    (dict(DL=18, DB=18, Y=10, q=2, sr=18, sl=22), torch.float32, "band", 4),
+    (dict(DL=18, DB=18, Y=5, q=2, sr=18, sl=22), torch.float32, None, 4),
+    (dict(DL=18, DB=18, Y=5, q=2, sr=18, sl=22), torch.float32, "steps", 4),
+    (dict(DL=18, DB=18, Y=9, q=2, sr=18, sl=22), torch.float32, "band", 1),
+    (dict(DL=18, DB=18, Y=10, q=2, sr=18, sl=22), torch.float32, "band", 2),
+    (dict(DL=16, DB=16, Y=2, q=2, sr=16, sl=20), torch.float64, None, 4),
+    (dict(DL=18, DB=18, Y=2, q=2, sr=18, sl=22), torch.float64, None, 4),
+    (dict(DL=20, DB=20, Y=2, q=2, sr=20, sl=24), torch.float64, None, 4),
+    (dict(DL=20, DB=20, Y=2, q=2, sr=20, sl=24), torch.float64, None, 1),
+    (dict(DL=20, DB=12, Y=2, q=2, sr=20, sl=24), torch.float64, None, 4),
+    (dict(DL=12, DB=20, Y=2, q=2, sr=20, sl=24), torch.float64, "steps", 4),
+    (dict(DL=24, DB=24, Y=2, q=3, sr=24, sl=28), torch.float32, None, 3)]
+
+
+@pytest.mark.parametrize("dims,dtype,pyy,S", MERGE_WIDE, ids=lambda v: (
+    f"{v['DL']}x{v['DB']}-Y{v['Y']}-q{v['q']}" if isinstance(v, dict)
+    else str(v)))
+def test_merge_wide_takes_the_cluster_shapes(cuda, dims, dtype, pyy, S):
+    from matrixproductbp_tpu_torch.ops import sumy
+    DL, DB, Y, q, sr, sl = dims.values()
+    Bn = 5
+    g = torch.Generator().manual_seed(12)
+    L = _randn(g, Bn, S + 1, DL, DL, Y, q).to(cuda, dtype)[:, 1:]
+    B = _randn(g, S + 1, Bn, DB, DB, Y, q).to(cuda, dtype) \
+        .transpose(0, 1)[:, 1:]
+    band = {"yy_off": 0} if pyy == "band" else {}
+    if pyy == "band":
+        Th = sumy.y_expand(_randn(g, S, sr, sr, Y, q).to(cuda, dtype), 0,
+                           axis=3, mode="sum").contiguous()
+        Pyy = sumy.band_indicator(Y, 0, q, dtype, cuda)
+    else:
+        Th = _randn(g, S, sr, sr, Y, Y, q).to(cuda, dtype)
+        Pyy = torch.rand(((S,) if pyy == "steps" else ()) + (Y, Y, Y, q),
+                         generator=g, dtype=torch.float64).to(cuda, dtype)
+    Phi = _randn(g, S, sl, sl, Y, q).to(cuda, dtype)
+    S0 = _randn(g, Bn, sl, DL, DB).to(cuda, dtype)
+    w = fs.merge_w_geometry(DL, DB, Y, q, sr, dtype, band=bool(band))[0]
+    f = fs.merge_f_geometry(DL, DB, Y, q, sr, sl, dtype, tv=pyy == "steps",
+                            band=bool(band))[0]
+    assert f == "wide" and w == ("base" if DL == DB == 16 else "wide")
+    bw = dict(fs.merge_wscan.variant_launches)
+    bf = dict(fs.merge_fscan.variant_launches)
+    bt = dict(fs.merge_fscan.tv_launches)
+    Ws = fs.merge_wscan(L, B, Th, **band)
+    out = [Ws, *fs.merge_fscan(L, B, Pyy, Phi, Ws, S0, **band)]
+    assert fs.merge_wscan.variant_launches[w] == bw[w] + 1
+    assert fs.merge_fscan.variant_launches["wide"] == bf["wide"] + 1
+    assert fs.merge_fscan.tv_launches["wide"] == bt["wide"] + (
+        pyy == "steps")
+    Wp = fs.merge_wscan_plain(L, B, Th)
+    ref = [Wp, *fs.merge_fscan_plain(L, B, Pyy, Phi, Wp, S0)]
+    _assert_close(out, ref, None if dtype == torch.float64 else 1e-4)
+
+
+def test_merge_wide_refuses_another_shape(cuda):
+    """A wide build takes only its own shape: the launcher returns an
+    error for another, and the wrapper raises."""
+    lib = build.library("merge_wide", fs.merge_wide_macros(
+        "w", 18, 18, 5, 2, 18, 0, torch.float32, 0))
+    L = torch.zeros(1, 1, 18, 18, 5, 2, device=cuda)
+    Th = torch.zeros(1, 18, 18, 5, 5, 2, device=cuda)
+    Ws = torch.empty(1, 1, 18, 18, 17, device=cuda)
+    rc = lib.merge_w_wide(L.data_ptr(), fs._strides(L), L.data_ptr(),
+                          fs._strides(L), Th.data_ptr(), Ws.data_ptr(), 1,
+                          1, 18, 18, 5, 2, 17, 0, 0)
+    assert rc != 0
 
 
 def test_merge_streamed_walks_more_instances_than_blocks(cuda):
@@ -590,7 +690,7 @@ def test_mpem3_staged_safe_scale(cuda, mpem3_builds, qj, layout):
     assert bool(torch.isfinite(ref[0][3]).all())
 
 
-@pytest.mark.parametrize("variant", ["staged", "cluster", "base",
+@pytest.mark.parametrize("variant", ["staged", "cluster", "base", "wide",
                                      "streamed"])
 def test_merge_f_safe_scale(cuda, variant):
     """As ``test_mpem3_staged_safe_scale`` for each merge F kernel at the

@@ -3,10 +3,12 @@
 The pure :func:`merge_f_geometry` and :func:`merge_w_geometry` return a
 kernel, without raising, anywhere in the envelope (DL, DB, sr <= 32, sl =
 min(sr + 4, DL * DB), 2 <= Y <= 17, q in {2, 3}, f32 and f64, one shared or
-one per-step ``Pyy``); the streamed kernels (``csrc/merge_streamed.cu``)
-take exactly the shapes whose buffers fit no shared-memory kernel, so every
-shape that fitted before keeps its kernel; their workspace is sized by the
-blocks resident on the card, not by the instances.  And the port's merge at
+one per-step ``Pyy``); the wide kernels (``csrc/merge_wide.cu``, one
+instance over a cluster) take the shapes no single block holds where a
+cluster of up to 8 blocks does, and the streamed kernels
+(``csrc/merge_streamed.cu``) exactly the rest, so every shape that fitted
+before keeps its kernel; the streamed workspace is sized by the blocks
+resident on the card, not by the instances.  And the port's merge at
 such shapes (the plain scans on the CPU) against the JAX package's XLA
 merge on the same inputs and sketches, at the tensors the cores represent
 (f64, 1e-8 of their max-abs).  The kernels themselves run on the card only
@@ -55,18 +57,21 @@ def _fits(geometry, *args):
 @pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
 def test_envelope_has_a_kernel_everywhere(dtype, q, tv):
     """Both geometries return a kernel at every shape of the grid, DL != DB
-    included; "streamed" exactly where no shared-memory kernel fits (where
-    one does, the pick is the one it was before the streamed kernels)."""
+    included; "streamed" exactly where no shared-memory kernel fits, the
+    wide cluster kernel included (where one does, the pick is the one it
+    was before the streamed kernels, or "wide" where only a cluster
+    holds the step)."""
     for DL, DB, Y, sr, sl in _envelope():
         f, f_threads, f_smem = fs.merge_f_geometry(DL, DB, Y, q, sr, sl,
                                                    dtype, tv=tv)
         w, w_threads, w_smem = fs.merge_w_geometry(DL, DB, Y, q, sr, dtype)
         assert max(f_smem, w_smem) <= fs.SMEM_LIMIT
         f_fits = any(_fits(fs.merge_f_geometry, DL, DB, Y, q, sr, sl, dtype,
-                           v, tv) for v in ("staged", "cluster", "base"))
+                           v, tv) for v in ("staged", "cluster", "base",
+                                            "wide"))
         assert (f == "streamed") != f_fits, (DL, DB, Y, q, sr, sl)
-        w_fits = _fits(fs.merge_w_geometry, DL, DB, Y, q, sr, dtype,
-                       "base") or (
+        w_fits = any(_fits(fs.merge_w_geometry, DL, DB, Y, q, sr, dtype, v)
+                     for v in ("base", "wide")) or (
             dtype == F32 and (Y, q) == (2, 2)
             and fs._merge_w_staged_plan(DL, DB, Y, q, sr, 4) is not None)
         assert (w == "streamed") != w_fits, (DL, DB, Y, q, sr)
@@ -78,7 +83,9 @@ def test_envelope_has_a_kernel_everywhere(dtype, q, tv):
 # streamed kernels: the D=10 and D=18 SIS merges, the Glauber K8 bucket at
 # D=10 and K2 at D=18, the f64 merge at D=15, SIRS at D=20; and the shapes
 # that raised before: f64 at D=16 (merge_w_kernel still fits), 18, 20 and
-# 20 x 12, f32 at D=21 and 24, the Glauber K4/K8/K9 buckets at D=18
+# 20 x 12, f32 at D=21 and 24, and Y = 5, 9, 10 at D=18 with a dense Pyy
+# (the wide cluster kernels take those a cluster holds; the Glauber
+# buckets' banded merges, all wide, in tests/test_torch_merge_wide.py)
 PICKS = [
     ((10, 10, 2, 2, 10, 14, F32), ("staged", "staged")),
     ((18, 18, 2, 2, 18, 22, F32), ("cluster", "staged")),
@@ -86,13 +93,13 @@ PICKS = [
     ((18, 18, 3, 2, 18, 22, F32), ("cluster", "base")),
     ((15, 15, 2, 2, 15, 19, F64), ("cluster", "base")),
     ((20, 20, 2, 3, 20, 24, F32), ("base", "base")),
-    ((16, 16, 2, 2, 16, 20, F64), ("streamed", "base")),
-    ((18, 18, 2, 2, 18, 22, F64), ("streamed", "streamed")),
-    ((20, 20, 2, 2, 20, 24, F64), ("streamed", "streamed")),
-    ((20, 12, 2, 2, 20, 24, F64), ("streamed", "streamed")),
-    ((21, 21, 2, 2, 21, 25, F32), ("streamed", "streamed")),
-    ((24, 24, 2, 3, 24, 28, F32), ("streamed", "streamed")),
-    ((18, 18, 5, 2, 18, 22, F32), ("streamed", "streamed")),
+    ((16, 16, 2, 2, 16, 20, F64), ("wide", "base")),
+    ((18, 18, 2, 2, 18, 22, F64), ("wide", "wide")),
+    ((20, 20, 2, 2, 20, 24, F64), ("wide", "wide")),
+    ((20, 12, 2, 2, 20, 24, F64), ("wide", "wide")),
+    ((21, 21, 2, 2, 21, 25, F32), ("wide", "wide")),
+    ((24, 24, 2, 3, 24, 28, F32), ("wide", "wide")),
+    ((18, 18, 5, 2, 18, 22, F32), ("wide", "wide")),
     ((18, 18, 9, 2, 18, 22, F32), ("streamed", "streamed")),
     ((18, 18, 10, 2, 18, 22, F32), ("streamed", "streamed")),
 ]
@@ -183,8 +190,11 @@ def test_merge_at_streamed_shapes_matches_jax(name, jax_merges):
     DL, DB = args[0].shape[2], args[2].shape[2]
     sr = min(Dout, DL * DB)
     shape = (DL, DB, Y, q, sr, min(sr + 4, DL * DB))
-    assert fs.merge_f_geometry(*shape, F64)[0] == "streamed"
-    assert fs.merge_w_geometry(*shape[:5], F64)[0] == "streamed"
+    shared = ("staged", "cluster", "base")
+    assert fs.merge_f_geometry(*shape, F64, band=off is not None)[0] \
+        not in shared
+    assert fs.merge_w_geometry(*shape[:5], F64, band=off is not None)[0] \
+        not in shared
     out = fs.merge_stta_fused(*(torch.as_tensor(a) for a in args), Dout, Y,
                               q, sketches=JaxSketches(), yy_off=off)
     jc, jz = jax_merges[name]

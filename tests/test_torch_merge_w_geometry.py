@@ -120,13 +120,15 @@ def test_forced_kernel_that_does_not_fit_raises():
         fs.merge_w_geometry(*dims, F32, "staged")
     with pytest.raises(ValueError, match="shared memory"):
         fs.merge_w_staged_macros(*dims, F32)
-    # D=24 in f32 and D=20 in f64: neither kernel fits, and the streamed
-    # kernel takes the shape
-    for dims, dtype in (((24, 24, 2, 2, 24), F32), ((20, 20, 2, 2, 20), F64)):
+    # D=24 in f32 and D=20 in f64: neither single-block kernel fits, and
+    # the wide cluster kernel takes the shape (D=40: the streamed kernel)
+    for dims, dtype, want in (((24, 24, 2, 2, 24), F32, "wide"),
+                              ((20, 20, 2, 2, 20), F64, "wide"),
+                              ((40, 40, 2, 2, 40), F32, "streamed")):
         for variant in ("staged", "base"):
             with pytest.raises(ValueError, match="shared memory"):
                 fs.merge_w_geometry(*dims, dtype, variant)
-        assert fs.merge_w_geometry(*dims, dtype)[0] == "streamed"
+        assert fs.merge_w_geometry(*dims, dtype)[0] == want
 
 
 def test_staged_builds_are_cached_by_shape():

@@ -155,14 +155,16 @@ def test_every_sketch_sweep_shape_fits(D):
 
 
 def test_shape_over_the_limit_raises():
-    """Past the shared-memory limit each of the three kernels raises where
-    it is forced; unforced, the streamed kernel takes the shape."""
-    for dims, dtype in ((_sweep_dims(40, 40, 40), F32),
-                        (_sweep_dims(20, 20, 20), F64)):
+    """Past the shared-memory limit each of the three single-block kernels
+    raises where it is forced; unforced, the wide cluster kernel takes the
+    shape where a cluster holds it (f64 D=20), the streamed kernel beyond
+    (f32 D=40)."""
+    for dims, dtype, want in ((_sweep_dims(40, 40, 40), F32, "streamed"),
+                              (_sweep_dims(20, 20, 20), F64, "wide")):
         for v in ("staged", "cluster", "base"):
             with pytest.raises(ValueError, match="shared memory"):
                 fs.merge_f_geometry(*dims, dtype, variant=v)
-        assert fs.merge_f_geometry(*dims, dtype)[0] == "streamed"
+        assert fs.merge_f_geometry(*dims, dtype)[0] == want
 
 
 @pytest.mark.parametrize("variant", [None, "staged", "base", "cluster",

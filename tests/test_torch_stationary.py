@@ -17,6 +17,12 @@
 * One sweep, then six, of stationary SIS on the infinite 3-regular and
   (3, 3) bipartite graphs at D=4, against JAX's to 1e-9.
 * The bipartite (3, 3) graph's fixed point equal to the 3-regular one.
+* A ``prob_yy`` that reads the degree (SIS whose d1-th neighbour passes
+  its infection with a probability set by d1) on a star of degree 4, whose
+  suffix folds take ``pyy_at(1)`` in both packages: both stationary
+  iterates agree to 1e-12 and reach long-horizon finite-T BP (T=5,
+  Aitken-extrapolated over t = 3, 4, 5) to 1e-4, while the degree
+  dependence moves the beliefs by over 1e-2.
 
 The golden anchor of ``tests/test_stationary.py:108-129`` (D=12, 28
 sweeps) takes ~90 s in the port on one CPU thread, over this file's
@@ -290,3 +296,81 @@ def test_stationary_needs_constant_tables_and_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsis.mpbp_stationary_sis(tsis.SIS(g, 0.2, 0.1, T=0))
+
+
+# ---------------------------------------------------------------------------
+# a prob_yy that reads the degree (ROADMAP Queue 3 item 2)
+# ---------------------------------------------------------------------------
+
+#: the probability that the d1-th neighbour folded in passes its infection
+#: (the first always does, so folding the empty y0 core changes nothing)
+CROWDING = (1.0, 0.35, 0.8, 0.5)
+STAR = (5, [(0, 1), (0, 2), (0, 3), (0, 4)])
+CROWDED_RATES = dict(lam=0.5, rho=0.6, alpha=0.3)
+
+
+def _crowded(base):
+    class CrowdedSIS(base):
+        """SIS whose accumulated infection takes the new neighbour's with
+        probability CROWDING[d1]: ``prob_yy`` reads the degree."""
+
+        def prob_yy(self, y, y1, y2, xi, d1, d2):
+            p = 1.0 if y1 == 1 else (CROWDING[min(d1, 3)] if y2 == 1
+                                     else 0.0)
+            return p if y == 1 else 1.0 - p
+    return CrowdedSIS
+
+
+@pytest.fixture(scope="module")
+def crowded_star():
+    """Both packages' stationary iterates (to tol 1e-12) and the port's
+    finite-T beliefs (T=5, ``qr`` at TruncThresh(0), exact on the star) of
+    the degree-dependent SIS on a star of degree 4, and the port's
+    stationary beliefs of plain SIS."""
+    N, edges = STAR
+    jg, tg = mp.graph_from_edges(N, edges), tp.graph_from_edges(N, edges)
+    jt = mp.build_tables(jg, [_crowded(jsis.SISFactorSpec)(**CROWDED_RATES)]
+                         * N)
+    tt = tp.build_tables(tg, [_crowded(tsis.SISFactorSpec)(**CROWDED_RATES)]
+                         * N)
+    assert not torch.equal(tt.Pyy[0, 1], tt.Pyy[0, 2])   # reads d1
+    jb, _, _, _ = js.iterate_stationary(
+        js.mpbp_stationary(jg, jt), maxiter=40, trunc=js.TruncVUMPS(4),
+        tol=1e-12)
+    tb, n, _, _ = ts.iterate_stationary(
+        ts.mpbp_stationary(tg, tt, device="cpu"), maxiter=40,
+        trunc=ts.TruncVUMPS(4), tol=1e-12)
+    assert n < 40
+    fb = tp.mpbp(tg, tt, T=5, D=16, device="cpu")
+    fb, _, _ = tp.iterate(fb, maxiter=10, trunc=tp.TruncThresh(0.0),
+                          tol=1e-13, method="qr")
+    sis = tp.build_tables(tg, [tsis.SISFactorSpec(**CROWDED_RATES)] * N)
+    sb, _, _, _ = ts.iterate_stationary(
+        ts.mpbp_stationary(tg, sis, device="cpu"), maxiter=40,
+        trunc=ts.TruncVUMPS(4), tol=1e-12)
+    return {"jax": jb, "port": tb, "finite": tp.beliefs(fb).numpy(),
+            "sis": ts.beliefs_stationary(sb)}
+
+
+def test_degree_dependent_pyy_stationary_matches_jax(crowded_star):
+    jb, tb = crowded_star["jax"], crowded_star["port"]
+    _close(js.beliefs_stationary(jb), ts.beliefs_stationary(tb), 1e-12)
+    _close(np.asarray(jb.f), tb.f.numpy(), 1e-12)
+    _close(js.pair_beliefs_stationary(jb), ts.pair_beliefs_stationary(tb),
+           1e-12)
+
+
+def test_degree_dependent_pyy_stationary_matches_finite_t(crowded_star):
+    """Both stationary iterates reach the finite-T beliefs' limit (Aitken's
+    extrapolation over t = 3, 4, 5: the beliefs approach it by a factor
+    ~-0.4 a step) to 1e-4: the suffix folds' ``pyy_at(1)`` is the table
+    finite-T BP folds its suffixes with; the degree dependence moves the
+    fixed point by over 1e-2, so a misused table would show."""
+    b = crowded_star["finite"]
+    d1, d2 = b[:, -1] - b[:, -2], b[:, -2] - b[:, -3]
+    limit = b[:, -1] - d1 * d1 / (d1 - d2)
+    port = ts.beliefs_stationary(crowded_star["port"])
+    _close(port, limit, 1e-4)
+    _close(np.asarray(js.beliefs_stationary(crowded_star["jax"])), limit,
+           1e-4)
+    assert np.abs(port - crowded_star["sis"]).max() > 1e-2
